@@ -79,8 +79,9 @@ def test_cg_matches_jax(problem, check_every, precond):
         jkw = dict(M=jax_mg(problem["jl"], nu1=1, nu2=1, use_pallas=False),
                    M_dot=jax_mg(problem["jl"], nu1=1, nu2=1,
                                 use_pallas=False, with_dot=True))
-        tkw = dict(M=mg_preconditioner(problem["tl"]),
-                   M_dot=mg_preconditioner(problem["tl"], with_dot=True),
+        tkw = dict(M=mg_preconditioner(problem["tl"], nu1=1, nu2=1),
+                   M_dot=mg_preconditioner(problem["tl"], nu1=1, nu2=1,
+                                           with_dot=True),
                    matvec_dot=lambda v: stencil_apply(tA.data, v, tA.offsets,
                                                       with_dot=True))
     tol = 1e-10 if precond == "mg" else 1e-8
@@ -103,7 +104,8 @@ def test_cg_fixed_matches_jax(problem):
         lambda v: stencil_matvec(jA.data, jA.offsets, v), problem["jb"],
         jnp.int32(5), M=jax_mg(problem["jl"], nu1=1, nu2=1, use_pallas=False))
     x, r = cg_fixed(tA.matvec, problem["tb"], 5,
-                    M_dot=mg_preconditioner(problem["tl"], with_dot=True))
+                    M_dot=mg_preconditioner(problem["tl"], nu1=1, nu2=1,
+                                            with_dot=True))
     assert _rel(x, x_ref) <= 1e-9       # float64, reordered sums
     assert _rel(r, r_ref) <= 1e-9
 

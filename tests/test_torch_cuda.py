@@ -1,4 +1,5 @@
-"""CUDA kernels K1-K4 against their plain PyTorch versions on the card.
+"""CUDA kernels K1-K4, B4 and B5 against their plain PyTorch versions on
+the card.
 
 Every test here needs an NVIDIA GPU with nvcc (sm_90a) and skips without
 one.  This file imports neither JAX nor the JAX package, so it runs on a
@@ -16,6 +17,10 @@ from tpufem_torch.fem.quadrature import tetrahedron_rule
 from tpufem_torch.mesh.box import _KUHN_TETS
 from tpufem_torch.mesh.core import StructuredInfo
 from tpufem_torch.ops import fused_system_cuda, mg_transfer_cuda, stencil_cuda
+from tpufem_torch.ops.stencil_cuda import (const_stencil_apply,
+                                           const_stencil_apply_plain,
+                                           stencil_fused_apply,
+                                           stencil_fused_apply_plain)
 from tpufem_torch.ops.fused_system_cuda import (
     build_poisson_system, build_poisson_system_plain,
     node_coords_embedded_from_grid)
@@ -23,7 +28,9 @@ from tpufem_torch.ops.mg_transfer_cuda import (
     const_prolong_add_smooth_embedded, const_prolong_add_smooth_plain,
     const_residual_restrict_embedded, const_residual_restrict_plain)
 from tpufem_torch.ops.stencil_cuda import stencil_apply, stencil_apply_plain
+from tpufem_torch.solve.bc import constrained_operator
 from tpufem_torch.solve.multigrid import build_poisson_multigrid
+from tpufem_torch.sparse.stencil import StencilMatrix
 from tpufem_torch.solve.poisson import RhsFunction, model_problem_3d_planes
 from tpufem_torch.solve.structured_fast import solve_poisson_fast
 
@@ -33,6 +40,9 @@ pytestmark = pytest.mark.cuda
 # another order (and with FMA contraction), so fields agree to a few ulps
 # of the largest entry; fp64 dots are accumulated in fp64 on both sides.
 _TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# (coefficient type, vector type) pairs of the general stencil kernel
+_DATA_VEC = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+             (torch.float64, torch.float64)]
 _DTYPES = [torch.float32, torch.float64]
 
 
@@ -117,7 +127,7 @@ def test_stencil_kernel_matches_plain(dev, dtype, with_dot):
 @pytest.mark.parametrize("with_dot", [False, True])
 def test_transfer_kernels_match_plain(dev, n, dtype, with_dot):
     lv = build_poisson_multigrid((-3.0, 3.0), n, dtype=dtype, coarse_max=4,
-                                 device=dev)
+                                 operator="const", device=dev)
     lf, lc = lv[0], lv[1]
     g = torch.Generator(device="cpu").manual_seed(n)
 
@@ -151,6 +161,116 @@ def test_solve_poisson_fast_cuda_matches_cpu(dev):
                              device=dev, **kw)
     cpu = solve_poisson_fast((-3.0, 3.0), 16, model_problem_3d_planes(),
                              device="cpu", **kw)
+    assert gpu.cg.converged and gpu.cg.iterations == cpu.cg.iterations
+    u = cpu.u
+    assert (gpu.u.cpu() - u).abs().max() <= 1e-9 * u.abs().max()
+    assert all(c.launches > b for c, b in zip(counters, before))
+
+
+def _dot_close(d, d_ref):
+    assert abs(d.item() - d_ref.item()) <= 1e-4 * max(abs(d_ref.item()), 1.0)
+
+
+@pytest.mark.parametrize("data_vec", _DATA_VEC, ids=str)
+@pytest.mark.parametrize("epilogue,with_dot", [("residual", False),
+                                               ("smooth", False),
+                                               ("smooth", True)])
+def test_general_stencil_kernel_matches_plain(dev, data_vec, epilogue,
+                                              with_dot):
+    dt, vt = data_vec
+    lv = build_poisson_multigrid((-3.0, 3.0), 12, dtype=vt, coarse_max=4,
+                                 device=dev)[0]
+    data = lv.data.to(dt)
+    inv_diag = lv.inv_diag.to(dt) if epilogue == "smooth" else None
+    g = torch.Generator(device="cpu").manual_seed(1)
+    x, b = (torch.randn(lv.plan.num_store_rows, generator=g,
+                        dtype=vt).to(dev) for _ in range(2))
+    kw = dict(b=b, inv_diag=inv_diag, omega=0.8, with_dot=with_dot)
+    before = stencil_fused_apply.launches
+    out = stencil_fused_apply(epilogue, data, x, lv.plan.offsets, **kw)
+    ref = stencil_fused_apply_plain(epilogue, data, x, lv.plan.offsets, **kw)
+    torch.cuda.synchronize()
+    assert stencil_fused_apply.launches == before + 1
+    if with_dot:
+        (out, d), (ref, d_ref) = out, ref
+        _dot_close(d, d_ref)
+    _close(out, ref, vt)
+
+
+@pytest.mark.parametrize("code_vec", [(torch.float32, torch.float32),
+                                      (torch.bfloat16, torch.float32),
+                                      (torch.float64, torch.float64)],
+                         ids=str)
+@pytest.mark.parametrize("epilogue,with_dot", [("matvec", False),
+                                               ("residual", False),
+                                               ("smooth", False),
+                                               ("smooth", True)])
+def test_const_stencil_kernel_matches_plain(dev, code_vec, epilogue,
+                                            with_dot):
+    ct, vt = code_vec
+    lv = build_poisson_multigrid((-3.0, 3.0), 12, dtype=vt, coarse_max=4,
+                                 operator="const", device=dev)[0]
+    g = torch.Generator(device="cpu").manual_seed(2)
+    x, b = (torch.where(lv.code.cpu() != 0, torch.randn(
+        lv.plan.num_store_rows, generator=g, dtype=vt), 0.0).to(dev)
+            for _ in range(2))
+    kw = dict(b=None if epilogue == "matvec" else b, omega=0.8,
+              with_dot=with_dot)
+    args = (lv.weights, lv.code.to(ct), x, lv.plan.offsets)
+    out = const_stencil_apply(epilogue, *args, **kw)
+    ref = const_stencil_apply_plain(epilogue, *args, **kw)
+    # the code plane's type does not change the kernel's result
+    same = const_stencil_apply(epilogue, lv.weights, lv.code, x,
+                               lv.plan.offsets, **kw)
+    torch.cuda.synchronize()
+    if with_dot:
+        (out, d), (ref, d_ref), (same, _) = out, ref, same
+        _dot_close(d, d_ref)
+    _close(out, ref, vt)
+    assert torch.equal(out, same)
+
+
+def test_stencil_matrix_matvec_launches_k2(dev):
+    lv = build_poisson_multigrid((-3.0, 3.0), 8, dtype=torch.float64,
+                                 device=dev)[0]
+    x = torch.randn(lv.plan.num_store_rows, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(3)).to(dev)
+    before = stencil_cuda.stencil_apply.launches
+    y = StencilMatrix(lv.data, lv.plan.offsets).matvec(x)
+    assert stencil_cuda.stencil_apply.launches == before + 1
+    _close(y, stencil_cuda.stencil_apply_plain(lv.data, x, lv.plan.offsets),
+           torch.float64)
+
+
+def test_constrained_operator_numpy_mask_on_cuda(dev):
+    """A host (numpy) mask with vectors on the card: the wrapper follows
+    the vectors' device and agrees with the CPU result."""
+    lv = build_poisson_multigrid((-3.0, 3.0), 8, dtype=torch.float64,
+                                 device="cpu")[0]
+    mask = lv.bc_mask.numpy()
+    x = torch.randn(lv.plan.num_store_rows, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(4))
+    op = constrained_operator(StencilMatrix(lv.data.to(dev),
+                                            lv.plan.offsets).matvec, mask)
+    ref = constrained_operator(StencilMatrix(lv.data,
+                                             lv.plan.offsets).matvec, mask)
+    y = op(x.to(dev))
+    assert y.device == x.to(dev).device
+    _close(y.cpu(), ref(x), torch.float64)
+
+
+@pytest.mark.parametrize("kw", [dict(precond="general"),
+                                dict(precond="general",
+                                     g=lambda x, y, z: x + 2 * y + 3 * z)],
+                         ids=["general", "general+g"])
+def test_solve_poisson_fast_general_cuda_matches_cpu(dev, kw):
+    counters = [stencil_cuda.stencil_apply, stencil_cuda.stencil_fused_apply]
+    before = [c.launches for c in counters]
+    common = dict(tol=1e-10, dtype=torch.float64, **kw)
+    gpu = solve_poisson_fast((-3.0, 3.0), 16, model_problem_3d_planes(),
+                             device=dev, **common)
+    cpu = solve_poisson_fast((-3.0, 3.0), 16, model_problem_3d_planes(),
+                             device="cpu", **common)
     assert gpu.cg.converged and gpu.cg.iterations == cpu.cg.iterations
     u = cpu.u
     assert (gpu.u.cpu() - u).abs().max() <= 1e-9 * u.abs().max()

@@ -96,7 +96,8 @@ def test_v_cycle_matches_jax(hier, final_dot):
     r = _rand(jl[0], 8)
     ref = jax_v_cycle(jl, jnp.asarray(r), nu1=1, nu2=1, use_pallas=False,
                       final_dot=final_dot)
-    out = v_cycle(tl, torch.as_tensor(r), final_dot=final_dot)
+    out = v_cycle(tl, torch.as_tensor(r), nu1=1, nu2=1,
+                  final_dot=final_dot)
     if final_dot:
         (out, d), (ref, d_ref) = out, ref
         assert abs(float(d) - float(d_ref)) <= 1e-12 * max(abs(float(d_ref)),
@@ -108,7 +109,7 @@ def test_preconditioner_matches_jax_and_launches_nothing(hier):
     jl, tl = hier
     r = _rand(jl[0], 9)
     z_ref = jax_mg(jl, nu1=1, nu2=1, use_pallas=False)(jnp.asarray(r))
-    z = mg_preconditioner(tl)(torch.as_tensor(r))
+    z = mg_preconditioner(tl, nu1=1, nu2=1)(torch.as_tensor(r))
     _close(z, z_ref)
     assert mg_transfer_cuda.const_residual_restrict_embedded.launches == 0
     assert mg_transfer_cuda.const_prolong_add_smooth_embedded.launches == 0

@@ -1,14 +1,25 @@
-"""Batch-trailing P1 element kernels on the host (numpy), as in
-tpufem.assemble.planar: coordinates are nested lists Xviews[t][n][d] of
-[*cell_grid] planes, so a structured grid passes zero-copy slices of its
-node-coordinate grid.  The slice uses them for the one-cell stiffness of
-the analytic multigrid hierarchy (float64); ``p1_gradients`` also serves
-the plain version of the fused build on torch tensors."""
+"""Batch-trailing P1 element kernels, as in tpufem.assemble.planar:
+coordinates are nested lists Xviews[t][n][d] of [*cell_grid] planes, so a
+structured grid passes zero-copy slices of its node-coordinate grid.  The
+planes may be numpy arrays (the one-cell stiffness of the analytic
+multigrid hierarchy, float64) or torch tensors (the host build behind
+``solve_poisson_fast(use_fused=False)``, and ``p1_gradients`` in the plain
+version of the fused build)."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["element_coord_views", "p1_gradients", "p1_stiffness_views"]
+from tpufem_torch.fem.elements import P1Tetrahedron
+
+__all__ = ["element_coord_views", "element_load_views", "p1_gradients",
+           "p1_stiffness_views"]
+
+
+def _stack(planes):
+    if isinstance(planes[0], torch.Tensor):
+        return torch.stack(planes)
+    return np.stack(planes)
 
 
 def _det_inv_3x3(J):
@@ -41,18 +52,39 @@ def p1_gradients(Xt):
     return G, det
 
 
-def p1_stiffness_views(Xviews) -> np.ndarray:
+def p1_stiffness_views(Xviews):
     """Xviews[t][n][d] of [*B] planes -> Ke [T, npe, npe, *B] (P1 Poisson
     stiffness on tetrahedra)."""
     out_t = []
     for Xt in Xviews:
         G, det = p1_gradients(Xt)
-        vol = np.abs(det) * (1.0 / 6.0)
+        vol = abs(det) * (1.0 / 6.0)
         npe = len(G)
-        out_t.append(np.stack([
-            np.stack([sum(G[a][d] * G[b][d] for d in range(3)) * vol
-                      for b in range(npe)]) for a in range(npe)]))
-    return np.stack(out_t)
+        out_t.append(_stack([
+            _stack([sum(G[a][d] * G[b][d] for d in range(3)) * vol
+                    for b in range(npe)]) for a in range(npe)]))
+    return _stack(out_t)
+
+
+def element_load_views(Xviews, rule, f_planes):
+    """Xviews[t][n][d] of [*B] planes -> be [T, npe, *B]:
+    b_a = sum_q w_q phi_a(q) f(x_q) |det J| (P1 tetrahedra)."""
+    phi = P1Tetrahedron().shape_values(rule.points)
+    w = rule.weights
+    out_t = []
+    for Xt in Xviews:
+        npe = len(Xt)
+        _, det = p1_gradients(Xt)
+        adet = abs(det)
+        acc = [0.0] * npe
+        for q in range(rule.num_points):
+            xq = [sum(float(phi[q, n]) * Xt[n][d] for n in range(npe))
+                  for d in range(3)]
+            fq = f_planes(*xq)
+            for a in range(npe):
+                acc[a] = acc[a] + (float(w[q]) * float(phi[q, a])) * fq
+        out_t.append(_stack([acc[a] * adet for a in range(npe)]))
+    return _stack(out_t)
 
 
 def element_coord_views(coords_grid: np.ndarray, info):

@@ -18,8 +18,10 @@ import numpy as np
 import torch
 
 from tpufem_torch.mesh.core import StructuredInfo
+from tpufem_torch.sparse.stencil import StencilMatrix
 
-__all__ = ["StructuredPlan", "structured_plan"]
+__all__ = ["StructuredPlan", "structured_plan",
+           "assemble_stencil_structured_bt", "assemble_vector_structured_bt"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -117,3 +119,46 @@ def structured_plan(info: StructuredInfo, embed: bool = False
                           offsets_grid=offsets_grid,
                           entry_k=entry_k, entry_shift=entry_shift,
                           store_grid=store_grid, embedded=embed)
+
+
+def _padded(plane, shift, cell_grid, store_grid):
+    """Zero-pad a cell-grid plane into store-grid position ``shift``."""
+    pads = []
+    for d in reversed(range(len(store_grid))):   # F.pad: last axis first
+        pads += [int(shift[d]), store_grid[d] - cell_grid[d] - int(shift[d])]
+    return torch.nn.functional.pad(plane, pads)
+
+
+def assemble_stencil_structured_bt(plan: StructuredPlan, Ke_bt
+                                   ) -> StencilMatrix:
+    """Batch-trailing element matrices Ke_bt [T, npe, npe, *cell_grid]
+    (assemble.planar) -> StencilMatrix [K, num_store_rows]: each stencil
+    plane is the sum of its entries' shifted planes, added in the
+    reference's order."""
+    info = plan.info
+    npe = info.type_node_offsets.shape[1]
+    planes = [None] * plan.width
+    for t in range(info.num_types):
+        for a in range(npe):
+            for b in range(npe):
+                k = int(plan.entry_k[t, a, b])
+                p = _padded(Ke_bt[t, a, b], plan.entry_shift[t, a, b],
+                            info.cell_grid, plan.store_grid)
+                planes[k] = p if planes[k] is None else planes[k] + p
+    zero = Ke_bt.new_zeros(plan.store_grid)
+    data = torch.stack([zero if p is None else p for p in planes])
+    return StencilMatrix(data.reshape(plan.width, -1), plan.offsets)
+
+
+def assemble_vector_structured_bt(plan: StructuredPlan, be_bt):
+    """Batch-trailing element loads be_bt [T, npe, *cell_grid] ->
+    RHS [num_store_rows]."""
+    info = plan.info
+    origin = plan.entry_shift[0, 0, 0] - info.type_node_offsets[0, 0]
+    b = None
+    for t in range(info.num_types):
+        for a in range(info.type_node_offsets.shape[1]):
+            p = _padded(be_bt[t, a], info.type_node_offsets[t, a] + origin,
+                        info.cell_grid, plan.store_grid)
+            b = p if b is None else b + p
+    return b.reshape(-1)

@@ -1,5 +1,6 @@
 // Shared device helpers of the port's kernels: a deterministic two-pass
-// dot product.
+// dot product, the widening load of stored coefficients, and the row of the
+// constant-coefficient (uniform-grid) operator.
 //
 // The TPU kernels accumulate a dot into one SMEM cell across their
 // sequential grid (tpufem/ops/stencil_pallas.py::_kernel_matvec_dot,
@@ -9,6 +10,7 @@
 // bit-reproducible from run to run, with no float atomics.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace tpufem {
@@ -44,6 +46,47 @@ __global__ void finish_dot_kernel(const double* __restrict__ partials, int n,
 
 inline unsigned int num_blocks(long long n) {
   return static_cast<unsigned int>((n + kBlock - 1) / kBlock);
+}
+
+// A stored value in its arithmetic type: bf16 coefficient planes widen to
+// fp32 on load (exactly), as the reference's products promote in-register.
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// The uniform-grid operator: K flat store offsets and the weights of an
+// interior row, passed to a kernel by value.
+template <int K>
+struct ConstStencil {
+  long long off[K];
+  double w[K];
+};
+
+// (A_const x)[q]: interior rows (code 1) apply the weights to the
+// interior-masked neighbours (a neighbour counts when ITS code is 1),
+// Dirichlet rows (code 2) are the identity, padding rows (code 0) are zero.
+// Neighbour indices outside [0, ns) read as padding.  The code plane may be
+// stored narrower than x (bf16 after cast_hierarchy): its values 0/1/2 are
+// exact in any type, so the result does not depend on it.
+template <int K, typename TC, typename T>
+__device__ __forceinline__ T const_apply(const TC* __restrict__ code,
+                                         const T* __restrict__ x,
+                                         long long q, long long ns,
+                                         const ConstStencil<K>& st) {
+  const T c = T(widen(code[q]));
+  if (c != T(1)) return c == T(2) ? x[q] : T(0);
+  T acc = T(0);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const long long j = q + st.off[k];
+    const bool in = j >= 0 && j < ns;
+    const long long jj = in ? j : q;
+    const T xj = x[jj];
+    acc += T(st.w[k]) * ((in && T(widen(code[jj])) == T(1)) ? xj : T(0));
+  }
+  return acc;
 }
 
 }  // namespace tpufem

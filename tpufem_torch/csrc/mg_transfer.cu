@@ -16,8 +16,10 @@
 // writes y.  Design: one thread per output node, neighbours read straight
 // from device memory (consecutive threads on consecutive x, so every plane
 // streams in coalesced lines; the 15-fold neighbour reuse is served by
-// L1/L2).  The TPU's 0/1 selection matmuls for stride-2 sampling become
-// direct 2i+1 indexing; its halo-row streams and roll wrap-around are gone:
+// L1/L2).  The row of A_const is tpufem::const_apply (common.cuh), shared
+// with the const stencil kernel B5 (csrc/const_stencil.cu).  The TPU's 0/1
+// selection matmuls for stride-2 sampling become direct 2i+1 indexing; its
+// halo-row streams and roll wrap-around are gone:
 // K3 only evaluates interior coarse rows, whose fine stencil never leaves
 // the node grid, and K4 injects only from coarse node positions.  The 15
 // weights, 1/w0 and omega arrive by value.  K4's dot is per-block fp64
@@ -33,13 +35,12 @@ namespace {
 constexpr int kOffsets = 15;
 
 struct ConstOp {
-  long long off[kOffsets];  // flat store offsets of the fine level
-  int dz[kOffsets];         // the same offsets as grid steps
+  tpufem::ConstStencil<kOffsets> st;  // fine-level flat offsets + weights
+  int dz[kOffsets];                   // the same offsets as grid steps
   int dy[kOffsets];
   int dx[kOffsets];
-  double w[kOffsets];       // stencil weights of interior rows
-  double inv_w0;            // 1 / w[offset 0]
-  double omega;             // Jacobi damping
+  double inv_w0;                      // 1 / w[offset 0]
+  double omega;                       // Jacobi damping
 };
 
 struct Dims {
@@ -54,28 +55,6 @@ __constant__ int kAdj[14][3] = {
     {-1, 0, 0}, {1, 0, 0},   {0, -1, 0},  {0, 1, 0},  {0, 0, -1},
     {0, 0, 1},  {-1, -1, 0}, {1, 1, 0},   {-1, 0, -1}, {1, 0, 1},
     {0, -1, -1}, {0, 1, 1},  {-1, -1, -1}, {1, 1, 1}};
-
-// (A_const x)[q]: interior rows apply the weights to the interior-masked
-// neighbours, Dirichlet rows are the identity, padding rows are zero.
-// Neighbour indices outside [0, ns) read as padding.
-template <typename T>
-__device__ __forceinline__ T const_apply(const T* __restrict__ code,
-                                         const T* __restrict__ x,
-                                         long long q, long long ns,
-                                         const ConstOp& op) {
-  const T c = code[q];
-  if (c != T(1)) return c == T(2) ? x[q] : T(0);
-  T acc = T(0);
-#pragma unroll
-  for (int k = 0; k < kOffsets; ++k) {
-    const long long j = q + op.off[k];
-    const bool in = j >= 0 && j < ns;
-    const long long jj = in ? j : q;
-    const T xj = x[jj];
-    acc += T(op.w[k]) * ((in && code[jj] == T(1)) ? xj : T(0));
-  }
-  return acc;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(tpufem::kBlock)
@@ -101,11 +80,11 @@ residual_restrict_kernel(const T* __restrict__ code_f,
   const long long nsf = static_cast<long long>(g.f0) * g.f1 * g.f2;
   const long long sy = g.f2, sz = static_cast<long long>(g.f1) * g.f2;
   const long long p = (2 * Z - 1) * sz + (2 * Y - 1) * sy + (2 * X - 1);
-  T acc = r[p] - const_apply<T>(code_f, e, p, nsf, op);
+  T acc = r[p] - tpufem::const_apply(code_f, e, p, nsf, op.st);
 #pragma unroll
   for (int j = 0; j < 14; ++j) {
     const long long q = p + kAdj[j][0] * sz + kAdj[j][1] * sy + kAdj[j][2];
-    acc += T(0.5) * (r[q] - const_apply<T>(code_f, e, q, nsf, op));
+    acc += T(0.5) * (r[q] - tpufem::const_apply(code_f, e, q, nsf, op.st));
   }
   rc[idx] = acc;
 }
@@ -161,12 +140,12 @@ prolong_add_smooth_kernel(const T* __restrict__ code_f,
       T acc = T(0);
 #pragma unroll
       for (int k = 0; k < kOffsets; ++k) {
-        const long long q = idx + op.off[k];
+        const long long q = idx + op.st.off[k];
         const bool in = q >= 0 && q < nsf;
         const long long qq = in ? q : idx;
         const T eq = e[qq] + prolonged(ec, sz + op.dz[k], sy + op.dy[k],
                                        sx + op.dx[k], g);
-        acc += T(op.w[k]) * ((in && code_f[qq] == T(1)) ? eq : T(0));
+        acc += T(op.st.w[k]) * ((in && code_f[qq] == T(1)) ? eq : T(0));
       }
       ax = acc;
     }
@@ -185,11 +164,11 @@ ConstOp make_op(const long long* offsets, const int* grid_offsets,
                 const double* weights, double inv_w0, double omega) {
   ConstOp op;
   for (int i = 0; i < kOffsets; ++i) {
-    op.off[i] = offsets[i];
+    op.st.off[i] = offsets[i];
     op.dz[i] = grid_offsets[3 * i];
     op.dy[i] = grid_offsets[3 * i + 1];
     op.dx[i] = grid_offsets[3 * i + 2];
-    op.w[i] = weights[i];
+    op.st.w[i] = weights[i];
   }
   op.inv_w0 = inv_w0;
   op.omega = omega;

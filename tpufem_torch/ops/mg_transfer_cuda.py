@@ -18,8 +18,9 @@ import ctypes
 import torch
 
 from tpufem_torch.ops._build import check_launch, load_library, stream_handle
-from tpufem_torch.solve.multigrid import (const_matvec_plain, prolong,
-                                          restrict)
+from tpufem_torch.ops.stencil_cuda import (const_matvec_plain,
+                                           const_stencil_apply_plain)
+from tpufem_torch.solve.multigrid import prolong, restrict
 
 __all__ = ["const_residual_restrict_embedded",
            "const_prolong_add_smooth_embedded",
@@ -62,14 +63,10 @@ def const_prolong_add_smooth_plain(weights, code_f, ec, r, e, fine_plan,
                                    with_dot: bool = False):
     """Plain PyTorch version of K4: prolong, embed, add, one const Jacobi
     sweep (and <r, y>)."""
-    k0 = fine_plan.offsets.index(0)
     ep = e + fine_plan.embed_field(prolong(_node_grid(coarse_plan, ec), 3))
-    inv_d = torch.where(code_f == 1.0,
-                        torch.full_like(code_f, 1.0 / float(weights[k0])),
-                        torch.ones_like(code_f))
-    y = ep + omega * inv_d * (
-        r - const_matvec_plain(weights, code_f, fine_plan.offsets, ep))
-    return (y, torch.dot(r, y)) if with_dot else y
+    return const_stencil_apply_plain("smooth", weights, code_f, ep,
+                                     fine_plan.offsets, b=r, omega=omega,
+                                     with_dot=with_dot)
 
 
 def _check(tensors, shapes, what):

@@ -1,14 +1,26 @@
-"""Stencil SpMV on the embedded layout: kernel K2 (csrc/stencil.cu).
+"""Stencil kernels on the embedded layout: K2, B4 (csrc/stencil.cu) and B5
+(csrc/const_stencil.cu).
 
-Replaces tpufem/ops/stencil_pallas.py::_kernel and ::_kernel_matvec_dot.
-``stencil_apply`` launches the CUDA kernel for a CUDA tensor (float32 or
-float64) and runs the plain version (``sparse.stencil.stencil_matvec``)
-for a CPU tensor.  What bounds the kernel and how its design answers that
-is noted in the CUDA source.
+K2 ``stencil_apply`` replaces tpufem/ops/stencil_pallas.py::_kernel and
+::_kernel_matvec_dot: y = A x (optionally <x, A x>).
+B4 ``stencil_fused_apply`` replaces ::_kernel_residual, ::_kernel_smooth
+and ::_kernel_smooth_dot: b - A x and the weighted-Jacobi sweep
+x + omega D^-1 (r - A x) (optionally <r, y>) of the general-coefficient
+operator, whose data may be bf16 under fp32 vectors.
+B5 ``const_stencil_apply`` replaces ::_kernel_const_matvec,
+::_kernel_const_residual, ::_kernel_const_smooth and
+::_kernel_const_smooth_dot: the same epilogues on the uniform-grid operator
+(K weights + row-type code plane).
+
+Each wrapper launches its CUDA kernel for a CUDA tensor and runs its plain
+PyTorch version (the ``*_plain`` functions here) for a CPU tensor; each
+counts its launches.  What bounds the kernels and how their design answers
+that is noted in the CUDA sources.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -16,22 +28,89 @@ from tpufem_torch.ops._build import check_launch, load_library, stream_handle
 from tpufem_torch.sparse.stencil import stencil_matvec
 
 __all__ = ["stencil_apply", "stencil_apply_plain",
-           "stencil_matvec_embedded", "stencil_matvec_dot_embedded"]
+           "stencil_fused_apply", "stencil_fused_apply_plain",
+           "const_stencil_apply", "const_stencil_apply_plain",
+           "const_matvec_plain", "omega_inv_diag",
+           "stencil_matvec_embedded", "stencil_matvec_dot_embedded",
+           "stencil_residual_embedded", "stencil_smooth_embedded",
+           "stencil_smooth_dot_embedded",
+           "const_matvec_embedded", "const_residual_embedded",
+           "const_smooth_embedded", "const_smooth_dot_embedded"]
 
 _P = ctypes.c_void_p
-_SIGNATURES = {
-    "tpufem_stencil_matvec_f32": (_P, _P, _P, _P, _P, ctypes.c_longlong, _P,
-                                  ctypes.c_int, _P),
-    "tpufem_stencil_matvec_f64": (_P, _P, _P, _P, _P, ctypes.c_longlong, _P,
-                                  ctypes.c_int, _P),
-    "tpufem_num_blocks": (ctypes.c_longlong,),
-}
-_ENTRY = {torch.float32: "tpufem_stencil_matvec_f32",
-          torch.float64: "tpufem_stencil_matvec_f64"}
+_LL = ctypes.c_longlong
+_I = ctypes.c_int
+_D = ctypes.c_double
+_STENCIL_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _LL, _P, _I, _D, _P)
+_CONST_ARGS = (_I, _P, _P, _P, _P, _P, _P, _LL, _P, _P, _I, _D, _D, _P)
+_STENCIL_ENTRY = {(torch.float32, torch.float32): "tpufem_stencil_f32",
+                  (torch.bfloat16, torch.float32): "tpufem_stencil_bf16_f32",
+                  (torch.float64, torch.float64): "tpufem_stencil_f64"}
+_CONST_ENTRY = {
+    (torch.float32, torch.float32): "tpufem_const_stencil_f32",
+    (torch.bfloat16, torch.float32): "tpufem_const_stencil_bf16_f32",
+    (torch.float64, torch.float64): "tpufem_const_stencil_f64"}
+_EPILOGUE = {"matvec": 0, "residual": 1, "smooth": 2}
+_STENCIL_SIGNATURES = dict(
+    {e: _STENCIL_ARGS for e in _STENCIL_ENTRY.values()},
+    tpufem_num_blocks=(_LL,))
+_CONST_SIGNATURES = dict({e: _CONST_ARGS for e in _CONST_ENTRY.values()},
+                         tpufem_num_blocks=(_LL,))
 
 
-def _lib():
-    return load_library("stencil.cu", _SIGNATURES)
+def _stencil_lib():
+    return load_library("stencil.cu", _STENCIL_SIGNATURES)
+
+
+def _const_lib():
+    return load_library("const_stencil.cu", _CONST_SIGNATURES)
+
+
+def _epilogue(name, allowed):
+    if name not in allowed:
+        raise ValueError(f"epilogue {name!r}: one of {allowed}")
+    return _EPILOGUE[name]
+
+
+def _check_vectors(what, x, vectors):
+    """x and the epilogue's other vectors: contiguous 1-D of one type on
+    one device."""
+    for v in (x, *vectors):
+        if (v.dim() != 1 or v.shape != x.shape or v.dtype != x.dtype
+                or v.device != x.device or not v.is_contiguous()):
+            raise ValueError(f"{what}: expected contiguous {x.dtype} "
+                             f"[{x.shape[0]}] on {x.device}, got "
+                             f"{tuple(v.shape)} {v.dtype} {v.device}")
+
+
+def _dot_buffers(lib, x, with_dot):
+    """(dot, fp64 partials) of a launch with a dot, else (None, None)."""
+    if not with_dot:
+        return None, None
+    return (torch.empty((), dtype=x.dtype, device=x.device),
+            torch.empty(lib.tpufem_num_blocks(x.shape[0]),
+                        dtype=torch.float64, device=x.device))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+# -- general-coefficient stencil: K2 (matvec) and B4 (residual, sweep) -------
+
+@functools.lru_cache(maxsize=None)
+def _rounded(omega: float, dtype: torch.dtype) -> float:
+    """omega rounded to ``dtype`` (a Python float; exact for fp32/fp64)."""
+    return torch.tensor(omega, dtype=dtype).item()
+
+
+def omega_inv_diag(omega, inv_diag):
+    """omega * inv_diag rounded to inv_diag's type: the reference's weakly
+    typed scalar meets a bf16 plane in bf16, and the product widens only
+    when it meets the fp32 residual.  (The product of two bf16 values is
+    exact in torch's fp32 arithmetic, so rounding omega first and then the
+    product equals the bf16 product.)"""
+    return inv_diag * _rounded(float(omega), inv_diag.dtype)
 
 
 def stencil_apply_plain(data, x, offsets, *, with_dot: bool = False):
@@ -40,52 +119,232 @@ def stencil_apply_plain(data, x, offsets, *, with_dot: bool = False):
     return (y, torch.dot(x, y)) if with_dot else y
 
 
+def stencil_fused_apply_plain(epilogue: str, data, x, offsets, *, b,
+                              inv_diag=None, omega: float = 0.8,
+                              with_dot: bool = False):
+    """Plain PyTorch version of B4 (any device): ``"residual"`` b - A x,
+    ``"smooth"`` x + (omega inv_diag) (b - A x), with ``with_dot`` also
+    <b, y>."""
+    _epilogue(epilogue, ("residual", "smooth"))
+    resid = b - stencil_matvec(data, offsets, x)
+    if epilogue == "residual":
+        return resid
+    y = x + omega_inv_diag(omega, inv_diag) * resid
+    return (y, torch.dot(b, y)) if with_dot else y
+
+
+def _launch_stencil(counter, epilogue, data, x, offsets, b, inv_diag, omega,
+                    with_dot, what):
+    entry = _STENCIL_ENTRY.get((data.dtype, x.dtype))
+    if entry is None:
+        raise TypeError(f"{what}: takes (data, vector) types "
+                        f"{sorted(_STENCIL_ENTRY, key=str)}, got "
+                        f"({data.dtype}, {x.dtype})")
+    n = x.shape[0]
+    _check_vectors(what, x, [] if b is None else [b])
+    for t, shape in ((data, (len(offsets), n)), (inv_diag, (n,))):
+        if t is not None and (t.device != x.device or t.dtype != data.dtype
+                              or tuple(t.shape) != shape
+                              or not t.is_contiguous()):
+            raise ValueError(f"{what}: expected contiguous {data.dtype} "
+                             f"{shape} on {x.device}, got {tuple(t.shape)} "
+                             f"{t.dtype} {t.device}")
+    lib = _stencil_lib()
+    with torch.cuda.device(x.device):
+        y = torch.empty_like(x)
+        dot, partials = _dot_buffers(lib, x, with_dot)
+        offs = (ctypes.c_longlong * len(offsets))(*offsets)
+        status = getattr(lib, entry)(
+            epilogue, data.data_ptr(), x.data_ptr(), _ptr(b), _ptr(inv_diag),
+            y.data_ptr(), _ptr(partials), _ptr(dot), n, offs, len(offsets),
+            float(omega), stream_handle())
+    check_launch(status, what)
+    counter.launches += 1
+    return (y, dot) if with_dot else y
+
+
 def stencil_apply(data: torch.Tensor, x: torch.Tensor, offsets, *,
                   with_dot: bool = False):
-    """y = A x for the flat-offset stencil ``data [K, N]``; with
+    """K2: y = A x for the flat-offset stencil ``data [K, N]``; with
     ``with_dot`` also <x, A x> as a 0-d tensor.  No host sync."""
     offsets = tuple(int(o) for o in offsets)
     if x.device.type == "cpu":
         return stencil_apply_plain(data, x, offsets, with_dot=with_dot)
-    n = x.shape[0]
-    if x.dtype not in _ENTRY:
-        raise TypeError(f"stencil kernel takes float32/float64, got {x.dtype}")
-    if (data.device != x.device or data.dtype != x.dtype
-            or tuple(data.shape) != (len(offsets), n) or x.dim() != 1):
-        raise ValueError(f"stencil kernel: data {tuple(data.shape)} "
-                         f"{data.dtype} {data.device} vs x {tuple(x.shape)} "
-                         f"{x.dtype} {x.device}, {len(offsets)} offsets")
-    if not (data.is_contiguous() and x.is_contiguous()):
-        raise ValueError("stencil kernel needs contiguous data and x")
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        y = torch.empty_like(x)
-        dot = partials = None
-        if with_dot:
-            dot = torch.empty((), dtype=x.dtype, device=x.device)
-            partials = torch.empty(lib.tpufem_num_blocks(n),
-                                   dtype=torch.float64, device=x.device)
-        offs = (ctypes.c_longlong * len(offsets))(*offsets)
-        status = getattr(lib, _ENTRY[x.dtype])(
-            data.data_ptr(), x.data_ptr(), y.data_ptr(),
-            None if partials is None else partials.data_ptr(),
-            None if dot is None else dot.data_ptr(),
-            n, offs, len(offsets), stream_handle())
-    check_launch(status, "stencil_matvec")
-    stencil_apply.launches += 1
-    return (y, dot) if with_dot else y
+    return _launch_stencil(stencil_apply, _EPILOGUE["matvec"], data, x,
+                           offsets, None, None, 0.0, with_dot,
+                           "stencil_matvec")
 
 
 stencil_apply.launches = 0
 
 
+def stencil_fused_apply(epilogue: str, data: torch.Tensor, x: torch.Tensor,
+                        offsets, *, b: torch.Tensor, inv_diag=None,
+                        omega: float = 0.8, with_dot: bool = False):
+    """B4: ``"residual"`` y = b - A x, or ``"smooth"`` the weighted-Jacobi
+    sweep y = x + omega inv_diag (b - A x), with ``with_dot`` also <b, y>.
+
+    ``data`` and ``inv_diag`` may be bf16 under fp32 vectors (they widen on
+    load).  No host sync."""
+    offsets = tuple(int(o) for o in offsets)
+    code = _epilogue(epilogue, ("residual", "smooth"))
+    if (epilogue == "smooth") != (inv_diag is not None) or (
+            with_dot and epilogue != "smooth"):
+        raise ValueError("the sweep (and only it) takes inv_diag and a dot")
+    if x.device.type == "cpu":
+        return stencil_fused_apply_plain(epilogue, data, x, offsets, b=b,
+                                         inv_diag=inv_diag, omega=omega,
+                                         with_dot=with_dot)
+    return _launch_stencil(stencil_fused_apply, code, data, x, offsets, b,
+                           inv_diag, omega, with_dot, "stencil_" + epilogue)
+
+
+stencil_fused_apply.launches = 0
+
+
+def _flat(data, plan):
+    return data.reshape(plan.width, -1)
+
+
 def stencil_matvec_embedded(data, x, plan):
     """y = A x on the embedded storage layout; data [K, NS] or
     [K, *store_grid], x [NS]."""
-    return stencil_apply(data.reshape(plan.width, -1), x, plan.offsets)
+    return stencil_apply(_flat(data, plan), x, plan.offsets)
 
 
 def stencil_matvec_dot_embedded(data, x, plan):
     """(A x, <x, A x>) in one pass — the PCG alpha-dot fused into the SpMV."""
-    return stencil_apply(data.reshape(plan.width, -1), x, plan.offsets,
-                         with_dot=True)
+    return stencil_apply(_flat(data, plan), x, plan.offsets, with_dot=True)
+
+
+def stencil_residual_embedded(data, b, x, plan):
+    """r = b - A x, fused in one pass."""
+    return stencil_fused_apply("residual", _flat(data, plan), x, plan.offsets,
+                               b=b)
+
+
+def stencil_smooth_embedded(data, r, x, inv_diag, plan, *,
+                            omega: float = 0.8):
+    """x + omega * inv_diag * (r - A x): one fused weighted-Jacobi sweep."""
+    return stencil_fused_apply("smooth", _flat(data, plan), x, plan.offsets,
+                               b=r, inv_diag=inv_diag, omega=omega)
+
+
+def stencil_smooth_dot_embedded(data, r, x, inv_diag, plan, *,
+                                omega: float = 0.8):
+    """(y, <r, y>) with y the fused Jacobi sweep — the PCG rz-dot fused into
+    the V-cycle's final fine-level smooth."""
+    return stencil_fused_apply("smooth", _flat(data, plan), x, plan.offsets,
+                               b=r, inv_diag=inv_diag, omega=omega,
+                               with_dot=True)
+
+
+# -- constant-coefficient (uniform-grid) stencil: B5 --------------------------
+
+def const_matvec_plain(weights, code: torch.Tensor, offsets,
+                       x: torch.Tensor) -> torch.Tensor:
+    """A_const x: interior rows apply the K weights to the interior-masked
+    neighbours, Dirichlet rows are the identity, padding rows are zero."""
+    interior = code == 1.0
+    xm = torch.where(interior, x, 0.0)
+    n = x.shape[0]
+    halo = int(max(abs(int(o)) for o in offsets))
+    xp = torch.nn.functional.pad(xm, (halo, halo))
+    y = torch.zeros_like(x)
+    for k, off in enumerate(offsets):
+        y = y + float(weights[k]) * xp[halo + int(off): halo + int(off) + n]
+    return torch.where(interior, y, 0.0) + torch.where(code == 2.0, x, 0.0)
+
+
+def _inv_w0(weights, offsets):
+    return 1.0 / float(weights[tuple(offsets).index(0)])
+
+
+def const_stencil_apply_plain(epilogue: str, weights, code, x, offsets, *,
+                              b=None, omega: float = 0.8,
+                              with_dot: bool = False):
+    """Plain PyTorch version of B5 (any device): ``"matvec"`` A x,
+    ``"residual"`` b - A x, ``"smooth"`` x + omega invd (b - A x) with
+    invd = 1/w0 on interior rows and 1 elsewhere (and ``with_dot`` <b, y>).
+    Every product runs in x's type, whatever the code plane's."""
+    _epilogue(epilogue, tuple(_EPILOGUE))
+    ax = const_matvec_plain(weights, code, offsets, x)
+    if epilogue == "matvec":
+        return ax
+    if epilogue == "residual":
+        return b - ax
+    inv_d = torch.where(code == 1.0,
+                        torch.full_like(x, _inv_w0(weights, offsets)),
+                        torch.ones_like(x))
+    y = x + omega * inv_d * (b - ax)
+    return (y, torch.dot(b, y)) if with_dot else y
+
+
+def const_stencil_apply(epilogue: str, weights, code: torch.Tensor,
+                        x: torch.Tensor, offsets, *, b=None,
+                        omega: float = 0.8, with_dot: bool = False):
+    """B5: ``"matvec"`` y = A x, ``"residual"`` y = b - A x or ``"smooth"``
+    y = x + omega invd (b - A x) of the uniform-grid operator (``weights``
+    K floats, ``code`` the row-type plane, which may be bf16); with
+    ``with_dot`` (sweep only) also <b, y>.  No host sync."""
+    offsets = tuple(int(o) for o in offsets)
+    code_id = _epilogue(epilogue, tuple(_EPILOGUE))
+    if (epilogue == "matvec") != (b is None) or (
+            with_dot and epilogue != "smooth"):
+        raise ValueError("matvec takes no b; only the sweep takes a dot")
+    if x.device.type == "cpu":
+        return const_stencil_apply_plain(epilogue, weights, code, x, offsets,
+                                         b=b, omega=omega, with_dot=with_dot)
+    what = "const_" + epilogue
+    entry = _CONST_ENTRY.get((code.dtype, x.dtype))
+    if entry is None:
+        raise TypeError(f"{what}: takes (code, vector) types "
+                        f"{sorted(_CONST_ENTRY, key=str)}, got "
+                        f"({code.dtype}, {x.dtype})")
+    if len(weights) != len(offsets):
+        raise ValueError(f"{what}: {len(weights)} weights for "
+                         f"{len(offsets)} offsets")
+    _check_vectors(what, x, [] if b is None else [b])
+    if (code.shape != x.shape or code.device != x.device
+            or not code.is_contiguous()):
+        raise ValueError(f"{what}: code {tuple(code.shape)} {code.device} "
+                         f"vs x {tuple(x.shape)} {x.device}")
+    lib = _const_lib()
+    k = len(offsets)
+    with torch.cuda.device(x.device):
+        y = torch.empty_like(x)
+        dot, partials = _dot_buffers(lib, x, with_dot)
+        status = getattr(lib, entry)(
+            code_id, code.data_ptr(), x.data_ptr(), _ptr(b), y.data_ptr(),
+            _ptr(partials), _ptr(dot), x.shape[0],
+            (ctypes.c_longlong * k)(*offsets),
+            (ctypes.c_double * k)(*(float(w) for w in weights)), k,
+            _inv_w0(weights, offsets), float(omega), stream_handle())
+    check_launch(status, what)
+    const_stencil_apply.launches += 1
+    return (y, dot) if with_dot else y
+
+
+const_stencil_apply.launches = 0
+
+
+def const_matvec_embedded(weights, code, x, plan):
+    """y = A x for the uniform-grid operator: ``weights`` K floats (one per
+    plan offset), ``code`` the row-type plane."""
+    return const_stencil_apply("matvec", weights, code, x, plan.offsets)
+
+
+def const_residual_embedded(weights, code, b, x, plan):
+    return const_stencil_apply("residual", weights, code, x, plan.offsets,
+                               b=b)
+
+
+def const_smooth_embedded(weights, code, r, x, plan, *, omega: float = 0.8):
+    return const_stencil_apply("smooth", weights, code, x, plan.offsets, b=r,
+                               omega=omega)
+
+
+def const_smooth_dot_embedded(weights, code, r, x, plan, *,
+                              omega: float = 0.8):
+    return const_stencil_apply("smooth", weights, code, x, plan.offsets, b=r,
+                               omega=omega, with_dot=True)

@@ -1,5 +1,4 @@
-"""Geometric multigrid for the uniform 3D box: the constant-coefficient
-preconditioner of the slice, as in tpufem.solve.multigrid.
+"""Geometric multigrid for the uniform 3D box, as in tpufem.solve.multigrid.
 
 Nesting is exact: the Kuhn split refines self-similarly under grid halving,
 so every non-coarse fine node lies on a coarse edge or diagonal and P1
@@ -9,15 +8,22 @@ interpolation is a 2-point average along it.  Factorization:
                             apply the constant-weight adjacency stencil W)
     P^T = sample2 . W      (W symmetric; sample even positions)
 
-with W = I + 0.5 * (Kuhn adjacency).  On the uniform box every interior row
-of every level carries the same K weights, so a level is K numbers plus a
-row-type ``code`` plane (1 interior, 2 Dirichlet, 0 padding): the V-cycle
-streams only vectors.  The coarsest level gets a dense inverse.
+with W = I + 0.5 * (Kuhn adjacency).  Two kinds of level:
 
-Ported here: the const hierarchy (``operator="const"``), the V-cycle along
-its fused-transfer branch with nu1 = nu2 = 1 (kernels K3 and K4 of
-``ops.mg_transfer_cuda``), the coarse dense inverse, and the plain
-transfer operators behind K3 and K4.
+  * ``MGLevel`` (``operator="general"``, the default): the assembled
+    stencil planes [K, NS] of the level's operator; the finest level may be
+    a given operator (``top=``), e.g. the fused build's.  Its sweeps and
+    residuals run kernel B4 (``ops.stencil_cuda``).
+  * ``ConstMGLevel`` (``operator="const"``): on the uniform box every
+    interior row carries the same K weights, so a level is K numbers plus a
+    row-type ``code`` plane (1 interior, 2 Dirichlet, 0 padding) and the
+    V-cycle streams only vectors.  Its sweeps run kernel B5; between two
+    const levels the transfers fuse into kernels K3 and K4
+    (``ops.mg_transfer_cuda``).
+
+The coarsest level gets a dense inverse when it has at most 20,000 nodes,
+else 20 damped Jacobi sweeps.  ``restrict``/``prolong`` stay plain PyTorch,
+as the reference computes them in XLA outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -33,9 +39,13 @@ from tpufem_torch.assemble.planar import (element_coord_views,
 from tpufem_torch.assemble.structured import StructuredPlan, structured_plan
 from tpufem_torch.mesh.box import _KUHN_TETS
 from tpufem_torch.mesh.core import StructuredInfo
+from tpufem_torch.ops import stencil_cuda as sc
+from tpufem_torch.ops.stencil_cuda import const_matvec_plain
+from tpufem_torch.sparse.stencil import stencil_matvec
 
-__all__ = ["prolong", "restrict", "ConstMGLevel", "const_matvec_plain",
-           "build_poisson_multigrid", "v_cycle", "mg_preconditioner"]
+__all__ = ["prolong", "restrict", "MGLevel", "ConstMGLevel",
+           "build_poisson_multigrid", "cast_hierarchy", "v_cycle",
+           "mg_preconditioner"]
 
 
 # -- transfer operators on plain node grids (the plain versions of K3/K4) --
@@ -86,22 +96,20 @@ def restrict(rf: torch.Tensor, dim: int) -> torch.Tensor:
     return _sample2(_transfer_stencil(rf))
 
 
-def const_matvec_plain(weights, code: torch.Tensor, offsets,
-                       x: torch.Tensor) -> torch.Tensor:
-    """A_const x: interior rows apply the K weights to the interior-masked
-    neighbours, Dirichlet rows are the identity, padding rows are zero."""
-    interior = code == 1.0
-    xm = torch.where(interior, x, 0.0)
-    n = x.shape[0]
-    halo = int(max(abs(int(o)) for o in offsets))
-    xp = torch.nn.functional.pad(xm, (halo, halo))
-    y = torch.zeros_like(x)
-    for k, off in enumerate(offsets):
-        y = y + float(weights[k]) * xp[halo + int(off): halo + int(off) + n]
-    return torch.where(interior, y, 0.0) + torch.where(code == 2.0, x, 0.0)
-
-
 # -- hierarchy ----------------------------------------------------------------
+
+@dataclasses.dataclass(eq=False)
+class MGLevel:
+    """General level: the embedded stencil planes of the level's operator
+    (``data [K, NS]``), its inverse diagonal (1 where the diagonal is 0)
+    and its Dirichlet mask."""
+
+    plan: StructuredPlan
+    data: torch.Tensor
+    inv_diag: torch.Tensor
+    bc_mask: torch.Tensor
+    coarse_inverse: Optional[torch.Tensor] = None   # dense [NN, NN], coarsest
+
 
 @dataclasses.dataclass(eq=False)
 class ConstMGLevel:
@@ -114,6 +122,10 @@ class ConstMGLevel:
     weights: tuple
     code: torch.Tensor
     coarse_inverse: Optional[torch.Tensor] = None
+
+    @property
+    def bc_mask(self) -> torch.Tensor:
+        return self.code == 2.0
 
     @functools.cached_property
     def inv_diag(self) -> torch.Tensor:
@@ -242,20 +254,37 @@ def _dense_inverse_from_raw(plan: StructuredPlan,
 
 
 _DENSE_COARSE_MAX = 20_000   # nodes of the coarsest level with a dense inverse
+_COARSE_SWEEPS = 20          # Jacobi sweeps on a coarsest level without one
 
 
 def build_poisson_multigrid(domain, n_cells: int, dim: int = 3, *,
                             levels: Optional[int] = None,
                             dtype: torch.dtype = torch.float32,
                             coarse_max: int = 8,
-                            device="cpu") -> List[ConstMGLevel]:
-    """Hierarchy of constant-coefficient Poisson levels on (domain)^3.
+                            use_pallas: bool = True,
+                            operator: str = "general",
+                            top: Optional[tuple] = None,
+                            device="cpu") -> list:
+    """Hierarchy of embedded Poisson operators on (domain)^3.
 
     Halves n_cells while even and > ``coarse_max`` (at most ``levels``
-    levels); every level is analytic (one cell's stiffness), and the
-    coarsest gets a dense inverse.  This is the reference's
-    ``operator="const"`` hierarchy, the only one ported.
+    levels).  Levels are analytic: the grid is uniform, so each level's
+    operator is T*npe^2 constant slice-adds of one cell's stiffness.
+
+    ``operator="general"`` (default) builds ``MGLevel``s with assembled
+    planes in ``dtype``; ``top=(data, bc_mask)`` supplies the finest level
+    instead (e.g. the fused build's operator), which the level then shares
+    with no copy, its inverse diagonal computed on the device.
+    ``operator="const"`` builds ``ConstMGLevel``s (``top`` is rejected: the
+    fine level is analytic too).  The coarsest level gets a dense inverse
+    if it has at most 20,000 nodes; otherwise the V-cycle damps it with
+    Jacobi sweeps.  ``use_pallas`` is accepted for call compatibility with
+    the reference; the build does not depend on it.
     """
+    if operator not in ("general", "const"):
+        raise ValueError(f"operator {operator!r}: general | const")
+    if operator == "const" and top is not None:
+        raise ValueError("operator='const' is fully analytic; drop top=")
     sizes = [n_cells]
     while (sizes[-1] % 2 == 0 and sizes[-1] > coarse_max
            and (levels is None or len(sizes) < levels)):
@@ -263,71 +292,216 @@ def build_poisson_multigrid(domain, n_cells: int, dim: int = 3, *,
 
     np_dtype = torch.empty((), dtype=dtype).numpy().dtype
     out = []
-    for s in sizes:
+    for li, s in enumerate(sizes):
         info, _, bc_grid = _light_grid(domain, s, dim, with_coords=False)
         plan = structured_plan(info, embed=True)
-        w = _uniform_weights(plan, _uniform_cell_stiffness(domain, s, dim))
-        code_np = _embed_grid_numpy(np.where(bc_grid, 2.0, 1.0),
-                                    plan.store_grid, fill=0.0)
-        out.append(ConstMGLevel(
-            plan=plan, weights=tuple(float(v) for v in w),
-            code=torch.as_tensor(code_np.astype(np_dtype), device=device)))
+        if li == 0 and top is not None:
+            data = torch.as_tensor(top[0], device=device)
+            bc = torch.as_tensor(top[1], dtype=torch.bool, device=device)
+            d = data[plan.offsets.index(0)]
+            out.append(MGLevel(plan=plan, data=data,
+                               inv_diag=torch.where(d != 0, 1.0 / d, 1.0),
+                               bc_mask=bc))
+            continue
+        Ke_one = _uniform_cell_stiffness(domain, s, dim)
+        if operator == "const":
+            w = _uniform_weights(plan, Ke_one)
+            code_np = _embed_grid_numpy(np.where(bc_grid, 2.0, 1.0),
+                                        plan.store_grid, fill=0.0)
+            out.append(ConstMGLevel(
+                plan=plan, weights=tuple(float(v) for v in w),
+                code=torch.as_tensor(code_np.astype(np_dtype),
+                                     device=device)))
+            continue
+        mask_np = _embed_grid_numpy(bc_grid, plan.store_grid, fill=False)
+        raw = _apply_bc_numpy(_uniform_stencil_data(plan, Ke_one, np_dtype),
+                              plan.offsets, mask_np)
+        d_np = raw[plan.offsets.index(0)]
+        with np.errstate(divide="ignore"):
+            inv_np = np.where(d_np != 0, 1.0 / d_np, 1.0).astype(np_dtype)
+        out.append(MGLevel(plan=plan, data=torch.as_tensor(raw, device=device),
+                           inv_diag=torch.as_tensor(inv_np, device=device),
+                           bc_mask=torch.as_tensor(mask_np, device=device)))
+
     last = out[-1]
     if int(np.prod(last.plan.info.node_grid)) > _DENSE_COARSE_MAX:
-        raise NotImplementedError(
-            "coarsest level too large for a dense inverse; the Jacobi "
-            "fallback needs the const smoother kernels, not ported yet")
-    _, _, bc_grid = _light_grid(domain, sizes[-1], dim, with_coords=False)
-    raw = _uniform_stencil_data(
-        last.plan, _uniform_cell_stiffness(domain, sizes[-1], dim))
-    raw = _apply_bc_numpy(raw, last.plan.offsets, _embed_grid_numpy(
-        bc_grid, last.plan.store_grid, fill=False))
+        return out
+    if operator == "const":
+        _, _, bc_grid = _light_grid(domain, sizes[-1], dim, with_coords=False)
+        raw = _apply_bc_numpy(
+            _uniform_stencil_data(last.plan, _uniform_cell_stiffness(
+                domain, sizes[-1], dim)), last.plan.offsets,
+            _embed_grid_numpy(bc_grid, last.plan.store_grid, fill=False))
+    else:
+        raw = last.data.cpu().double().numpy()
     last.coarse_inverse = torch.as_tensor(
         _dense_inverse_from_raw(last.plan, raw).astype(np_dtype),
         device=device)
     return out
 
 
-def v_cycle(levels: List[ConstMGLevel], r: torch.Tensor, *, li: int = 0,
-            omega: float = 0.8, final_dot: bool = False):
-    """One V-cycle for A e = r on level li (embedded vectors), nu1 = nu2 = 1.
+def cast_hierarchy(levels: list, dtype: torch.dtype) -> list:
+    """Hierarchy copy with the coefficient planes (data, inv_diag; the code
+    plane of a const level) cast to ``dtype``, typically bfloat16.
 
-    Between levels it runs the fused transfer kernels: K3 (residual +
-    restrict) and K4 (prolong + add + smooth).  ``final_dot=True`` (top level
-    only) returns ``(e, <r, e>)`` with the dot fused into the last K4.
+    The V-cycle is then a fixed linear operator built from the rounded
+    (still symmetric) level matrices, so MG-PCG stays valid; products
+    against the fp32 vectors widen in-register and only the coefficient
+    traffic shrinks.  The coarsest dense inverse keeps its type.  The given
+    levels, and a ``top=`` operator they share, are not touched.
     """
-    from tpufem_torch.ops.mg_transfer_cuda import (
-        const_prolong_add_smooth_embedded, const_residual_restrict_embedded)
+    out = []
+    for l in levels:
+        if isinstance(l, ConstMGLevel):
+            out.append(ConstMGLevel(plan=l.plan, weights=l.weights,
+                                    code=l.code.to(dtype),
+                                    coarse_inverse=l.coarse_inverse))
+        else:
+            out.append(MGLevel(plan=l.plan, data=l.data.to(dtype),
+                               inv_diag=l.inv_diag.to(dtype),
+                               bc_mask=l.bc_mask,
+                               coarse_inverse=l.coarse_inverse))
+    return out
 
+
+# -- level operators: kernels (use_pallas) or their plain versions -----------
+
+def _matvec_plain(level, x):
+    """A x of a level in plain PyTorch (the V-cycle's kernel path fuses
+    every product into a residual or a sweep)."""
+    if isinstance(level, ConstMGLevel):
+        return const_matvec_plain(level.weights, level.code,
+                                  level.plan.offsets, x)
+    return stencil_matvec(level.data, level.plan.offsets, x)
+
+
+def _smooth(level, r, e, omega: float, use_pallas: bool, with_dot=False):
+    """One weighted-Jacobi sweep e + omega D^-1 (r - A e) (a fused kernel
+    with ``use_pallas``); ``with_dot`` also returns <r, e_new>."""
+    if use_pallas and isinstance(level, ConstMGLevel):
+        fn = (sc.const_smooth_dot_embedded if with_dot
+              else sc.const_smooth_embedded)
+        return fn(level.weights, level.code, r, e, level.plan, omega=omega)
+    if use_pallas:
+        fn = (sc.stencil_smooth_dot_embedded if with_dot
+              else sc.stencil_smooth_embedded)
+        return fn(level.data, r, e, level.inv_diag, level.plan, omega=omega)
+    y = e + sc.omega_inv_diag(omega, level.inv_diag) * (
+        r - _matvec_plain(level, e))
+    return (y, torch.dot(r, y)) if with_dot else y
+
+
+def _residual(level, r, e, use_pallas: bool):
+    if use_pallas and isinstance(level, ConstMGLevel):
+        return sc.const_residual_embedded(level.weights, level.code, r, e,
+                                          level.plan)
+    if use_pallas:
+        return sc.stencil_residual_embedded(level.data, r, e, level.plan)
+    return r - _matvec_plain(level, e)
+
+
+def _grid(level, x_store):
+    """Embedded field -> plain node grid [ng]."""
+    return level.plan.extract_field(x_store).reshape(level.plan.info.node_grid)
+
+
+def _store(level, x_grid):
+    return level.plan.embed_field(x_grid.reshape(-1))
+
+
+def _can_fuse_transfers(levels, li, nu2, use_pallas, fuse_transfers):
+    """The fused transfer kernels (K3, K4) apply between consecutive 3D
+    const levels on the kernel path."""
+    return (fuse_transfers and use_pallas and nu2 >= 1
+            and isinstance(levels[li], ConstMGLevel)
+            and isinstance(levels[li + 1], ConstMGLevel)
+            and len(levels[li].plan.info.node_grid) == 3)
+
+
+def v_cycle(levels: list, r: torch.Tensor, *, li: int = 0, nu1: int = 2,
+            nu2: int = 2, omega: float = 0.8, use_pallas: bool = True,
+            final_dot: bool = False, fuse_transfers: bool = True):
+    """One V-cycle for A e = r on level li (embedded vectors); returns e.
+
+    ``nu1``/``nu2`` pre-/post-smoothing sweeps (the first from e = 0).
+    ``final_dot=True`` (top level, nu2 >= 1) returns ``(e, <r, e>)`` with the
+    dot fused into the last fine-level sweep.  ``use_pallas=False`` runs the
+    plain versions of every level operator.  Between two const levels
+    ``fuse_transfers`` runs K3 (residual + restrict) and K4 (prolong + add
+    + first post-sweep); otherwise the residual, restrict, prolong and the
+    sweeps run one by one.
+    """
     level = levels[li]
-    if final_dot and (li != 0 or li == len(levels) - 1):
-        raise ValueError("final_dot needs the top level of a multi-level "
-                         "hierarchy")
+    dim = len(level.plan.info.node_grid)
+    if final_dot and (li != 0 or nu2 < 1 or li == len(levels) - 1):
+        raise ValueError("final_dot needs the top level and nu2 >= 1")
+
     if li == len(levels) - 1:
-        e_nodes = level.coarse_inverse @ level.plan.extract_field(r)
-        return level.plan.embed_field(e_nodes)
+        if level.coarse_inverse is not None:
+            e_nodes = level.coarse_inverse @ level.plan.extract_field(r)
+            return level.plan.embed_field(e_nodes)
+        # no dense inverse: damp with extra Jacobi sweeps (still linear and
+        # symmetric, so PCG stays valid)
+        e = sc.omega_inv_diag(omega, level.inv_diag) * r
+        for _ in range(_COARSE_SWEEPS):
+            e = _smooth(level, r, e, omega, use_pallas)
+        return e
 
     coarse = levels[li + 1]
-    e = omega * level.inv_diag * r            # first Jacobi sweep from e = 0
-    rc = const_residual_restrict_embedded(level.weights, level.code,
-                                          coarse.code, r, e, level.plan,
-                                          coarse.plan)
-    ec = v_cycle(levels, rc, li=li + 1, omega=omega)
-    return const_prolong_add_smooth_embedded(
-        level.weights, level.code, ec, r, e, level.plan, coarse.plan,
-        omega=omega, with_dot=final_dot)
+    kw = dict(nu1=nu1, nu2=nu2, omega=omega, use_pallas=use_pallas,
+              fuse_transfers=fuse_transfers)
+    e = sc.omega_inv_diag(omega, level.inv_diag) * r   # first sweep, e = 0
+    for _ in range(nu1 - 1):
+        e = _smooth(level, r, e, omega, use_pallas)
+
+    if _can_fuse_transfers(levels, li, nu2, use_pallas, fuse_transfers):
+        from tpufem_torch.ops.mg_transfer_cuda import (
+            const_prolong_add_smooth_embedded,
+            const_residual_restrict_embedded)
+
+        rc = const_residual_restrict_embedded(level.weights, level.code,
+                                              coarse.code, r, e, level.plan,
+                                              coarse.plan)
+        ec = v_cycle(levels, rc, li=li + 1, **kw)
+        if final_dot and nu2 == 1:
+            return const_prolong_add_smooth_embedded(
+                level.weights, level.code, ec, r, e, level.plan, coarse.plan,
+                omega=omega, with_dot=True)
+        e = const_prolong_add_smooth_embedded(
+            level.weights, level.code, ec, r, e, level.plan, coarse.plan,
+            omega=omega)
+        for _ in range(nu2 - 1 - int(final_dot)):
+            e = _smooth(level, r, e, omega, use_pallas)
+        if final_dot:
+            return _smooth(level, r, e, omega, use_pallas, with_dot=True)
+        return e
+
+    resid = _residual(level, r, e, use_pallas)
+    rc = _store(coarse, restrict(_grid(level, resid), dim))
+    rc = torch.where(coarse.bc_mask, 0.0, rc)
+    ec = v_cycle(levels, rc, li=li + 1, **kw)
+    e = e + _store(level, prolong(_grid(coarse, ec), dim))
+    for _ in range(nu2 - int(final_dot)):
+        e = _smooth(level, r, e, omega, use_pallas)
+    if final_dot:
+        return _smooth(level, r, e, omega, use_pallas, with_dot=True)
+    return e
 
 
-def mg_preconditioner(levels: List[ConstMGLevel], *, omega: float = 0.8,
-                      with_dot: bool = False) -> Callable:
+def mg_preconditioner(levels: list, *, nu1: int = 2, nu2: int = 2,
+                      omega: float = 0.8, use_pallas: bool = True,
+                      with_dot: bool = False,
+                      fuse_transfers: bool = True) -> Callable:
     """M^-1 r = one V-cycle (SPD), for solve.cg.  ``with_dot=True`` returns
     an ``M_dot``: r -> (z, <r, z>) with the dot fused into the last pass."""
+    kw = dict(nu1=nu1, nu2=nu2, omega=omega, use_pallas=use_pallas,
+              fuse_transfers=fuse_transfers)
 
     def apply(r):
         if with_dot and len(levels) < 2:
             # a single level is just the coarse solve: no pass to fuse into
-            z = v_cycle(levels, r, omega=omega)
+            z = v_cycle(levels, r, **kw)
             return z, torch.dot(r, z)
-        return v_cycle(levels, r, omega=omega, final_dot=with_dot)
+        return v_cycle(levels, r, final_dot=with_dot, **kw)
 
     return apply

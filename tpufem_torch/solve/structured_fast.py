@@ -5,9 +5,12 @@ pipeline as one library call for 3D Poisson on the uniform box.
     sol = solve_poisson_fast((-3, 3), 96, model_problem_3d_planes(),
                              tol=1e-5, device="cuda")
 
-Fused system build (K1) + constant-coefficient MG-preconditioned CG with
-the stencil SpMV (K2) and the fused V-cycle transfers (K3, K4).  On a CPU
-device every kernel runs its plain PyTorch version.
+Fused system build (K1) + MG-preconditioned CG with the stencil SpMV (K2):
+the constant-coefficient hierarchy (default; fused V-cycle transfers K3,
+K4) or the general one (``precond="general"``: the finest level is the
+built operator, sweeps and residuals in B4).  Nonzero Dirichlet data
+``g`` is eliminated after the build (solve.bc).  On a CPU device every
+kernel runs its plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -15,16 +18,23 @@ import math
 import time
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from tpufem_torch.assemble.structured import structured_plan
+from tpufem_torch.assemble.planar import (element_coord_views,
+                                          element_load_views,
+                                          p1_stiffness_views)
+from tpufem_torch.assemble.structured import (assemble_stencil_structured_bt,
+                                              assemble_vector_structured_bt,
+                                              structured_plan)
 from tpufem_torch.fem.quadrature import tetrahedron_rule
 from tpufem_torch.ops.fused_system_cuda import (
     build_poisson_system, node_coords_embedded_from_grid)
 from tpufem_torch.ops.stencil_cuda import (stencil_matvec_dot_embedded,
                                            stencil_matvec_embedded)
+from tpufem_torch.solve.bc import apply_dirichlet_stencil
 from tpufem_torch.solve.cg import CGResult, cg
-from tpufem_torch.solve.multigrid import (_light_grid,
+from tpufem_torch.solve.multigrid import (_embed_grid_numpy, _light_grid,
                                           build_poisson_multigrid,
                                           mg_preconditioner)
 
@@ -43,6 +53,18 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _host_system(plan, coords_grid, f_planes, rule, dtype, bc_mask, g_emb):
+    """The unfused build on the host, as the reference pins it to its CPU
+    device: batch-trailing element planes in torch on the CPU, slice-added
+    into the stencil planes, then the Dirichlet elimination.  (A, b)."""
+    Xv = element_coord_views(torch.as_tensor(coords_grid, dtype=dtype),
+                             plan.info)
+    A = assemble_stencil_structured_bt(plan, p1_stiffness_views(Xv))
+    b = assemble_vector_structured_bt(
+        plan, element_load_views(Xv, rule, f_planes))
+    return apply_dirichlet_stencil(A, b, bc_mask, g_emb)
+
+
 def solve_poisson_fast(domain, n_cells: int, f_planes: Callable, *,
                        dim: int = 3, tol: float = 1e-5, maxiter: int = 60,
                        dtype: torch.dtype = torch.float32,
@@ -55,52 +77,76 @@ def solve_poisson_fast(domain, n_cells: int, f_planes: Callable, *,
                        precond: str = "const",
                        check_every: int = 4,
                        device="cpu") -> FastSolution:
-    """Assemble + solve -Δu = f on (domain)^3 with n_cells^3 cells, zero
-    Dirichlet data.
+    """Assemble + solve -Δu = f on (domain)^3 with n_cells^3 cells.
 
     ``f_planes(x, y, z)`` takes coordinate planes and returns one plane;
-    on a CUDA device it needs a C expression (solve.poisson.RhsFunction).
-    ``n_cells`` should halve down to <= 8 for the full hierarchy (e.g.
-    32/48/64/96/128).  ``use_multigrid=False`` preconditions with Jacobi.
-    ``check_every``: CG convergence-check batching (solve.cg).
+    on a CUDA device the fused build needs a C expression
+    (solve.poisson.RhsFunction).  ``n_cells`` should halve down to <= 8
+    for the full hierarchy (e.g. 32/48/64/96/128).
 
-    Not ported yet: nonzero Dirichlet data ``g``, ``precond="general"`` and
-    the unfused build ``use_fused=False``.
+    ``g``: Dirichlet data as ``g(x, y, z) -> plane``, evaluated on the
+    host's node coordinates; the build then emits the raw system and the
+    elimination moves g to the RHS.  Default None: zero data, eliminated
+    inside the build.
+
+    ``precond``: "const" (default) preconditions with the analytic
+    constant-coefficient hierarchy, valid for any Dirichlet data on this
+    box; "general" uses the assembled finest level (``top=``), the right
+    choice for an operator edited afterwards.  ``use_multigrid=False``
+    preconditions with Jacobi.  ``use_fused=False`` builds the system on
+    the host (torch on the CPU) and moves it to ``device``.
+    ``check_every``: CG convergence-check batching (solve.cg).
     """
-    if g is not None:
-        raise NotImplementedError("nonzero Dirichlet data is not ported yet")
-    if precond != "const":
-        raise NotImplementedError("only precond='const' is ported")
-    if not use_fused:
-        raise NotImplementedError("only the fused system build is ported")
+    if precond not in ("const", "general"):
+        raise ValueError(f"precond {precond!r}: const | general")
     if dim != 3:
         raise NotImplementedError("the port's fast path is 3D")
     phases = {}
 
     t0 = time.perf_counter()
-    info, coords_grid, _ = _light_grid(domain, n_cells, dim)
+    info, coords_grid, bc_grid = _light_grid(domain, n_cells, dim)
     plan = structured_plan(info, embed=True)
     np_dtype = torch.empty((), dtype=dtype).numpy().dtype
-    C = torch.as_tensor(node_coords_embedded_from_grid(coords_grid, plan,
-                                                       np_dtype),
-                        device=device)
+    bc_mask = torch.as_tensor(_embed_grid_numpy(bc_grid, plan.store_grid,
+                                                fill=False), device=device)
+    g_emb = None
+    if g is not None:
+        g_nodes = np.asarray(g(*coords_grid), np_dtype)
+        g_emb = torch.as_tensor(_embed_grid_numpy(
+            g_nodes.reshape(bc_grid.shape), plan.store_grid), device=device)
     phases["host_setup"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     rule = tetrahedron_rule(quadrature_degree)
-    A, b = build_poisson_system(plan, C, f_planes, rule, rhs_mode=rhs_mode)
-    data = A.data
-    del C           # nothing downstream reads the coordinates
+    if use_fused:
+        C = torch.as_tensor(node_coords_embedded_from_grid(
+            coords_grid, plan, np_dtype), device=device)
+        A, b = build_poisson_system(plan, C, f_planes, rule,
+                                    apply_bc=g_emb is None, rhs_mode=rhs_mode)
+        del C       # nothing downstream reads the coordinates
+        if g_emb is not None:
+            A, b = apply_dirichlet_stencil(A, b, bc_mask, g_emb)
+        data = A.data
+    else:
+        A, b = _host_system(plan, coords_grid, f_planes, rule, dtype,
+                            bc_mask.cpu(),
+                            None if g_emb is None else g_emb.cpu())
+        data, b = A.data.to(device), b.to(device)
     _sync(device)
     phases["assemble_wall"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     if use_multigrid:
-        mg_levels = build_poisson_multigrid(domain, n_cells, dim,
-                                            dtype=dtype, levels=levels,
-                                            device=device)
-        M = mg_preconditioner(mg_levels)
-        M_dot = mg_preconditioner(mg_levels, with_dot=True)
+        if precond == "const":
+            mg_levels = build_poisson_multigrid(
+                domain, n_cells, dim, dtype=dtype, levels=levels,
+                operator="const", device=device)
+        else:
+            mg_levels = build_poisson_multigrid(
+                domain, n_cells, dim, dtype=dtype, levels=levels,
+                top=(data, bc_mask), device=device)
+        M = mg_preconditioner(mg_levels, nu1=1, nu2=1)
+        M_dot = mg_preconditioner(mg_levels, nu1=1, nu2=1, with_dot=True)
     else:
         d = data[plan.offsets.index(0)]
         inv_d = torch.where(d != 0, 1.0 / d, torch.ones_like(d))

@@ -5,8 +5,9 @@ Storing the matrix as K offset-diagonals ``data [K, NN]`` turns SpMV into
     y = sum_k data[k] * shift(x, offset_k)
 
 with no column-index array.  ``stencil_matvec`` is the plain PyTorch
-version; the CUDA kernel behind ``ops.stencil_cuda`` computes the same
-function.
+version; ``StencilMatrix.matvec`` goes through ``ops.stencil_cuda``, which
+launches the CUDA kernel (K2) on a CUDA tensor and runs
+``stencil_matvec`` on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -35,5 +36,23 @@ class StencilMatrix:
         self.data = data
         self.offsets = tuple(int(o) for o in offsets)
 
+    @property
+    def shape(self):
+        n = self.data.shape[1]
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        return stencil_matvec(self.data, self.offsets, x)
+        # imported here: ops.stencil_cuda builds on this module
+        from tpufem_torch.ops.stencil_cuda import stencil_apply
+
+        return stencil_apply(self.data, x, self.offsets)
+
+    def __matmul__(self, x):
+        return self.matvec(x)
+
+    def diagonal(self) -> torch.Tensor:
+        return self.data[self.offsets.index(0)]
