@@ -275,3 +275,154 @@ def test_solve_poisson_fast_general_cuda_matches_cpu(dev, kw):
     u = cpu.u
     assert (gpu.u.cpu() - u).abs().max() <= 1e-9 * u.abs().max()
     assert all(c.launches > b for c, b in zip(counters, before))
+
+
+# -- the third slice: B7, B5 with 7 offsets, B3 and B5b ---------------------
+
+def _grid_2d(n):
+    from tpufem_torch.solve.multigrid import _light_grid
+
+    info, coords, _ = _light_grid((-3.0, 3.0), n, 2)
+    return structured_plan(info, embed=True), coords
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("rhs_mode", ["quadrature", "interp"])
+@pytest.mark.parametrize("apply_bc", [True, False])
+def test_fused_system_2d_kernel_matches_plain(dev, dtype, rhs_mode, apply_bc):
+    from tpufem_torch.fem.quadrature import triangle_rule
+    from tpufem_torch.solve.poisson import model_problem_2d_planes
+
+    plan, coords = _grid_2d(24)      # x pads 25 nodes to 128 store columns
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    C = torch.as_tensor(node_coords_embedded_from_grid(coords, plan, np_dt),
+                        device=dev)
+    f, rule = model_problem_2d_planes(), triangle_rule(2)
+    before = fused_system_cuda.build_poisson_system.launches_2d
+    A, b = build_poisson_system(plan, C, f, rule, apply_bc=apply_bc,
+                                rhs_mode=rhs_mode)
+    Ap, bp = build_poisson_system_plain(plan, C, f, rule, apply_bc=apply_bc,
+                                        rhs_mode=rhs_mode)
+    torch.cuda.synchronize()
+    assert fused_system_cuda.build_poisson_system.launches_2d == before + 1
+    _close(A.data, Ap.data, dtype)
+    _close(b, bp, dtype)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("epilogue,with_dot", [("matvec", False),
+                                               ("residual", False),
+                                               ("smooth", False),
+                                               ("smooth", True)])
+def test_const_stencil_k7_matches_plain(dev, dtype, epilogue, with_dot):
+    lv = build_poisson_multigrid((-3.0, 3.0), 24, 2, dtype=dtype,
+                                 operator="const", device=dev)[0]
+    assert len(lv.plan.offsets) == 7
+    g = torch.Generator(device="cpu").manual_seed(7)
+    x, b = (torch.where(lv.code.cpu() != 0, torch.randn(
+        lv.plan.num_store_rows, generator=g, dtype=dtype), 0.0).to(dev)
+        for _ in range(2))
+    kw = dict(b=None if epilogue == "matvec" else b, with_dot=with_dot)
+    args = (epilogue, lv.weights, lv.code, x, lv.plan.offsets)
+    out = const_stencil_apply(*args, **kw)
+    ref = const_stencil_apply_plain(*args, **kw)
+    torch.cuda.synchronize()
+    if with_dot:
+        (out, d), (ref, d_ref) = out, ref
+        assert abs(d.item() - d_ref.item()) <= 1e-4 * max(abs(d_ref.item()),
+                                                          1.0)
+    _close(out, ref, dtype)
+
+
+def _blocked_case(dev, dtype, n=16):
+    """(general level, const level, x, b) on the 3D n grid, in dtype."""
+    gen = build_poisson_multigrid((-3.0, 3.0), n, dtype=dtype, levels=1,
+                                  device=dev)[0]
+    con = build_poisson_multigrid((-3.0, 3.0), n, dtype=dtype, levels=1,
+                                  operator="const", device=dev)[0]
+    g = torch.Generator(device="cpu").manual_seed(n)
+    x, b = (torch.where(con.code.cpu() != 0, torch.randn(
+        con.plan.num_store_rows, generator=g, dtype=dtype), 0.0).to(dev)
+        for _ in range(2))
+    return gen, con, x, b
+
+
+@pytest.mark.parametrize("data_dt,vec_dt", _DATA_VEC)
+@pytest.mark.parametrize("epilogue,with_dot", [("matvec", False),
+                                               ("matvec", True),
+                                               ("residual", False),
+                                               ("smooth", False),
+                                               ("smooth", True)])
+def test_blocked_stencil_matches_plain_and_flat(dev, data_dt, vec_dt,
+                                                epilogue, with_dot):
+    gen, _, x, b = _blocked_case(dev, vec_dt)
+    data, sg = gen.data.to(data_dt), gen.plan.store_grid
+    kw = dict(with_dot=with_dot)
+    if epilogue != "matvec":
+        kw["b"] = b
+    if epilogue == "smooth":
+        kw["inv_diag"] = gen.inv_diag.to(data_dt)
+    before = stencil_cuda.stencil_blocked_apply.launches
+    out = stencil_cuda.stencil_blocked_apply(epilogue, data, x,
+                                             gen.plan.offsets, sg, **kw)
+    if epilogue == "matvec":
+        ref = stencil_apply_plain(data, x, gen.plan.offsets,
+                                  with_dot=with_dot)
+        flat = stencil_apply(data, x, gen.plan.offsets, with_dot=with_dot)
+    else:
+        ref = stencil_fused_apply_plain(epilogue, data, x, gen.plan.offsets,
+                                        **kw)
+        flat = stencil_fused_apply(epilogue, data, x, gen.plan.offsets, **kw)
+    torch.cuda.synchronize()
+    assert stencil_cuda.stencil_blocked_apply.launches == before + 1
+    if with_dot:
+        (out, d), (ref, d_ref), (flat, d_flat) = out, ref, flat
+        assert abs(d.item() - d_ref.item()) <= 1e-4 * max(abs(d_ref.item()),
+                                                          1.0)
+    _close(out, ref, vec_dt)
+    # the same terms in the same offset order as the flat kernel
+    _close(out, flat, vec_dt)
+
+
+@pytest.mark.parametrize("code_dt,vec_dt", _DATA_VEC)
+@pytest.mark.parametrize("epilogue,with_dot", [("matvec", False),
+                                               ("residual", False),
+                                               ("smooth", False),
+                                               ("smooth", True)])
+def test_blocked_const_stencil_matches_plain_and_flat(dev, code_dt, vec_dt,
+                                                      epilogue, with_dot):
+    _, con, x, b = _blocked_case(dev, vec_dt)
+    code = con.code.to(code_dt)
+    args = (epilogue, con.weights, code, x, con.plan.offsets)
+    kw = dict(b=None if epilogue == "matvec" else b, with_dot=with_dot)
+    before = stencil_cuda.const_stencil_blocked_apply.launches
+    out = stencil_cuda.const_stencil_blocked_apply(*args,
+                                                   con.plan.store_grid, **kw)
+    ref = const_stencil_apply_plain(*args, **kw)
+    flat = const_stencil_apply(*args, **kw)
+    torch.cuda.synchronize()
+    assert stencil_cuda.const_stencil_blocked_apply.launches == before + 1
+    if with_dot:
+        (out, d), (ref, d_ref), (flat, _) = out, ref, flat
+        assert abs(d.item() - d_ref.item()) <= 1e-4 * max(abs(d_ref.item()),
+                                                          1.0)
+    _close(out, ref, vec_dt)
+    _close(out, flat, vec_dt)
+
+
+def test_routed_wrappers_launch_the_blocked_kernels(dev, monkeypatch):
+    """With the routing threshold at 0 every 3D call of the embedded
+    wrappers goes to B3 / B5b."""
+    monkeypatch.setattr(stencil_cuda, "_VMEM_1D_LIMIT", 0)
+    gen, con, x, b = _blocked_case(dev, torch.float32)
+    counters = (stencil_cuda.stencil_blocked_apply,
+                stencil_cuda.const_stencil_blocked_apply,
+                stencil_cuda.stencil_apply, stencil_cuda.const_stencil_apply)
+    before = [c.launches for c in counters]
+    stencil_cuda.stencil_matvec_dot_embedded(gen.data, x, gen.plan)
+    stencil_cuda.stencil_smooth_embedded(gen.data, b, x, gen.inv_diag,
+                                         gen.plan)
+    stencil_cuda.const_smooth_dot_embedded(con.weights, con.code, b, x,
+                                           con.plan)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [2, 1, 0, 0]

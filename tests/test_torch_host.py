@@ -107,7 +107,8 @@ def test_const_hierarchy_matches_jax(n):
                                      coarse_max=4, use_pallas=False,
                                      operator="const")
     tl = tmg.build_poisson_multigrid((-3.0, 3.0), n, 3, dtype=torch.float64,
-                                     coarse_max=4, operator="const")
+                                     coarse_max=4, operator="const",
+                                     device="cpu")
     assert len(tl) == len(jl)
     for a, b in zip(tl, jl):
         assert a.plan.store_grid == tuple(b.plan.store_grid)

@@ -53,8 +53,10 @@ def test_port_imports_no_jax():
 def test_cpu_slice_launches_no_kernel(kw):
     # n=16: a two-level hierarchy, so the transfer wrappers run too
     sol = solve_poisson_fast((-3.0, 3.0), 16, model_problem_3d_planes(),
-                             tol=1e-5, dtype=torch.float32, **kw)
-    levels = build_poisson_multigrid((-3.0, 3.0), 16, operator="const")
+                             tol=1e-5, dtype=torch.float32, device="cpu",
+                             **kw)
+    levels = build_poisson_multigrid((-3.0, 3.0), 16, operator="const",
+                                     device="cpu")
     mg_preconditioner(levels, fuse_transfers=False)(
         torch.ones(levels[0].plan.num_store_rows))
     assert sol.cg.converged

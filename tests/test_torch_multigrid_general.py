@@ -101,7 +101,7 @@ def _cycle_pair(jl, tl, r, rtol=1e-12, dot_rtol=None, **kw):
 def test_general_hierarchy_matches_jax():
     jl = _jax_levels(8, "general")
     tl = tmg.build_poisson_multigrid(DOMAIN, 8, dtype=torch.float64,
-                                     coarse_max=4)
+                                     coarse_max=4, device="cpu")
     assert len(tl) == len(jl) == 2
     for a, b in zip(tl, jl):
         assert isinstance(a, tmg.MGLevel)
@@ -120,7 +120,8 @@ def test_top_level_shares_the_operator():
     data = torch.as_tensor(np.array(jl[0].data))
     bc = torch.as_tensor(np.array(jl[0].bc_mask))
     tl = tmg.build_poisson_multigrid(DOMAIN, 8, dtype=torch.float64,
-                                     coarse_max=4, top=(data, bc))
+                                     coarse_max=4, top=(data, bc),
+                                     device="cpu")
     assert tl[0].data is data
     np.testing.assert_array_equal(tl[0].inv_diag.numpy(),
                                   np.asarray(jl[0].inv_diag))
@@ -176,10 +177,11 @@ def test_large_coarsest_level_falls_back_to_jacobi(monkeypatch, operator):
     # n=16 with 2 levels: the coarsest has 9^3 = 729 nodes
     monkeypatch.setattr(tmg, "_DENSE_COARSE_MAX", 100)
     tl = tmg.build_poisson_multigrid(DOMAIN, 16, dtype=torch.float64,
-                                     levels=2, operator=operator)
+                                     levels=2, operator=operator,
+                                     device="cpu")
     assert len(tl) == 2 and tl[-1].coarse_inverse is None
     top = tmg.build_poisson_multigrid(DOMAIN, 16, dtype=torch.float64,
-                                      levels=1)[0]
+                                      levels=1, device="cpu")[0]
     b = torch.as_tensor(_rand(top, 5))
     res = cg(lambda v: stencil_matvec(top.data, top.plan.offsets, v), b,
              tol=1e-8, maxiter=100,
@@ -212,14 +214,15 @@ def test_cast_hierarchy_bf16_matches_jax():
                 final_dot=True)
     # and a const hierarchy's code plane casts too
     cl = tmg.cast_hierarchy(tmg.build_poisson_multigrid(
-        DOMAIN, 8, coarse_max=4, operator="const"), torch.bfloat16)
+        DOMAIN, 8, coarse_max=4, operator="const", device="cpu"),
+        torch.bfloat16)
     assert all(l.code.dtype == torch.bfloat16 for l in cl)
 
 
 def test_repaired_defaults_match_jax():
     """The reference's defaults: operator="general" and nu1 = nu2 = 2."""
     tl = tmg.build_poisson_multigrid(DOMAIN, 8, dtype=torch.float64,
-                                     coarse_max=4)
+                                     coarse_max=4, device="cpu")
     assert all(isinstance(l, tmg.MGLevel) for l in tl)
     jl = _jax_levels(8, "general")
     r = _rand(jl[0], 7)

@@ -48,14 +48,36 @@ def test_solve_poisson_fast_matches_jax():
 def test_jacobi_variant_converges():
     sol = solve_poisson_fast((-3.0, 3.0), 8, model_problem_3d_planes(),
                              tol=1e-8, dtype=torch.float64,
-                             use_multigrid=False, maxiter=400)
+                             use_multigrid=False, maxiter=400, device="cpu")
     assert sol.cg.converged and sol.cg.iterations % 4 == 0
 
 
-def test_unported_options_raise():
-    # the 2D path (fused 2D build, dim=2 multigrid) is not ported yet
-    with pytest.raises(NotImplementedError):
-        solve_poisson_fast((-3.0, 3.0), 8, model_problem_3d_planes(), dim=2)
+@pytest.mark.parametrize("dim", [1, 4])
+def test_unported_options_raise(dim):
+    # the structured grids are 2D or 3D, as in the JAX package: any other
+    # dim raises up front, before any setup or device work
+    with pytest.raises(ValueError, match="2D or 3D"):
+        solve_poisson_fast((-3.0, 3.0), 8, model_problem_3d_planes(),
+                           dim=dim, device="cpu")
+    with pytest.raises(ValueError, match="2D or 3D"):
+        tmg.build_poisson_multigrid((-3.0, 3.0), 8, dim, device="cpu")
+
+
+@pytest.mark.parametrize("entry", [solve_poisson_fast,
+                                   tmg.build_poisson_multigrid])
+def test_entry_points_default_to_the_card(entry):
+    import inspect
+
+    assert inspect.signature(entry).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        # no silent CPU fallback: without a card the default raises torch's
+        # own error instead of returning CPU tensors
+        with pytest.raises((AssertionError, RuntimeError)):
+            if entry is solve_poisson_fast:
+                entry((-3.0, 3.0), 8, model_problem_3d_planes(),
+                      dtype=torch.float64)
+            else:
+                entry((-3.0, 3.0), 8, dtype=torch.float64)
 
 
 def test_refined_stencil_solve_matches_jax():
@@ -73,7 +95,8 @@ def test_refined_stencil_solve_matches_jax():
             (-3.0, 3.0), n)), plan.offsets,
         tmg._embed_grid_numpy(bc, plan.store_grid, fill=False))
     tl = tmg.build_poisson_multigrid((-3.0, 3.0), n, dtype=torch.float32,
-                                     coarse_max=4, operator="const")
+                                     coarse_max=4, operator="const",
+                                     device="cpu")
     res = refined_stencil_solve(
         A32.data, torch.as_tensor(raw64), plan.offsets,
         b32.to(torch.float64), tmg.mg_preconditioner(tl, nu1=1, nu2=1),

@@ -50,7 +50,8 @@ def test_solve_poisson_fast_matches_jax(kw):
     ref = jax_fast(DOMAIN, 8, jax_f(), tol=1e-8, dtype=jnp.float64,
                    interpret=True, **kw)
     sol = tsf.solve_poisson_fast(DOMAIN, 8, model_problem_3d_planes(),
-                                 tol=1e-8, dtype=torch.float64, **kw)
+                                 tol=1e-8, dtype=torch.float64,
+                                 device="cpu", **kw)
     assert sol.cg.converged and bool(ref.cg.converged)
     assert sol.cg.iterations == int(ref.cg.iterations)
     # float64 solves of the same system to 1e-8: iterates agree to 1e-9
@@ -88,7 +89,7 @@ def test_host_system_matches_jax(g):
 @pytest.mark.parametrize("kw", [dict(), dict(precond="general", g=lin)],
                          ids=["const", "general+dirichlet"])
 def test_host_build_solve_matches_fused(kw):
-    common = dict(tol=1e-8, dtype=torch.float64, **kw)
+    common = dict(tol=1e-8, dtype=torch.float64, device="cpu", **kw)
     fused = tsf.solve_poisson_fast(DOMAIN, 8, model_problem_3d_planes(),
                                    **common)
     host = tsf.solve_poisson_fast(DOMAIN, 8, model_problem_3d_planes(),
@@ -100,7 +101,8 @@ def test_host_build_solve_matches_fused(kw):
 
 def test_dirichlet_solution_is_shifted_by_the_data():
     """L harmonic: u_g = u_0 + L on the nodes, to the solver tolerance."""
-    common = dict(tol=1e-10, dtype=torch.float64, precond="general")
+    common = dict(tol=1e-10, dtype=torch.float64, precond="general",
+                  device="cpu")
     u0 = tsf.solve_poisson_fast(DOMAIN, 8, model_problem_3d_planes(),
                                 **common).u
     ug = tsf.solve_poisson_fast(DOMAIN, 8, model_problem_3d_planes(), g=lin,

@@ -1,16 +1,17 @@
-"""Batch-trailing P1 element kernels, as in tpufem.assemble.planar:
-coordinates are nested lists Xviews[t][n][d] of [*cell_grid] planes, so a
-structured grid passes zero-copy slices of its node-coordinate grid.  The
-planes may be numpy arrays (the one-cell stiffness of the analytic
+"""Batch-trailing P1 element kernels on triangles (2D) and tetrahedra (3D),
+as in tpufem.assemble.planar: coordinates are nested lists Xviews[t][n][d]
+of [*cell_grid] planes, so a structured grid passes zero-copy slices of its
+node-coordinate grid; the cell type follows from the number of coordinates.
+The planes may be numpy arrays (the one-cell stiffness of the analytic
 multigrid hierarchy, float64) or torch tensors (the host build behind
 ``solve_poisson_fast(use_fused=False)``, and ``p1_gradients`` in the plain
-version of the fused build)."""
+versions of the fused builds)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from tpufem_torch.fem.elements import P1Tetrahedron
+from tpufem_torch.fem.elements import P1Tetrahedron, P1Triangle
 
 __all__ = ["element_coord_views", "element_load_views", "p1_gradients",
            "p1_stiffness_views"]
@@ -20,6 +21,19 @@ def _stack(planes):
     if isinstance(planes[0], torch.Tensor):
         return torch.stack(planes)
     return np.stack(planes)
+
+
+# reference-cell measure by dimension: triangle 1/2, tetrahedron 1/6
+_REF_VOLUME = {2: 0.5, 3: 1.0 / 6.0}
+_ELEMENT = {2: P1Triangle, 3: P1Tetrahedron}
+
+
+def _det_inv_2x2(J):
+    det = J[0][0] * J[1][1] - J[0][1] * J[1][0]
+    inv_det = 1.0 / det
+    inv = [[J[1][1] * inv_det, -J[0][1] * inv_det],
+           [-J[1][0] * inv_det, J[0][0] * inv_det]]
+    return det, inv
 
 
 def _det_inv_3x3(J):
@@ -41,35 +55,39 @@ def _det_inv_3x3(J):
 
 
 def p1_gradients(Xt):
-    """Xt [4][3] vertex coordinate planes (numpy arrays or torch tensors)
-    -> (G [4][3] planes of d phi_n / d x_d, signed det J plane)."""
-    if len(Xt[0]) != 3:
-        raise NotImplementedError("the port's P1 kernels are 3D")
-    J = [[Xt[m][d] - Xt[3][d] for m in range(3)] for d in range(3)]
-    det, inv = _det_inv_3x3(J)
-    G = [list(inv[n]) for n in range(3)]
-    G.append([-(inv[0][d] + inv[1][d] + inv[2][d]) for d in range(3)])
+    """Xt [dim+1][dim] vertex coordinate planes (numpy arrays or torch
+    tensors; dim 2 or 3) -> (G [dim+1][dim] planes of d phi_n / d x_d,
+    signed det J plane)."""
+    dim = len(Xt[0])
+    if dim not in _REF_VOLUME or len(Xt) != dim + 1:
+        raise NotImplementedError("P1 kernels take triangles or tetrahedra")
+    J = [[Xt[m][d] - Xt[dim][d] for m in range(dim)] for d in range(dim)]
+    det, inv = (_det_inv_2x2 if dim == 2 else _det_inv_3x3)(J)
+    G = [list(inv[n]) for n in range(dim)]
+    G.append([-sum(inv[n][d] for n in range(dim)) for d in range(dim)])
     return G, det
 
 
 def p1_stiffness_views(Xviews):
     """Xviews[t][n][d] of [*B] planes -> Ke [T, npe, npe, *B] (P1 Poisson
-    stiffness on tetrahedra)."""
+    stiffness on triangles or tetrahedra)."""
+    dim = len(Xviews[0][0])
     out_t = []
     for Xt in Xviews:
         G, det = p1_gradients(Xt)
-        vol = abs(det) * (1.0 / 6.0)
+        vol = abs(det) * _REF_VOLUME[dim]
         npe = len(G)
         out_t.append(_stack([
-            _stack([sum(G[a][d] * G[b][d] for d in range(3)) * vol
+            _stack([sum(G[a][d] * G[b][d] for d in range(dim)) * vol
                     for b in range(npe)]) for a in range(npe)]))
     return _stack(out_t)
 
 
 def element_load_views(Xviews, rule, f_planes):
     """Xviews[t][n][d] of [*B] planes -> be [T, npe, *B]:
-    b_a = sum_q w_q phi_a(q) f(x_q) |det J| (P1 tetrahedra)."""
-    phi = P1Tetrahedron().shape_values(rule.points)
+    b_a = sum_q w_q phi_a(q) f(x_q) |det J| (P1 triangles or tetrahedra)."""
+    dim = len(Xviews[0][0])
+    phi = _ELEMENT[dim]().shape_values(rule.points)
     w = rule.weights
     out_t = []
     for Xt in Xviews:
@@ -79,7 +97,7 @@ def element_load_views(Xviews, rule, f_planes):
         acc = [0.0] * npe
         for q in range(rule.num_points):
             xq = [sum(float(phi[q, n]) * Xt[n][d] for n in range(npe))
-                  for d in range(3)]
+                  for d in range(dim)]
             fq = f_planes(*xq)
             for a in range(npe):
                 acc[a] = acc[a] + (float(w[q]) * float(phi[q, a])) * fq

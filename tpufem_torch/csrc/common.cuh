@@ -1,6 +1,7 @@
 // Shared device helpers of the port's kernels: a deterministic two-pass
-// dot product, the widening load of stored coefficients, and the row of the
-// constant-coefficient (uniform-grid) operator.
+// dot product, the widening load of stored coefficients, the stencil
+// epilogues and the sweep's rounding of omega * inv_diag, and the row of
+// the constant-coefficient (uniform-grid) operator.
 //
 // The TPU kernels accumulate a dot into one SMEM cell across their
 // sequential grid (tpufem/ops/stencil_pallas.py::_kernel_matvec_dot,
@@ -54,6 +55,26 @@ __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ double widen(double v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+
+// The stencil kernels' epilogues (K2/B4, B5 and their blocked twins B3,
+// B5b): y = A x, y = b - A x, y = x + omega invd (b - A x).
+enum Epilogue : int { kMatvec = 0, kResidual = 1, kSmooth = 2 };
+
+// The sweep's omega * inv_diag, rounded to the coefficient type TD before
+// it meets the residual in the vector type TV, as the reference's weakly
+// typed scalar product is.
+template <typename TD, typename TV>
+__device__ __forceinline__ TV omega_inv_diag(double omega, TD inv_diag) {
+  return TV(widen(TD(TV(omega) * TV(widen(inv_diag)))));
+}
+
+template <>
+__device__ __forceinline__ float omega_inv_diag<__nv_bfloat16, float>(
+    double omega, __nv_bfloat16 inv_diag) {
+  const float w =
+      __bfloat162float(__float2bfloat16(static_cast<float>(omega)));
+  return __bfloat162float(__float2bfloat16(w * __bfloat162float(inv_diag)));
 }
 
 // The uniform-grid operator: K flat store offsets and the weights of an

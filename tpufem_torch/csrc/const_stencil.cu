@@ -20,10 +20,11 @@
 //
 // Bound on the card: bytes.  Per row it reads code and x (and b) and
 // writes y: 16-20 bytes a row in fp32 against the general stencil's 76+.
-// The 15 neighbour loads of x and code per interior row come from L1/L2.
+// The K neighbour loads of x and code per interior row come from L1/L2.
 // Design: one thread per row, consecutive threads on consecutive rows
 // (coalesced planes), the weights, 1/w0 and omega by value, the offset
-// count a template constant so the neighbour loop unrolls and its loads
+// count K a template constant (7 on 2D grids, 15 on 3D ones, dispatched on
+// the k the caller passes) so the neighbour loop unrolls and its loads
 // issue together.  The dot is per-block fp64 partials plus a fixed-order
 // second pass (common.cuh).
 #include <cuda_bf16.h>
@@ -33,10 +34,9 @@
 
 namespace {
 
-// The 3D Kuhn stencil has 15 offsets.
-constexpr int kOffsets = 15;
-
-enum Epilogue : int { kMatvec = 0, kResidual = 1, kSmooth = 2 };
+using tpufem::kMatvec;
+using tpufem::kResidual;
+using tpufem::kSmooth;
 
 template <int K>
 struct ConstParams {
@@ -74,13 +74,12 @@ const_stencil_kernel(const TC* __restrict__ code, const T* __restrict__ x,
   }
 }
 
-template <int EPI, typename TC, typename T>
+template <int K, int EPI, typename TC, typename T>
 int launch(const TC* code, const T* x, const T* b, T* y, double* partials,
-           T* dot, long long n, const ConstParams<kOffsets>& p,
-           void* stream) {
+           T* dot, long long n, const ConstParams<K>& p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned int nb = tpufem::num_blocks(n);
-  const_stencil_kernel<kOffsets, EPI, TC, T><<<nb, tpufem::kBlock, 0, s>>>(
+  const_stencil_kernel<K, EPI, TC, T><<<nb, tpufem::kBlock, 0, s>>>(
       code, x, b, y, dot != nullptr ? partials : nullptr, n, p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || dot == nullptr) return static_cast<int>(err);
@@ -89,16 +88,13 @@ int launch(const TC* code, const T* x, const T* b, T* y, double* partials,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TC, typename T>
-int dispatch(int epilogue, const void* code, const void* x, const void* b,
-             void* y, double* partials, void* dot, long long n,
-             const long long* offsets, const double* weights, int k,
-             double inv_w0, double omega, void* stream) {
-  if (k != kOffsets || (dot != nullptr && epilogue != kSmooth)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  ConstParams<kOffsets> p;
-  for (int i = 0; i < kOffsets; ++i) {
+template <int K, typename TC, typename T>
+int run(int epilogue, const void* code, const void* x, const void* b,
+        void* y, double* partials, void* dot, long long n,
+        const long long* offsets, const double* weights, double inv_w0,
+        double omega, void* stream) {
+  ConstParams<K> p;
+  for (int i = 0; i < K; ++i) {
     p.st.off[i] = offsets[i];
     p.st.w[i] = weights[i];
   }
@@ -111,11 +107,32 @@ int dispatch(int epilogue, const void* code, const void* x, const void* b,
   T* dv = static_cast<T*>(dot);
   switch (epilogue) {
     case kMatvec:
-      return launch<kMatvec>(c, xv, bv, yv, partials, dv, n, p, stream);
+      return launch<K, kMatvec>(c, xv, bv, yv, partials, dv, n, p, stream);
     case kResidual:
-      return launch<kResidual>(c, xv, bv, yv, partials, dv, n, p, stream);
+      return launch<K, kResidual>(c, xv, bv, yv, partials, dv, n, p, stream);
     case kSmooth:
-      return launch<kSmooth>(c, xv, bv, yv, partials, dv, n, p, stream);
+      return launch<K, kSmooth>(c, xv, bv, yv, partials, dv, n, p, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The offset count: 7 (2D anti-diagonal split) or 15 (3D Kuhn split).
+template <typename TC, typename T>
+int dispatch(int epilogue, const void* code, const void* x, const void* b,
+             void* y, double* partials, void* dot, long long n,
+             const long long* offsets, const double* weights, int k,
+             double inv_w0, double omega, void* stream) {
+  if (dot != nullptr && epilogue != kSmooth) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (k) {
+    case 7:
+      return run<7, TC, T>(epilogue, code, x, b, y, partials, dot, n, offsets,
+                           weights, inv_w0, omega, stream);
+    case 15:
+      return run<15, TC, T>(epilogue, code, x, b, y, partials, dot, n,
+                            offsets, weights, inv_w0, omega, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -127,7 +144,7 @@ extern "C" {
 
 // epilogue: 0 matvec, 1 residual, 2 smooth (dot <b, y> when dot != NULL).
 // b: the residual's b or the sweep's r (NULL for matvec).  offsets /
-// weights: the level's k = 15 flat offsets and interior weights.
+// weights: the level's k = 7 or 15 flat offsets and interior weights.
 // partials: fp64 scratch of num_blocks(n) slots, used when dot != NULL.
 #define TPUFEM_CONST_ENTRY(NAME, TC, T)                                      \
   int NAME(int epilogue, const void* code, const void* x, const void* b,    \

@@ -44,20 +44,9 @@ struct Offsets {
   long long off[kMaxOffsets];
 };
 
-enum Epilogue : int { kMatvec = 0, kResidual = 1, kSmooth = 2 };
-
-template <typename TD, typename TV>
-__device__ __forceinline__ TV omega_inv_diag(double omega, TD inv_diag) {
-  return TV(tpufem::widen(TD(TV(omega) * TV(tpufem::widen(inv_diag)))));
-}
-
-template <>
-__device__ __forceinline__ float omega_inv_diag<__nv_bfloat16, float>(
-    double omega, __nv_bfloat16 inv_diag) {
-  const float w =
-      __bfloat162float(__float2bfloat16(static_cast<float>(omega)));
-  return __bfloat162float(__float2bfloat16(w * __bfloat162float(inv_diag)));
-}
+using tpufem::kMatvec;
+using tpufem::kResidual;
+using tpufem::kSmooth;
 
 template <typename TD, typename TV, int EPI>
 __global__ void __launch_bounds__(tpufem::kBlock)
@@ -82,7 +71,8 @@ stencil_kernel(const TD* __restrict__ data, const TV* __restrict__ x,
     } else if (EPI == kResidual) {
       out = b[i] - acc;
     } else {
-      out = x[i] + omega_inv_diag<TD, TV>(omega, inv_diag[i]) * (b[i] - acc);
+      out = x[i] +
+            tpufem::omega_inv_diag<TD, TV>(omega, inv_diag[i]) * (b[i] - acc);
       part = static_cast<double>(b[i]) * static_cast<double>(out);
     }
     y[i] = out;

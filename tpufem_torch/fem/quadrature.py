@@ -1,9 +1,9 @@
-"""Quadrature rules on the reference tetrahedron (host numpy), as in
-tpufem.fem.quadrature.
+"""Quadrature rules on the reference triangle and tetrahedron (host numpy),
+as in tpufem.fem.quadrature.
 
-Reference coords (r, s, t), fourth barycentric u = 1 - r - s - t; weights
-sum to the reference-tet volume 1/6, so the quadrature of ``f * |det J|``
-needs no extra volume factor.
+Reference coords (r, s[, t]), last barycentric 1 - r - s[ - t]; weights
+sum to the reference cell's measure (1/2 for the triangle, 1/6 for the
+tetrahedron), so the quadrature of ``f * |det J|`` needs no extra factor.
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import math
 
 import numpy as np
 
-__all__ = ["QuadratureRule", "tetrahedron_rule"]
+__all__ = ["QuadratureRule", "triangle_rule", "tetrahedron_rule"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +27,27 @@ class QuadratureRule:
     @property
     def num_points(self) -> int:
         return self.weights.shape[0]
+
+
+def triangle_rule(degree: int) -> QuadratureRule:
+    """Symmetric Gauss rules on the reference triangle of degree 1-3."""
+    if degree <= 1:
+        pts = np.array([[1 / 3, 1 / 3]], dtype=np.float64)
+        w = np.array([0.5], dtype=np.float64)
+        return QuadratureRule(pts, w, 1, "triangle")
+    if degree == 2:
+        pts = np.array([[1 / 6, 1 / 6], [2 / 3, 1 / 6], [1 / 6, 2 / 3]],
+                       dtype=np.float64)
+        w = np.full(3, 1 / 6, dtype=np.float64)
+        return QuadratureRule(pts, w, 2, "triangle")
+    if degree == 3:
+        # centroid (negative weight) + 3 points
+        pts = np.array([[1 / 3, 1 / 3], [0.6, 0.2], [0.2, 0.6], [0.2, 0.2]],
+                       dtype=np.float64)
+        w = np.array([-27 / 96, 25 / 96, 25 / 96, 25 / 96], dtype=np.float64)
+        return QuadratureRule(pts, w, 3, "triangle")
+    raise NotImplementedError(f"triangle rule of degree {degree} "
+                              "(the port has degrees 1-3)")
 
 
 def tetrahedron_rule(degree: int) -> QuadratureRule:

@@ -1,16 +1,22 @@
-"""One-pass 3D Poisson system build: kernel K1 (csrc/fused_system.cu).
+"""One-pass Poisson system builds: kernel K1 (3D P1 tetrahedra,
+csrc/fused_system.cu) and kernel B7 (2D P1 triangles,
+csrc/fused_system_2d.cu).
 
-Replaces tpufem/ops/fused_system_pallas.py::_kernel (entry
-``build_poisson_system_pallas``).  From the embedded node coordinates it
-emits the stiffness stencil planes, the RHS load vector and the
-zero-Dirichlet elimination on the box boundary in one pass.
+K1 replaces tpufem/ops/fused_system_pallas.py::_kernel and B7 replaces
+::_kernel_2d, the two paths of ``build_poisson_system_pallas``.  From the
+embedded node coordinates each emits the stiffness stencil planes, the RHS
+load vector and the zero-Dirichlet elimination on the box boundary in one
+pass.  ``build_poisson_system`` takes either plan, as the reference's entry
+does, and counts K1's launches in ``build_poisson_system.launches`` and
+B7's in ``build_poisson_system.launches_2d``.
 
-The Pallas kernel traced the Python RHS callable into its body.  A CUDA
-kernel cannot call Python, so the RHS function must carry a C expression of
-``x, y, z`` (``solve.poisson.RhsFunction.c_expr``): it is written with the
-plan tables into a generated header and K1 is built once per distinct
-header (the reference's runtime-codegen idea).  A callable without a C
-expression raises on a CUDA tensor; it never drops to the plain version.
+The Pallas kernels traced the Python RHS callable into their bodies.  A
+CUDA kernel cannot call Python, so the RHS function must carry a C
+expression of ``x, y[, z]`` (``solve.poisson.RhsFunction.c_expr``): it is
+written with the plan tables into a generated header and each kernel is
+built once per distinct header (the reference's runtime-codegen idea).  A
+callable without a C expression raises on a CUDA tensor; it never drops to
+the plain version.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ import torch
 
 from tpufem_torch.assemble.planar import p1_gradients
 from tpufem_torch.assemble.structured import StructuredPlan
-from tpufem_torch.fem.elements import P1Tetrahedron
+from tpufem_torch.fem.elements import P1Tetrahedron, P1Triangle
 from tpufem_torch.fem.quadrature import QuadratureRule
 from tpufem_torch.ops._build import check_launch, load_library, stream_handle
 from tpufem_torch.sparse.stencil import StencilMatrix
@@ -32,14 +38,18 @@ __all__ = ["node_coords_embedded_from_grid", "build_poisson_system",
 _RHS_MODES = {"quadrature": 0, "interp": 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# per dimension: source, C entry stem (+ _f32 / _f64), the element, the
+# reference cell's measure and the interp mass-matrix denominator
+_SOURCE = {3: "fused_system.cu", 2: "fused_system_2d.cu"}
+_ENTRY = {3: "tpufem_fused_system", 2: "tpufem_fused_system_2d"}
+_SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
+_ELEMENT = {3: P1Tetrahedron, 2: P1Triangle}
+_REF_VOLUME = {3: 1.0 / 6.0, 2: 0.5}
+_MASS_DENOM = {3: 120.0, 2: 24.0}
+# C, data, rhs, S0..S{d-1}, m0..m{d-1}, rhs_mode, apply_bc, stream
 _SIGNATURES = {
-    "tpufem_fused_system_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                                _P),
-    "tpufem_fused_system_f64": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                                _P),
-}
-_ENTRY = {torch.float32: "tpufem_fused_system_f32",
-          torch.float64: "tpufem_fused_system_f64"}
+    d: {_ENTRY[d] + sfx: (_P, _P, _P) + (_I,) * (2 * d + 2) + (_P,)
+        for sfx in _SUFFIX.values()} for d in (2, 3)}
 
 
 def node_coords_embedded_from_grid(coords_grid: np.ndarray,
@@ -65,12 +75,15 @@ def node_coords_embedded_from_grid(coords_grid: np.ndarray,
     return out
 
 
-def _check_plan(plan: StructuredPlan):
+def _check_plan(plan: StructuredPlan) -> int:
+    """The plan's dimension: 3 (P1 tetrahedra) or 2 (P1 triangles)."""
     if not plan.embedded:
         raise ValueError("plan must be built with structured_plan(embed=True)")
-    if (len(plan.info.node_grid) != 3
-            or plan.info.type_node_offsets.shape[1] != 4):
-        raise NotImplementedError("the fused build is 3D P1 tetrahedra")
+    dim = len(plan.info.node_grid)
+    if dim not in _SOURCE or plan.info.type_node_offsets.shape[1] != dim + 1:
+        raise NotImplementedError("the fused build is 2D P1 triangles or 3D "
+                                  "P1 tetrahedra")
+    return dim
 
 
 def _lit(v: float) -> str:
@@ -79,146 +92,168 @@ def _lit(v: float) -> str:
 
 def tables_header(plan: StructuredPlan, rule: QuadratureRule,
                   c_expr: str) -> str:
-    """Generated header of K1: plan tables, quadrature and f as C code."""
+    """Generated header of K1 / B7: plan tables, quadrature and f as C
+    code (the macros each source lists at its top)."""
     info = plan.info
-    phi = P1Tetrahedron().shape_values(rule.points)
+    dim = len(info.node_grid)
+    phi = _ELEMENT[dim]().shape_values(rule.points)
     offs = info.type_node_offsets
+    npe = offs.shape[1]
     lines = ["// generated by tpufem_torch.ops.fused_system_cuda",
              "#pragma once",
              f"#define TPUFEM_K {plan.width}"]
     lines.append("#define TPUFEM_FOR_OFFSETS(X) " + " ".join(
-        f"X({k}, {dz}, {dy}, {dx})"
-        for k, (dz, dy, dx) in enumerate(plan.offsets_grid)))
+        f"X({k}, " + ", ".join(str(int(v)) for v in off) + ")"
+        for k, off in enumerate(plan.offsets_grid)))
     lines.append("#define TPUFEM_FOR_QP(X) " + " ".join(
         "X(" + ", ".join(_lit(v) for v in phi[q]) + f", {_lit(w)})"
         for q, w in enumerate(rule.weights)))
     terms = []
     for t in range(info.num_types):
-        for a in range(4):
+        for a in range(npe):
             args = [t, a, *offs[t, a], *offs[t].reshape(-1),
                     *plan.entry_k[t, a]]
             terms.append("X(" + ", ".join(str(int(v)) for v in args) + ")")
     lines.append("#define TPUFEM_FOR_TA(X) " + " ".join(terms))
+    params = ", ".join(f"T {c}" for c in "xyz"[:dim])
     lines.append("template <typename T>\n__device__ __forceinline__ "
-                 f"T rhs_f(T x, T y, T z) {{ return ({c_expr}); }}")
+                 f"T rhs_f({params}) {{ return ({c_expr}); }}")
     return "\n".join(lines) + "\n"
 
 
 def _lib(plan, rule, c_expr):
-    return load_library("fused_system.cu", _SIGNATURES,
+    dim = _check_plan(plan)
+    return load_library(_SOURCE[dim], _SIGNATURES[dim],
                         {"tpufem_fused_tables.h":
                          tables_header(plan, rule, c_expr)})
 
 
-def build_poisson_system(plan: StructuredPlan, C_emb: torch.Tensor,
-                         f_planes, rule: QuadratureRule, *,
-                         apply_bc: bool = True,
-                         rhs_mode: str = "quadrature"):
-    """(StencilMatrix, b) of 3D P1 Poisson on the embedded layout.
-
-    C_emb: [3, *store_grid] node coordinates (from
-    ``node_coords_embedded_from_grid``); f_planes(x, y, z) -> plane, with a
-    ``c_expr`` attribute for the CUDA kernel.  ``rhs_mode`` "quadrature"
-    integrates f with ``rule``; "interp" integrates the P1 interpolant of f
-    exactly.  ``apply_bc=False`` returns the raw system.
-    """
-    _check_plan(plan)
+def _launch(plan, C_emb, f_planes, rule, apply_bc, rhs_mode):
+    """Launch K1 or B7 (by the plan's dimension) on C_emb's card."""
+    dim = _check_plan(plan)
     if rhs_mode not in _RHS_MODES:
         raise ValueError(f"rhs_mode {rhs_mode!r}: quadrature | interp")
-    if C_emb.device.type == "cpu":
-        return build_poisson_system_plain(plan, C_emb, f_planes, rule,
-                                          apply_bc=apply_bc,
-                                          rhs_mode=rhs_mode)
     c_expr = getattr(f_planes, "c_expr", None)
     if c_expr is None:
         raise ValueError("the CUDA system build needs an RHS function with "
                          "a C expression (solve.poisson.RhsFunction)")
     sg = tuple(plan.store_grid)
-    if (C_emb.dtype not in _ENTRY or tuple(C_emb.shape) != (3,) + sg
-            or not C_emb.is_contiguous()):
-        raise ValueError(f"fused build: C_emb {tuple(C_emb.shape)} "
-                         f"{C_emb.dtype}, expected contiguous float32/64 "
-                         f"{(3,) + sg}")
+    if C_emb.dtype not in _SUFFIX or not C_emb.is_contiguous():
+        raise ValueError(f"fused build: C_emb {C_emb.dtype}, expected "
+                         "contiguous float32/64")
     lib = _lib(plan, rule, c_expr)
     m = plan.info.cell_grid
     with torch.cuda.device(C_emb.device):
         data = torch.empty((plan.width,) + sg, dtype=C_emb.dtype,
                            device=C_emb.device)
         rhs = torch.empty(sg, dtype=C_emb.dtype, device=C_emb.device)
-        status = getattr(lib, _ENTRY[C_emb.dtype])(
+        status = getattr(lib, _ENTRY[dim] + _SUFFIX[C_emb.dtype])(
             C_emb.data_ptr(), data.data_ptr(), rhs.data_ptr(), *sg, *m,
             _RHS_MODES[rhs_mode], int(apply_bc), stream_handle())
-    check_launch(status, "fused_system")
-    build_poisson_system.launches += 1
+    check_launch(status, "fused_system" + ("_2d" if dim == 2 else ""))
+    if dim == 2:
+        build_poisson_system.launches_2d += 1
+    else:
+        build_poisson_system.launches += 1
     return (StencilMatrix(data.reshape(plan.width, -1), plan.offsets),
             rhs.reshape(-1))
 
 
-build_poisson_system.launches = 0
+def build_poisson_system(plan: StructuredPlan, C_emb: torch.Tensor,
+                         f_planes, rule: QuadratureRule, *,
+                         apply_bc: bool = True,
+                         rhs_mode: str = "quadrature"):
+    """(StencilMatrix, b) of P1 Poisson on the embedded layout: K1 for a 3D
+    plan (tetrahedron ``rule``), B7 for a 2D one (triangle ``rule``, 7
+    stencil planes).
+
+    C_emb: [dim, *store_grid] node coordinates (from
+    ``node_coords_embedded_from_grid``); f_planes(x, y[, z]) -> plane, with
+    a ``c_expr`` attribute for the CUDA kernel.  ``rhs_mode`` "quadrature"
+    integrates f with ``rule``; "interp" integrates the P1 interpolant of f
+    exactly.  ``apply_bc=False`` returns the raw system.
+    """
+    dim = _check_plan(plan)
+    if tuple(C_emb.shape) != (dim,) + tuple(plan.store_grid):
+        raise ValueError(f"fused build: C_emb {tuple(C_emb.shape)}, the "
+                         f"plan's is {(dim,) + tuple(plan.store_grid)}")
+    kw = dict(apply_bc=apply_bc, rhs_mode=rhs_mode)
+    if C_emb.device.type == "cpu":
+        return build_poisson_system_plain(plan, C_emb, f_planes, rule, **kw)
+    return _launch(plan, C_emb, f_planes, rule, **kw)
+
+
+build_poisson_system.launches = 0       # K1
+build_poisson_system.launches_2d = 0    # B7
 
 
 def build_poisson_system_plain(plan: StructuredPlan, C_emb: torch.Tensor,
                                f_planes, rule: QuadratureRule, *,
                                apply_bc: bool = True,
                                rhs_mode: str = "quadrature"):
-    """Plain PyTorch version of K1: per-type element planes on the cell
-    grid, slice-added into the stencil planes, then the elimination."""
-    _check_plan(plan)
+    """Plain PyTorch version of K1 and B7: per-type element planes on the
+    cell grid, slice-added into the stencil planes, then the elimination."""
+    dim = _check_plan(plan)
+    if rhs_mode not in _RHS_MODES:
+        raise ValueError(f"rhs_mode {rhs_mode!r}: quadrature | interp")
     info = plan.info
     sg = tuple(plan.store_grid)
     m = info.cell_grid
+    npe = dim + 1
     dt, dev = C_emb.dtype, C_emb.device
     data = torch.zeros((plan.width,) + sg, dtype=dt, device=dev)
     rhs = torch.zeros(sg, dtype=dt, device=dev)
-    phi = P1Tetrahedron().shape_values(rule.points)
+    phi = _ELEMENT[dim]().shape_values(rule.points)
     offs = info.type_node_offsets
 
     def sl(o):
         return tuple(slice(1 + int(o[d]), 1 + int(o[d]) + m[d])
-                     for d in range(3))
+                     for d in range(dim))
 
     for t in range(info.num_types):
-        Xt = [[C_emb[d][sl(offs[t, n])] for d in range(3)] for n in range(4)]
+        Xt = [[C_emb[d][sl(offs[t, n])] for d in range(dim)]
+              for n in range(npe)]
         G, det = p1_gradients(Xt)
         adet = det.abs()
-        vol = adet * (1.0 / 6.0)
+        vol = adet * _REF_VOLUME[dim]
         if rhs_mode == "interp":
-            fv = [f_planes(*Xt[b]) for b in range(4)]
-            facc = [sum(((2.0 if a == b else 1.0) / 120.0) * fv[b]
-                        for b in range(4)) for a in range(4)]
+            fv = [f_planes(*Xt[b]) for b in range(npe)]
+            facc = [sum(((2.0 if a == b else 1.0) / _MASS_DENOM[dim]) * fv[b]
+                        for b in range(npe)) for a in range(npe)]
         else:
-            facc = [0.0] * 4
+            facc = [0.0] * npe
             for q, w in enumerate(rule.weights):
-                xq = [sum(float(phi[q, n]) * Xt[n][d] for n in range(4))
-                      for d in range(3)]
+                xq = [sum(float(phi[q, n]) * Xt[n][d] for n in range(npe))
+                      for d in range(dim)]
                 fq = f_planes(*xq)
-                for a in range(4):
+                for a in range(npe):
                     facc[a] = facc[a] + fq * (float(w) * float(phi[q, a]))
-        for a in range(4):
+        for a in range(npe):
             rows = sl(offs[t, a])
-            for b in range(4):
+            for b in range(npe):
                 k = int(plan.entry_k[t, a, b])
-                data[k][rows] += (G[a][0] * G[b][0] + G[a][1] * G[b][1]
-                                  + G[a][2] * G[b][2]) * vol
+                data[k][rows] += sum(G[a][d] * G[b][d]
+                                     for d in range(dim)) * vol
             rhs[rows] += facc[a] * adet
 
     if apply_bc:
-        node = [torch.arange(s, device=dev) - 1 for s in sg]
-        nz, ny, nx = (node[0].view(-1, 1, 1), node[1].view(1, -1, 1),
-                      node[2].view(1, 1, -1))
+        # node index of every store position, broadcast along its axis
+        node = [(torch.arange(sg[d], device=dev) - 1).view(
+            [-1 if ax == d else 1 for ax in range(dim)]) for d in range(dim)]
 
-        def bc_of(z, y, x):
-            inside = ((z >= 0) & (z <= m[0]) & (y >= 0) & (y <= m[1])
-                      & (x >= 0) & (x <= m[2]))
-            on_bd = ((z == 0) | (z == m[0]) | (y == 0) | (y == m[1])
-                     | (x == 0) | (x == m[2]))
+        def bc_of(idx):
+            inside = torch.ones((), dtype=torch.bool, device=dev)
+            on_bd = torch.zeros((), dtype=torch.bool, device=dev)
+            for d in range(dim):
+                inside = inside & (idx[d] >= 0) & (idx[d] <= m[d])
+                on_bd = on_bd | (idx[d] == 0) | (idx[d] == m[d])
             return inside & on_bd
 
-        bc_row = bc_of(nz, ny, nx)
-        for k, (dz, dy, dx) in enumerate(plan.offsets_grid):
-            drop = bc_row | bc_of(nz + dz, ny + dy, nx + dx)
+        bc_row = bc_of(node)
+        for k, off in enumerate(plan.offsets_grid):
+            drop = bc_row | bc_of([node[d] + off[d] for d in range(dim)])
             data[k] = torch.where(drop, 0.0, data[k])
-            if (dz, dy, dx) == (0, 0, 0):
+            if not any(off):
                 data[k] = torch.where(bc_row, 1.0, data[k])
         rhs = torch.where(bc_row, 0.0, rhs)
     return (StencilMatrix(data.reshape(plan.width, -1), plan.offsets),

@@ -1,5 +1,6 @@
-"""Stencil kernels on the embedded layout: K2, B4 (csrc/stencil.cu) and B5
-(csrc/const_stencil.cu).
+"""Stencil kernels on the embedded layout: K2, B4 (csrc/stencil.cu), B5
+(csrc/const_stencil.cu) and their blocked twins B3, B5b
+(csrc/stencil_blocked.cu).
 
 K2 ``stencil_apply`` replaces tpufem/ops/stencil_pallas.py::_kernel and
 ::_kernel_matvec_dot: y = A x (optionally <x, A x>).
@@ -10,17 +11,29 @@ operator, whose data may be bf16 under fp32 vectors.
 B5 ``const_stencil_apply`` replaces ::_kernel_const_matvec,
 ::_kernel_const_residual, ::_kernel_const_smooth and
 ::_kernel_const_smooth_dot: the same epilogues on the uniform-grid operator
-(K weights + row-type code plane).
+(K = 7 or 15 weights + row-type code plane).
+B3 ``stencil_blocked_apply`` replaces ::_kernel2* and B5b
+``const_stencil_blocked_apply`` replaces ::_kernel2_const_*: the same
+functions, tiled for large 3D grids.
+
+Routing: given the store grid (the ``*_embedded`` functions pass their
+plan's), ``stencil_apply``, ``stencil_fused_apply`` and
+``const_stencil_apply`` hand a call to B3 / B5b exactly where the reference
+routes a call to its blocked kernels (``_needs_2d``, a copy of the reference's
+rule with the same threshold), and launch the flat kernel elsewhere.  On
+the card that threshold is a routing rule carried over from the reference,
+not a memory limit of the card.
 
 Each wrapper launches its CUDA kernel for a CUDA tensor and runs its plain
-PyTorch version (the ``*_plain`` functions here) for a CPU tensor; each
-counts its launches.  What bounds the kernels and how their design answers
-that is noted in the CUDA sources.
+PyTorch version (the ``*_plain`` functions here; the blocked kernels share
+the flat ones') for a CPU tensor; each counts its launches.  What bounds
+the kernels and how their design answers that is noted in the CUDA sources.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -30,6 +43,7 @@ from tpufem_torch.sparse.stencil import stencil_matvec
 __all__ = ["stencil_apply", "stencil_apply_plain",
            "stencil_fused_apply", "stencil_fused_apply_plain",
            "const_stencil_apply", "const_stencil_apply_plain",
+           "stencil_blocked_apply", "const_stencil_blocked_apply",
            "const_matvec_plain", "omega_inv_diag",
            "stencil_matvec_embedded", "stencil_matvec_dot_embedded",
            "stencil_residual_embedded", "stencil_smooth_embedded",
@@ -56,6 +70,15 @@ _STENCIL_SIGNATURES = dict(
     tpufem_num_blocks=(_LL,))
 _CONST_SIGNATURES = dict({e: _CONST_ARGS for e in _CONST_ENTRY.values()},
                          tpufem_num_blocks=(_LL,))
+_BLOCKED_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _D, _P)
+_CONST_BLOCKED_ARGS = (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I,
+                       _D, _D, _P)
+_BLOCKED_SIGNATURES = dict(
+    {e.replace("stencil", "stencil_blocked"): _BLOCKED_ARGS
+     for e in _STENCIL_ENTRY.values()},
+    **{e.replace("stencil", "stencil_blocked"): _CONST_BLOCKED_ARGS
+       for e in _CONST_ENTRY.values()},
+    tpufem_blocked_num_blocks=(_I, _I, _I, _I))
 
 
 def _stencil_lib():
@@ -64,6 +87,72 @@ def _stencil_lib():
 
 def _const_lib():
     return load_library("const_stencil.cu", _CONST_SIGNATURES)
+
+
+def _blocked_lib():
+    return load_library("stencil_blocked.cu", _BLOCKED_SIGNATURES)
+
+
+# -- the route to the blocked kernels ------------------------------------------
+
+# The reference's threshold (tpufem/ops/stencil_pallas.py::_VMEM_1D_LIMIT):
+# there it is where the 1D layout's live set outgrows VMEM; here it only
+# routes, so that the port runs the blocked kernels where the reference
+# does.  A module constant: tests set it to 0 to route every 3D grid.
+_VMEM_1D_LIMIT = 10 << 20
+
+
+def _needs_2d(sg, width, n_extras, dtype_bytes):
+    """The reference's rule: a 3D store grid ``sg`` goes to the blocked
+    kernels when 2 (width + 4 + n_extras) S1 S2 dtype_bytes exceeds the
+    threshold.  ``width``: K for the general kernels, 3 for the const ones;
+    ``n_extras``: the epilogue's vectors besides x; ``dtype_bytes``: the
+    vectors' item size."""
+    if len(sg) < 3:
+        return False
+    rest = math.prod(int(v) for v in sg[1:])
+    return 2 * (width + 4 + n_extras) * rest * dtype_bytes > _VMEM_1D_LIMIT
+
+
+def _routed(store_grid, width, n_extras, x):
+    return store_grid is not None and _needs_2d(
+        tuple(store_grid), width, n_extras, x.element_size())
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_steps(offsets: tuple, store_grid: tuple) -> tuple:
+    """Each flat offset as its (dz, dy, dx) on the store grid, flattened;
+    the blocked kernels take offsets in {-1, 0, 1}^3."""
+    if len(store_grid) != 3:
+        raise ValueError(f"the blocked kernels take 3D store grids, got "
+                         f"{store_grid}")
+    plane, row = store_grid[1] * store_grid[2], store_grid[2]
+    steps = []
+    for off in offsets:
+        dz = round(off / plane)
+        dy = round((off - dz * plane) / row)
+        dx = off - dz * plane - dy * row
+        if max(abs(dz), abs(dy), abs(dx)) > 1:
+            raise ValueError(f"offset {off} leaves the 27-point neighbourhood "
+                             f"on store grid {store_grid}")
+        steps += [dz, dy, dx]
+    return tuple(steps)
+
+
+def _blocked_args(what, x, offsets, store_grid, with_dot):
+    """(lib, store grid, steps array, dot, partials) of a blocked launch."""
+    sg = tuple(int(v) for v in store_grid)
+    if math.prod(sg) != x.shape[0]:
+        raise ValueError(f"{what}: store grid {sg} has {math.prod(sg)} rows, "
+                         f"x {x.shape[0]}")
+    steps = _grid_steps(offsets, sg)
+    lib = _blocked_lib()
+    nblocks = lib.tpufem_blocked_num_blocks(*sg, x.element_size())
+    if nblocks == 0:
+        raise ValueError(f"{what}: store grid {sg} does not tile (axes must "
+                         "be multiples of 8, 8 and 128)")
+    dot, partials = _dot_buffers(x, with_dot, nblocks)
+    return lib, sg, (ctypes.c_int * len(steps))(*steps), dot, partials
 
 
 def _epilogue(name, allowed):
@@ -83,13 +172,13 @@ def _check_vectors(what, x, vectors):
                              f"{tuple(v.shape)} {v.dtype} {v.device}")
 
 
-def _dot_buffers(lib, x, with_dot):
-    """(dot, fp64 partials) of a launch with a dot, else (None, None)."""
+def _dot_buffers(x, with_dot, nblocks):
+    """(dot, fp64 partials of ``nblocks`` slots) of a launch with a dot,
+    else (None, None)."""
     if not with_dot:
         return None, None
     return (torch.empty((), dtype=x.dtype, device=x.device),
-            torch.empty(lib.tpufem_num_blocks(x.shape[0]),
-                        dtype=torch.float64, device=x.device))
+            torch.empty(nblocks, dtype=torch.float64, device=x.device))
 
 
 def _ptr(t):
@@ -133,8 +222,9 @@ def stencil_fused_apply_plain(epilogue: str, data, x, offsets, *, b,
     return (y, torch.dot(b, y)) if with_dot else y
 
 
-def _launch_stencil(counter, epilogue, data, x, offsets, b, inv_diag, omega,
-                    with_dot, what):
+def _check_general(what, data, x, offsets, b, inv_diag):
+    """The (data, vector) types' entry suffix, after checking every
+    operand of a general-coefficient launch."""
     entry = _STENCIL_ENTRY.get((data.dtype, x.dtype))
     if entry is None:
         raise TypeError(f"{what}: takes (data, vector) types "
@@ -149,10 +239,17 @@ def _launch_stencil(counter, epilogue, data, x, offsets, b, inv_diag, omega,
             raise ValueError(f"{what}: expected contiguous {data.dtype} "
                              f"{shape} on {x.device}, got {tuple(t.shape)} "
                              f"{t.dtype} {t.device}")
+    return entry
+
+
+def _launch_stencil(counter, epilogue, data, x, offsets, b, inv_diag, omega,
+                    with_dot, what):
+    entry = _check_general(what, data, x, offsets, b, inv_diag)
+    n = x.shape[0]
     lib = _stencil_lib()
     with torch.cuda.device(x.device):
         y = torch.empty_like(x)
-        dot, partials = _dot_buffers(lib, x, with_dot)
+        dot, partials = _dot_buffers(x, with_dot, lib.tpufem_num_blocks(n))
         offs = (ctypes.c_longlong * len(offsets))(*offsets)
         status = getattr(lib, entry)(
             epilogue, data.data_ptr(), x.data_ptr(), _ptr(b), _ptr(inv_diag),
@@ -164,10 +261,17 @@ def _launch_stencil(counter, epilogue, data, x, offsets, b, inv_diag, omega,
 
 
 def stencil_apply(data: torch.Tensor, x: torch.Tensor, offsets, *,
-                  with_dot: bool = False):
+                  with_dot: bool = False, store_grid=None):
     """K2: y = A x for the flat-offset stencil ``data [K, N]``; with
-    ``with_dot`` also <x, A x> as a 0-d tensor.  No host sync."""
+    ``with_dot`` also <x, A x> as a 0-d tensor.  No host sync.
+
+    ``store_grid``: the grid the offsets refer to; where the reference
+    would run its blocked kernel on it, the call goes to B3
+    (``stencil_blocked_apply``) instead."""
     offsets = tuple(int(o) for o in offsets)
+    if _routed(store_grid, len(offsets), 0, x):
+        return stencil_blocked_apply("matvec", data, x, offsets, store_grid,
+                                     with_dot=with_dot)
     if x.device.type == "cpu":
         return stencil_apply_plain(data, x, offsets, with_dot=with_dot)
     return _launch_stencil(stencil_apply, _EPILOGUE["matvec"], data, x,
@@ -178,28 +282,76 @@ def stencil_apply(data: torch.Tensor, x: torch.Tensor, offsets, *,
 stencil_apply.launches = 0
 
 
-def stencil_fused_apply(epilogue: str, data: torch.Tensor, x: torch.Tensor,
-                        offsets, *, b: torch.Tensor, inv_diag=None,
-                        omega: float = 0.8, with_dot: bool = False):
-    """B4: ``"residual"`` y = b - A x, or ``"smooth"`` the weighted-Jacobi
-    sweep y = x + omega inv_diag (b - A x), with ``with_dot`` also <b, y>.
-
-    ``data`` and ``inv_diag`` may be bf16 under fp32 vectors (they widen on
-    load).  No host sync."""
-    offsets = tuple(int(o) for o in offsets)
+def _check_fused(epilogue, inv_diag, with_dot):
     code = _epilogue(epilogue, ("residual", "smooth"))
     if (epilogue == "smooth") != (inv_diag is not None) or (
             with_dot and epilogue != "smooth"):
         raise ValueError("the sweep (and only it) takes inv_diag and a dot")
+    return code
+
+
+def stencil_fused_apply(epilogue: str, data: torch.Tensor, x: torch.Tensor,
+                        offsets, *, b: torch.Tensor, inv_diag=None,
+                        omega: float = 0.8, with_dot: bool = False,
+                        store_grid=None):
+    """B4: ``"residual"`` y = b - A x, or ``"smooth"`` the weighted-Jacobi
+    sweep y = x + omega inv_diag (b - A x), with ``with_dot`` also <b, y>.
+
+    ``data`` and ``inv_diag`` may be bf16 under fp32 vectors (they widen on
+    load).  ``store_grid`` routes as in ``stencil_apply`` (to B3).  No host
+    sync."""
+    offsets = tuple(int(o) for o in offsets)
+    code = _check_fused(epilogue, inv_diag, with_dot)
+    kw = dict(b=b, inv_diag=inv_diag, omega=omega, with_dot=with_dot)
+    if _routed(store_grid, len(offsets), 1 + (epilogue == "smooth"), x):
+        return stencil_blocked_apply(epilogue, data, x, offsets, store_grid,
+                                     **kw)
     if x.device.type == "cpu":
-        return stencil_fused_apply_plain(epilogue, data, x, offsets, b=b,
-                                         inv_diag=inv_diag, omega=omega,
-                                         with_dot=with_dot)
+        return stencil_fused_apply_plain(epilogue, data, x, offsets, **kw)
     return _launch_stencil(stencil_fused_apply, code, data, x, offsets, b,
                            inv_diag, omega, with_dot, "stencil_" + epilogue)
 
 
 stencil_fused_apply.launches = 0
+
+
+def stencil_blocked_apply(epilogue: str, data: torch.Tensor,
+                          x: torch.Tensor, offsets, store_grid, *, b=None,
+                          inv_diag=None, omega: float = 0.8,
+                          with_dot: bool = False):
+    """B3: K2's matvec (``"matvec"``, with ``with_dot`` also <x, y>) and
+    B4's residual and sweep, tiled over the 3D ``store_grid`` (the 15
+    Kuhn offsets); the same function and types as the flat kernels.  No
+    host sync."""
+    offsets = tuple(int(o) for o in offsets)
+    if epilogue == "matvec":
+        if b is not None or inv_diag is not None:
+            raise ValueError("matvec takes no b and no inv_diag")
+        code = _EPILOGUE["matvec"]
+    else:
+        code = _check_fused(epilogue, inv_diag, with_dot)
+    if x.device.type == "cpu":
+        if epilogue == "matvec":
+            return stencil_apply_plain(data, x, offsets, with_dot=with_dot)
+        return stencil_fused_apply_plain(epilogue, data, x, offsets, b=b,
+                                         inv_diag=inv_diag, omega=omega,
+                                         with_dot=with_dot)
+    what = "stencil_blocked_" + epilogue
+    entry = _check_general(what, data, x, offsets, b, inv_diag)
+    with torch.cuda.device(x.device):
+        lib, sg, steps, dot, partials = _blocked_args(what, x, offsets,
+                                                      store_grid, with_dot)
+        y = torch.empty_like(x)
+        status = getattr(lib, entry.replace("stencil", "stencil_blocked"))(
+            code, data.data_ptr(), x.data_ptr(), _ptr(b), _ptr(inv_diag),
+            y.data_ptr(), _ptr(partials), _ptr(dot), *sg, steps,
+            len(offsets), float(omega), stream_handle())
+    check_launch(status, what)
+    stencil_blocked_apply.launches += 1
+    return (y, dot) if with_dot else y
+
+
+stencil_blocked_apply.launches = 0
 
 
 def _flat(data, plan):
@@ -209,25 +361,28 @@ def _flat(data, plan):
 def stencil_matvec_embedded(data, x, plan):
     """y = A x on the embedded storage layout; data [K, NS] or
     [K, *store_grid], x [NS]."""
-    return stencil_apply(_flat(data, plan), x, plan.offsets)
+    return stencil_apply(_flat(data, plan), x, plan.offsets,
+                         store_grid=plan.store_grid)
 
 
 def stencil_matvec_dot_embedded(data, x, plan):
     """(A x, <x, A x>) in one pass — the PCG alpha-dot fused into the SpMV."""
-    return stencil_apply(_flat(data, plan), x, plan.offsets, with_dot=True)
+    return stencil_apply(_flat(data, plan), x, plan.offsets, with_dot=True,
+                         store_grid=plan.store_grid)
 
 
 def stencil_residual_embedded(data, b, x, plan):
     """r = b - A x, fused in one pass."""
     return stencil_fused_apply("residual", _flat(data, plan), x, plan.offsets,
-                               b=b)
+                               b=b, store_grid=plan.store_grid)
 
 
 def stencil_smooth_embedded(data, r, x, inv_diag, plan, *,
                             omega: float = 0.8):
     """x + omega * inv_diag * (r - A x): one fused weighted-Jacobi sweep."""
     return stencil_fused_apply("smooth", _flat(data, plan), x, plan.offsets,
-                               b=r, inv_diag=inv_diag, omega=omega)
+                               b=r, inv_diag=inv_diag, omega=omega,
+                               store_grid=plan.store_grid)
 
 
 def stencil_smooth_dot_embedded(data, r, x, inv_diag, plan, *,
@@ -236,7 +391,7 @@ def stencil_smooth_dot_embedded(data, r, x, inv_diag, plan, *,
     the V-cycle's final fine-level smooth."""
     return stencil_fused_apply("smooth", _flat(data, plan), x, plan.offsets,
                                b=r, inv_diag=inv_diag, omega=omega,
-                               with_dot=True)
+                               with_dot=True, store_grid=plan.store_grid)
 
 
 # -- constant-coefficient (uniform-grid) stencil: B5 --------------------------
@@ -280,22 +435,17 @@ def const_stencil_apply_plain(epilogue: str, weights, code, x, offsets, *,
     return (y, torch.dot(b, y)) if with_dot else y
 
 
-def const_stencil_apply(epilogue: str, weights, code: torch.Tensor,
-                        x: torch.Tensor, offsets, *, b=None,
-                        omega: float = 0.8, with_dot: bool = False):
-    """B5: ``"matvec"`` y = A x, ``"residual"`` y = b - A x or ``"smooth"``
-    y = x + omega invd (b - A x) of the uniform-grid operator (``weights``
-    K floats, ``code`` the row-type plane, which may be bf16); with
-    ``with_dot`` (sweep only) also <b, y>.  No host sync."""
-    offsets = tuple(int(o) for o in offsets)
-    code_id = _epilogue(epilogue, tuple(_EPILOGUE))
+def _check_const(epilogue, b, with_dot):
+    code = _epilogue(epilogue, tuple(_EPILOGUE))
     if (epilogue == "matvec") != (b is None) or (
             with_dot and epilogue != "smooth"):
         raise ValueError("matvec takes no b; only the sweep takes a dot")
-    if x.device.type == "cpu":
-        return const_stencil_apply_plain(epilogue, weights, code, x, offsets,
-                                         b=b, omega=omega, with_dot=with_dot)
-    what = "const_" + epilogue
+    return code
+
+
+def _const_operands(what, weights, code, x, offsets, b):
+    """The (code, vector) types' entry name, after checking every operand
+    of a const launch."""
     entry = _CONST_ENTRY.get((code.dtype, x.dtype))
     if entry is None:
         raise TypeError(f"{what}: takes (code, vector) types "
@@ -309,11 +459,35 @@ def const_stencil_apply(epilogue: str, weights, code: torch.Tensor,
             or not code.is_contiguous()):
         raise ValueError(f"{what}: code {tuple(code.shape)} {code.device} "
                          f"vs x {tuple(x.shape)} {x.device}")
+    return entry
+
+
+def const_stencil_apply(epilogue: str, weights, code: torch.Tensor,
+                        x: torch.Tensor, offsets, *, b=None,
+                        omega: float = 0.8, with_dot: bool = False,
+                        store_grid=None):
+    """B5: ``"matvec"`` y = A x, ``"residual"`` y = b - A x or ``"smooth"``
+    y = x + omega invd (b - A x) of the uniform-grid operator (``weights``
+    K floats, K = 7 or 15, ``code`` the row-type plane, which may be bf16);
+    with ``with_dot`` (sweep only) also <b, y>.  ``store_grid`` routes as
+    in ``stencil_apply`` (to B5b).  No host sync."""
+    offsets = tuple(int(o) for o in offsets)
+    code_id = _check_const(epilogue, b, with_dot)
+    kw = dict(b=b, omega=omega, with_dot=with_dot)
+    if _routed(store_grid, 3, int(b is not None), x):
+        return const_stencil_blocked_apply(epilogue, weights, code, x,
+                                           offsets, store_grid, **kw)
+    if x.device.type == "cpu":
+        return const_stencil_apply_plain(epilogue, weights, code, x, offsets,
+                                         **kw)
+    what = "const_" + epilogue
+    entry = _const_operands(what, weights, code, x, offsets, b)
     lib = _const_lib()
     k = len(offsets)
     with torch.cuda.device(x.device):
         y = torch.empty_like(x)
-        dot, partials = _dot_buffers(lib, x, with_dot)
+        dot, partials = _dot_buffers(x, with_dot,
+                                     lib.tpufem_num_blocks(x.shape[0]))
         status = getattr(lib, entry)(
             code_id, code.data_ptr(), x.data_ptr(), _ptr(b), y.data_ptr(),
             _ptr(partials), _ptr(dot), x.shape[0],
@@ -328,23 +502,56 @@ def const_stencil_apply(epilogue: str, weights, code: torch.Tensor,
 const_stencil_apply.launches = 0
 
 
+def const_stencil_blocked_apply(epilogue: str, weights, code: torch.Tensor,
+                                x: torch.Tensor, offsets, store_grid, *,
+                                b=None, omega: float = 0.8,
+                                with_dot: bool = False):
+    """B5b: B5's four epilogues tiled over the 3D ``store_grid`` (15
+    offsets); the same function and types as B5.  No host sync."""
+    offsets = tuple(int(o) for o in offsets)
+    code_id = _check_const(epilogue, b, with_dot)
+    if x.device.type == "cpu":
+        return const_stencil_apply_plain(epilogue, weights, code, x, offsets,
+                                         b=b, omega=omega, with_dot=with_dot)
+    what = "const_blocked_" + epilogue
+    entry = _const_operands(what, weights, code, x, offsets, b)
+    k = len(offsets)
+    with torch.cuda.device(x.device):
+        lib, sg, steps, dot, partials = _blocked_args(what, x, offsets,
+                                                      store_grid, with_dot)
+        y = torch.empty_like(x)
+        status = getattr(lib, entry.replace("stencil", "stencil_blocked"))(
+            code_id, code.data_ptr(), x.data_ptr(), _ptr(b), y.data_ptr(),
+            _ptr(partials), _ptr(dot), *sg, steps,
+            (ctypes.c_double * k)(*(float(w) for w in weights)), k,
+            _inv_w0(weights, offsets), float(omega), stream_handle())
+    check_launch(status, what)
+    const_stencil_blocked_apply.launches += 1
+    return (y, dot) if with_dot else y
+
+
+const_stencil_blocked_apply.launches = 0
+
+
 def const_matvec_embedded(weights, code, x, plan):
     """y = A x for the uniform-grid operator: ``weights`` K floats (one per
     plan offset), ``code`` the row-type plane."""
-    return const_stencil_apply("matvec", weights, code, x, plan.offsets)
+    return const_stencil_apply("matvec", weights, code, x, plan.offsets,
+                               store_grid=plan.store_grid)
 
 
 def const_residual_embedded(weights, code, b, x, plan):
     return const_stencil_apply("residual", weights, code, x, plan.offsets,
-                               b=b)
+                               b=b, store_grid=plan.store_grid)
 
 
 def const_smooth_embedded(weights, code, r, x, plan, *, omega: float = 0.8):
     return const_stencil_apply("smooth", weights, code, x, plan.offsets, b=r,
-                               omega=omega)
+                               omega=omega, store_grid=plan.store_grid)
 
 
 def const_smooth_dot_embedded(weights, code, r, x, plan, *,
                               omega: float = 0.8):
     return const_stencil_apply("smooth", weights, code, x, plan.offsets, b=r,
-                               omega=omega, with_dot=True)
+                               omega=omega, with_dot=True,
+                               store_grid=plan.store_grid)

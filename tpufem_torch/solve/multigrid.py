@@ -1,29 +1,33 @@
-"""Geometric multigrid for the uniform 3D box, as in tpufem.solve.multigrid.
+"""Geometric multigrid for the uniform 2D and 3D boxes, as in
+tpufem.solve.multigrid.
 
-Nesting is exact: the Kuhn split refines self-similarly under grid halving,
-so every non-coarse fine node lies on a coarse edge or diagonal and P1
-interpolation is a 2-point average along it.  Factorization:
+Nesting is exact: the 2D anti-diagonal split and the 3D Kuhn split refine
+self-similarly under grid halving, so every non-coarse fine node lies on a
+coarse edge or diagonal and P1 interpolation is a 2-point average along
+it.  Factorization:
 
     P   = W . inject2      (zero-inject coarse into even positions, then
                             apply the constant-weight adjacency stencil W)
     P^T = sample2 . W      (W symmetric; sample even positions)
 
-with W = I + 0.5 * (Kuhn adjacency).  Two kinds of level:
+with W = I + 0.5 * (adjacency).  Two kinds of level:
 
   * ``MGLevel`` (``operator="general"``, the default): the assembled
     stencil planes [K, NS] of the level's operator; the finest level may be
     a given operator (``top=``), e.g. the fused build's.  Its sweeps and
-    residuals run kernel B4 (``ops.stencil_cuda``).
+    residuals run kernel B4 (``ops.stencil_cuda``; B3 on grids past the
+    blocked-route threshold).
   * ``ConstMGLevel`` (``operator="const"``): on the uniform box every
     interior row carries the same K weights, so a level is K numbers plus a
     row-type ``code`` plane (1 interior, 2 Dirichlet, 0 padding) and the
-    V-cycle streams only vectors.  Its sweeps run kernel B5; between two
-    const levels the transfers fuse into kernels K3 and K4
-    (``ops.mg_transfer_cuda``).
+    V-cycle streams only vectors.  Its sweeps run kernel B5 (B5b past the
+    threshold); between two 3D const levels the transfers fuse into
+    kernels K3 and K4 (``ops.mg_transfer_cuda``).
 
 The coarsest level gets a dense inverse when it has at most 20,000 nodes,
-else 20 damped Jacobi sweeps.  ``restrict``/``prolong`` stay plain PyTorch,
-as the reference computes them in XLA outside any Pallas kernel.
+else 20 damped Jacobi sweeps.  ``restrict``/``prolong`` stay plain PyTorch
+(and so does every transfer between 2D levels), as the reference computes
+them in XLA outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -50,18 +54,24 @@ __all__ = ["prolong", "restrict", "MGLevel", "ConstMGLevel",
 
 # -- transfer operators on plain node grids (the plain versions of K3/K4) --
 
-# 15-point Kuhn adjacency: axes + face diagonals + main diagonal
-_STENCIL_OFFSETS_3D = ((-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0),
-                       (0, 0, -1), (0, 0, 1),
-                       (-1, -1, 0), (1, 1, 0), (-1, 0, -1), (1, 0, 1),
-                       (0, -1, -1), (0, 1, 1), (-1, -1, -1), (1, 1, 1))
+def _stencil_offsets(dim: int):
+    if dim == 2:
+        # 7-point: axes + the anti-diagonal of the 2D cell split
+        return ((-1, 0), (1, 0), (0, -1), (0, 1), (-1, 1), (1, -1))
+    if dim == 3:
+        # 15-point Kuhn adjacency: axes + face diagonals + main diagonal
+        return ((-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0),
+                (0, 0, -1), (0, 0, 1),
+                (-1, -1, 0), (1, 1, 0), (-1, 0, -1), (1, 0, 1),
+                (0, -1, -1), (0, 1, 1), (-1, -1, -1), (1, 1, 1))
+    raise ValueError(f"dim {dim}: the structured grids are 2D or 3D")
 
 
 def _transfer_stencil(x: torch.Tensor) -> torch.Tensor:
     """y = x + 0.5 * sum of adjacency-shifted x (zero outside the grid)."""
-    xp = torch.nn.functional.pad(x, (1, 1, 1, 1, 1, 1))
+    xp = torch.nn.functional.pad(x, (1, 1) * x.dim())
     acc = x
-    for off in _STENCIL_OFFSETS_3D:
+    for off in _stencil_offsets(x.dim()):
         sl = tuple(slice(1 + o, 1 + o + s) for o, s in zip(off, x.shape))
         acc = acc + 0.5 * xp[sl]
     return acc
@@ -69,30 +79,30 @@ def _transfer_stencil(x: torch.Tensor) -> torch.Tensor:
 
 def _sample2(x: torch.Tensor) -> torch.Tensor:
     """Even-position decimation along every axis."""
-    return x[::2, ::2, ::2].contiguous()
+    return x[(slice(None, None, 2),) * x.dim()].contiguous()
 
 
 def _inject2(x: torch.Tensor) -> torch.Tensor:
     """Zero-injection into even positions (adjoint of _sample2)."""
     out = x.new_zeros(tuple(2 * s - 1 for s in x.shape))
-    out[::2, ::2, ::2] = x
+    out[(slice(None, None, 2),) * x.dim()] = x
     return out
 
 
-def _check_3d(x, dim):
-    if dim != 3 or x.dim() != 3:
-        raise NotImplementedError("the port's transfers are 3D")
+def _check_dim(x, dim):
+    if x.dim() != dim:
+        raise ValueError(f"a {x.dim()}-D grid given for dim={dim}")
 
 
 def prolong(xc: torch.Tensor, dim: int) -> torch.Tensor:
-    """P1-exact prolongation coarse [n+1]^3 -> fine [2n+1]^3 grids."""
-    _check_3d(xc, dim)
+    """P1-exact prolongation coarse [n+1]^d -> fine [2n+1]^d grids."""
+    _check_dim(xc, dim)
     return _transfer_stencil(_inject2(xc))
 
 
 def restrict(rf: torch.Tensor, dim: int) -> torch.Tensor:
-    """R = P^T: adjoint of ``prolong`` (fine [2n+1]^3 -> coarse [n+1]^3)."""
-    _check_3d(rf, dim)
+    """R = P^T: adjoint of ``prolong`` (fine [2n+1]^d -> coarse [n+1]^d)."""
+    _check_dim(rf, dim)
     return _sample2(_transfer_stencil(rf))
 
 
@@ -135,16 +145,21 @@ class ConstMGLevel:
                            torch.ones_like(self.code))
 
 
+# the two triangles of the 2D cell split along its anti-diagonal
+_ANTI_DIAGONAL_TRIANGLES = ((((0, 0), (0, 1), (1, 0)),
+                             ((0, 1), (1, 1), (1, 0))))
+
+
 def _light_grid(domain, s: int, dim: int = 3, with_coords: bool = True):
     """(StructuredInfo, node coords grid [dim, *ng] or None, bc grid) of the
-    uniform box (lo, hi)^3 with s cells per side — no mesh, no
-    connectivity."""
-    if dim != 3:
-        raise NotImplementedError("the port's structured grids are 3D")
+    uniform box (lo, hi)^dim with s cells per side (dim 2: anti-diagonal
+    triangles; dim 3: Kuhn tetrahedra) — no mesh, no connectivity."""
+    if dim not in (2, 3):
+        raise ValueError(f"dim {dim}: the structured grids are 2D or 3D")
     lo, hi = domain
+    offs = _ANTI_DIAGONAL_TRIANGLES if dim == 2 else _KUHN_TETS
     info = StructuredInfo(node_grid=(s + 1,) * dim, cell_grid=(s,) * dim,
-                          type_node_offsets=np.asarray(_KUHN_TETS,
-                                                       dtype=np.int64))
+                          type_node_offsets=np.asarray(offs, dtype=np.int64))
     coords_grid = None
     if with_coords:
         ax = np.linspace(lo, hi, s + 1)
@@ -264,8 +279,10 @@ def build_poisson_multigrid(domain, n_cells: int, dim: int = 3, *,
                             use_pallas: bool = True,
                             operator: str = "general",
                             top: Optional[tuple] = None,
-                            device="cpu") -> list:
-    """Hierarchy of embedded Poisson operators on (domain)^3.
+                            device="cuda") -> list:
+    """Hierarchy of embedded Poisson operators on (domain)^dim, dim 2 or 3,
+    on ``device`` (the card by default; pass ``device="cpu"`` for the plain
+    versions on the host).
 
     Halves n_cells while even and > ``coarse_max`` (at most ``levels``
     levels).  Levels are analytic: the grid is uniform, so each level's
@@ -283,6 +300,7 @@ def build_poisson_multigrid(domain, n_cells: int, dim: int = 3, *,
     """
     if operator not in ("general", "const"):
         raise ValueError(f"operator {operator!r}: general | const")
+    _stencil_offsets(dim)       # dim 2 or 3, checked before any setup
     if operator == "const" and top is not None:
         raise ValueError("operator='const' is fully analytic; drop top=")
     sizes = [n_cells]
@@ -411,7 +429,8 @@ def _store(level, x_grid):
 
 def _can_fuse_transfers(levels, li, nu2, use_pallas, fuse_transfers):
     """The fused transfer kernels (K3, K4) apply between consecutive 3D
-    const levels on the kernel path."""
+    const levels on the kernel path; 2D transfers stay plain, as the
+    reference computes them in XLA."""
     return (fuse_transfers and use_pallas and nu2 >= 1
             and isinstance(levels[li], ConstMGLevel)
             and isinstance(levels[li + 1], ConstMGLevel)

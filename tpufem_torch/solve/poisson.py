@@ -1,31 +1,55 @@
-"""The reference model problem, as in tpufem.solve.poisson.
+"""The reference model problems, as in tpufem.solve.poisson.
 
--Δu = f on (-3,3)³ with u = 0 on the boundary and manufactured solution
-u = Π(9 - x_d²).
+-Δu = f on (-3,3)^dim with u = 0 on the boundary and manufactured solution
+u = Π(9 - x_d²): in 2D f = 36 - 2(x² + y²), the reference's own problem;
+in 3D its separable analogue.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
 
-__all__ = ["RhsFunction", "model_problem_3d", "model_problem_3d_planes"]
+__all__ = ["RhsFunction", "model_problem_2d", "model_problem_2d_planes",
+           "model_problem_3d", "model_problem_3d_planes"]
 
 
 @dataclasses.dataclass(frozen=True)
 class RhsFunction:
-    """An RHS coefficient f(x, y, z) on coordinate planes, in two forms.
+    """An RHS coefficient f(x, y[, z]) on coordinate planes, in two forms.
 
     ``fn`` is a PyTorch (or numpy) callable, used by the plain versions;
-    ``c_expr`` is the same function as a C expression of ``x, y, z`` of the
-    kernel's floating type ``T`` (write literals as ``T(9)``), compiled into
-    the fused-build kernel.  Without ``c_expr`` only the plain path runs.
+    ``c_expr`` is the same function as a C expression of ``x, y`` (and
+    ``z`` in 3D) of the kernel's floating type ``T`` (write literals as
+    ``T(9)``), compiled into the fused-build kernel.  Without ``c_expr``
+    only the plain path runs.
     """
 
     fn: Callable
     c_expr: Optional[str] = None
 
-    def __call__(self, x, y, z):
-        return self.fn(x, y, z)
+    def __call__(self, *planes):
+        return self.fn(*planes)
+
+
+def model_problem_2d():
+    """(f, exact) on points x [..., 2]."""
+
+    def f(x):
+        return 36.0 - 2.0 * (x[..., 0] ** 2 + x[..., 1] ** 2)
+
+    def exact(x):
+        return (9.0 - x[..., 0] ** 2) * (9.0 - x[..., 1] ** 2)
+
+    return f, exact
+
+
+def model_problem_2d_planes() -> RhsFunction:
+    """Plane form of the 2D RHS, with its C expression."""
+
+    def f(x, y):
+        return 36.0 - 2.0 * (x * x + y * y)
+
+    return RhsFunction(f, "T(36) - T(2) * (x * x + y * y)")
 
 
 def model_problem_3d():

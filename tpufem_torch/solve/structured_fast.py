@@ -1,16 +1,21 @@
 """High-level fast path, as in tpufem.solve.structured_fast: the benchmark
-pipeline as one library call for 3D Poisson on the uniform box.
+pipeline as one library call for Poisson on the uniform 2D or 3D box.
 
     from tpufem_torch.solve.structured_fast import solve_poisson_fast
     sol = solve_poisson_fast((-3, 3), 96, model_problem_3d_planes(),
-                             tol=1e-5, device="cuda")
+                             tol=1e-5)                  # on the card
+    sol = solve_poisson_fast((-3, 3), 1024, model_problem_2d_planes(),
+                             dim=2, tol=1e-5)
 
-Fused system build (K1) + MG-preconditioned CG with the stencil SpMV (K2):
-the constant-coefficient hierarchy (default; fused V-cycle transfers K3,
-K4) or the general one (``precond="general"``: the finest level is the
-built operator, sweeps and residuals in B4).  Nonzero Dirichlet data
-``g`` is eliminated after the build (solve.bc).  On a CPU device every
-kernel runs its plain PyTorch version.
+Fused system build (K1 in 3D, B7 in 2D) + MG-preconditioned CG with the
+stencil SpMV (K2): the constant-coefficient hierarchy (default; B5 sweeps,
+fused V-cycle transfers K3, K4 in 3D) or the general one
+(``precond="general"``: the finest level is the built operator, sweeps and
+residuals in B4).  On 3D grids past the reference's blocked-route rule
+(about 300^3) the finest level's stencil calls run B3 / B5b.  Nonzero
+Dirichlet data ``g`` is eliminated after the build (solve.bc).  The entry
+runs on the card unless ``device="cpu"`` is asked for; there every kernel
+runs its plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ from tpufem_torch.assemble.planar import (element_coord_views,
 from tpufem_torch.assemble.structured import (assemble_stencil_structured_bt,
                                               assemble_vector_structured_bt,
                                               structured_plan)
-from tpufem_torch.fem.quadrature import tetrahedron_rule
+from tpufem_torch.fem.quadrature import tetrahedron_rule, triangle_rule
 from tpufem_torch.ops.fused_system_cuda import (
     build_poisson_system, node_coords_embedded_from_grid)
 from tpufem_torch.ops.stencil_cuda import (stencil_matvec_dot_embedded,
@@ -76,15 +81,18 @@ def solve_poisson_fast(domain, n_cells: int, f_planes: Callable, *,
                        rhs_mode: str = "quadrature",
                        precond: str = "const",
                        check_every: int = 4,
-                       device="cpu") -> FastSolution:
-    """Assemble + solve -Δu = f on (domain)^3 with n_cells^3 cells.
+                       device="cuda") -> FastSolution:
+    """Assemble + solve -Δu = f on (domain)^dim with n_cells^dim cells,
+    dim 2 (P1 triangles) or 3 (P1 tetrahedra), on ``device`` (the card by
+    default).
 
-    ``f_planes(x, y, z)`` takes coordinate planes and returns one plane;
+    ``f_planes(x, y[, z])`` takes coordinate planes and returns one plane;
     on a CUDA device the fused build needs a C expression
     (solve.poisson.RhsFunction).  ``n_cells`` should halve down to <= 8
-    for the full hierarchy (e.g. 32/48/64/96/128).
+    for the full hierarchy (e.g. 32/48/64/96/128/384; 1024 in 2D).  2D
+    quadrature is the triangle rule of degree max(quadrature_degree, 2).
 
-    ``g``: Dirichlet data as ``g(x, y, z) -> plane``, evaluated on the
+    ``g``: Dirichlet data as ``g(x, y[, z]) -> plane``, evaluated on the
     host's node coordinates; the build then emits the raw system and the
     elimination moves g to the RHS.  Default None: zero data, eliminated
     inside the build.
@@ -99,8 +107,9 @@ def solve_poisson_fast(domain, n_cells: int, f_planes: Callable, *,
     """
     if precond not in ("const", "general"):
         raise ValueError(f"precond {precond!r}: const | general")
-    if dim != 3:
-        raise NotImplementedError("the port's fast path is 3D")
+    if dim not in (2, 3):
+        raise ValueError(f"dim {dim}: the fast path solves on 2D or 3D "
+                         "boxes")
     phases = {}
 
     t0 = time.perf_counter()
@@ -117,7 +126,8 @@ def solve_poisson_fast(domain, n_cells: int, f_planes: Callable, *,
     phases["host_setup"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    rule = tetrahedron_rule(quadrature_degree)
+    rule = (tetrahedron_rule(quadrature_degree) if dim == 3
+            else triangle_rule(max(quadrature_degree, 2)))
     if use_fused:
         C = torch.as_tensor(node_coords_embedded_from_grid(
             coords_grid, plan, np_dtype), device=device)
