@@ -31,6 +31,12 @@
    - Routed: B3 and B5b at n=64 with the routing threshold set to 0,
      through the routed wrappers, in fp32, bf16-under-fp32 and fp64, also
      against the flat kernels.
+   - ELL, at the shapes of the unstructured path (1,002,001 rows, 8 slots,
+     half bandwidth 1001, random data from a seeded generator): B9 in fp32
+     and fp64 with int16 (R = 8192) and int32 (R = 11008) window indices,
+     its B11 route (per_block), the absolute-column (gather) mode, B10
+     with q = 3, 1 and 8 on the banded plan and q = 3 in absolute mode;
+     the library call is a torch.sparse CSR product.
 4. The paths, each driven with every launch count set to 0 just before it
    and read just after (the per-iteration times are taken after that):
    - main, n=96 (912,673 DOFs): fused build, const MG-PCG (nu1 = nu2 = 1)
@@ -61,7 +67,22 @@
      precond="general" (<= 16), each with rel L2 error <= 2.0e-4, its
      phases and peak device memory; then one fused build with the const
      hierarchy at nu1 = nu2 = 2 (<= 12); K1, B3, B5b, K3, K4 and B4 must
-     launch.
+     launch;
+   - unstructured, 1000 x 1000 perturbed mesh (1,002,001 rows, 2,000,000
+     elements), fp32: examples/unstructured_1m.py composed from the port
+     (RCM renumbering, ELL pattern, scatter assembly whose rows sum to 0
+     within 1e-5 and which repeats bit for bit, apply_dirichlet_ell,
+     the banded plan, Chebyshev(14)-PCG with the Gershgorin lmax, cg to
+     1e-5 with check_every=2): RCM bandwidth 1001, <= 260 iterations, rel
+     L2 error <= 2.0e-5, about 14 banded products per iteration; the
+     Chebyshev polynomial on an [n, 3] block (B10) against three single
+     applications; then solve_poisson_ell(precond="chebyshev",
+     matvec="pallas") on the same mesh within 2 iterations of it; B9, its
+     absolute-column mode and B10 must launch;
+   - ell_small: solve_poisson_ell in fp64 to 1e-10 (Jacobi) on the 64 x 64
+     row-major mesh (bandwidth 65: the banded kernel) and on a randomly
+     numbered 96 x 96 perturbed mesh (bandwidth above 4096: the gather
+     form), each within one iteration of the JAX package's CPU count.
 
 The second-to-last line is the kernels' JSON record (launches summed over
 the paths), the last line {"ok": true, "device": {...}}.  Any failed check
@@ -141,6 +162,7 @@ def main() -> int:
     _check_2d(dev, records)
     _check_scale(dev, records)
     _check_routed(dev, records)
+    _check_ell(dev, records)
     print(f"# check phase {time.perf_counter() - t0:.1f} s")
     _paths(dev, records)
     print(f"# all phases {time.perf_counter() - t0:.1f} s")
@@ -171,6 +193,14 @@ _KERNELS = {
            "tpufem/ops/stencil_pallas.py:333"),
     "B5b": ("const_stencil_blocked", "tpufem_torch/csrc/stencil_blocked.cu",
             "tpufem/ops/stencil_pallas.py:651"),
+    "B9": ("ell_spmv (with its B11 per_block route, "
+           "tpufem/sparse/ell_pallas.py:288)", "tpufem_torch/csrc/ell.cu",
+           "tpufem/sparse/ell_pallas.py:268"),
+    "B9g": ("ell_spmv absolute-column mode (the gather form of ELLMatrix "
+            "and the Dirichlet correction)", "tpufem_torch/csrc/ell.cu",
+            "tpufem/sparse/ell_pallas.py:268"),
+    "B10": ("ell_spmv_multi", "tpufem_torch/csrc/ell.cu",
+            "tpufem/sparse/ell_pallas.py:275"),
 }
 
 
@@ -179,6 +209,7 @@ def _counters():
     attribute)."""
     from tpufem_torch.ops import fused_system_cuda, mg_transfer_cuda
     from tpufem_torch.ops import stencil_cuda
+    from tpufem_torch.sparse import ell_cuda
 
     build = fused_system_cuda.build_poisson_system
     return {"K1": (build, "launches"),
@@ -191,7 +222,10 @@ def _counters():
             "B5": (stencil_cuda.const_stencil_apply, "launches"),
             "B7": (build, "launches_2d"),
             "B3": (stencil_cuda.stencil_blocked_apply, "launches"),
-            "B5b": (stencil_cuda.const_stencil_blocked_apply, "launches")}
+            "B5b": (stencil_cuda.const_stencil_blocked_apply, "launches"),
+            "B9": (ell_cuda.ell_matvec_cuda, "launches"),
+            "B9g": (ell_cuda.ell_gather_matvec_cuda, "launches"),
+            "B10": (ell_cuda.ell_matvec_multi_cuda, "launches")}
 
 
 def _record(records, key):
@@ -218,9 +252,11 @@ def _build_kernels():
     from tpufem_torch.ops._build import BUILD_DIR
     from tpufem_torch.solve.poisson import (model_problem_2d_planes,
                                             model_problem_3d_planes)
+    from tpufem_torch.sparse import ell_cuda
 
     plan, plan2 = _plan(N_MAIN), _plan(N_2D, 2)
     builds = {
+        "ell.cu": ell_cuda._lib,
         "stencil.cu": stencil_cuda._stencil_lib,
         "const_stencil.cu": stencil_cuda._const_lib,
         "stencil_blocked.cu": stencil_cuda._blocked_lib,
@@ -869,6 +905,109 @@ def _check_routed(dev, records):
         sc._VMEM_1D_LIMIT = limit
 
 
+N_ELL = 1000                        # mesh lines a side: 1,002,001 rows
+ELL_ROWS, ELL_ELEMENTS, ELL_BANDWIDTH = 1_002_001, 2_000_000, 1001
+ELL_SLOTS = 8
+# The JAX package's own CPU iteration counts of the ell_small solves
+# (float64, Jacobi, tol 1e-10), from
+#   TPUFEM_BAND_DISPATCH=0 python -c "import jax; jax.config.update(
+#   'jax_platforms', 'cpu'); jax.config.update('jax_enable_x64', True);
+#   from tpufem.mesh.rectangle import RectangleMesh as R,
+#   perturbed_rectangle_mesh as P; from tpufem.solve.poisson import
+#   solve_poisson_ell as s; print(int(s(R(-3, 3, -3, 3, 64, 64),
+#   tol=1e-10).cg.iterations), int(s(P(-3, 3, -3, 3, 96, 96, jitter=0.2,
+#   seed=1), tol=1e-10).cg.iterations))"
+# which prints "119 374" (relres 9.96e-11 and 9.91e-11 at the stop).
+JAX_ELL_SMALL_ITERS = {"rect64": 119, "perturbed96": 374}
+
+
+def _library_ell(data, cols, x):
+    """() -> (() -> A x) through one torch sparse CSR product: the ELL rows
+    with their K entries (columns sorted within each row), int32 indices,
+    built once on the card.  x may be [n] or [n, q]."""
+    import torch
+
+    def make():
+        n, k = data.shape
+        c, order = cols.long().sort(dim=1)
+        vals = data.gather(1, order)
+        crow = torch.arange(0, n * k + 1, k, dtype=torch.int32,
+                            device=data.device)
+        A = torch.sparse_csr_tensor(crow, c.to(torch.int32).reshape(-1),
+                                    vals.reshape(-1), size=(n, n))
+        del c, order
+        return lambda: A @ x
+
+    return make
+
+
+def _check_ell(dev, records):
+    """B9 (fp32 / fp64, int16 / int32 windows, the B11 route), its
+    absolute-column mode and B10 (q = 3, 1, 8) against their plain versions
+    at the unstructured path's shapes: 1,002,001 rows, 8 slots, columns
+    within 1001 of the diagonal, random data from a seeded generator."""
+    import torch
+
+    from tpufem_torch.sparse import ell_cuda as ec
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    n, k, band = ELL_ROWS, ELL_SLOTS, ELL_BANDWIDTH
+    t0 = time.perf_counter()
+    cols = (torch.arange(n, device=dev)[:, None] + torch.randint(
+        -band, band + 1, (n, k), generator=gen, device=dev)).clamp_(
+        0, n - 1).to(torch.int32)
+    data32 = torch.randn((n, k), generator=gen, device=dev)
+    x32 = torch.randn(n, generator=gen, device=dev)
+    plans = {"int16": ec.ell_band_plan(data32, cols, per_block=True),
+             "int32": ec.ell_band_plan(data32, cols, block_rows=11008)}
+    print(f"# ell checks: plans {time.perf_counter() - t0:.2f} s (host), "
+          + ", ".join(f"{kk} R={p.block_rows} NP={p.np_rows} "
+                      f"rel {p.rel.dtype}" for kk, p in plans.items()))
+    check(plans["int16"].rel.dtype.name == "int16"
+          and plans["int16"].np_rows == 1_007_616
+          and plans["int32"].rel.dtype.name == "int32",
+          "ell plans: expected R = 8192 with int16 and R = 11008 with int32")
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).replace("torch.", "")
+        data, x = data32.to(dtype), x32.to(dtype)
+        for idx, plan in plans.items():
+            d_t = torch.as_tensor(plan.data_t, device=dev).to(dtype)
+            rel = torch.as_tensor(plan.rel, device=dev)
+            args = (plan, d_t, rel)
+            main = dtype == torch.float32 and idx == "int16"
+            for per_block in ((False, True) if idx == "int16" else (False,)):
+                _compare(records, "B9", f"{n} rows {dt} {idx} rel"
+                                        f"{' B11 per_block' if per_block else ''}",
+                         lambda: ec.ell_matvec_cuda(*args, x,
+                                                    per_block=per_block),
+                         lambda: ec.ell_band_matvec_plain(*args, x),
+                         timed=True, work=([d_t, rel, x], 2 * k * n, dt),
+                         library=(_library_ell(data, cols, x)
+                                  if main and not per_block else None))
+            if dtype == torch.float32 and idx == "int16":
+                for q in (3, 1, 8):
+                    X = torch.randn((n, q), generator=gen, device=dev)
+                    _compare(records, "B10", f"{n} rows fp32 int16 rel q={q}",
+                             lambda: ec.ell_matvec_multi_cuda(*args, X),
+                             lambda: ec.ell_band_matvec_multi_plain(*args, X),
+                             timed=True,
+                             work=([d_t, rel, X], 2 * k * n * q, dt),
+                             library=_library_ell(data, cols, X))
+            del d_t, rel
+        _compare(records, "B9g", f"{n} rows {dt} absolute columns",
+                 lambda: ec.ell_gather_matvec_cuda(data, cols, x),
+                 lambda: ec.ell_gather_matvec_plain(data, cols, x),
+                 timed=True, work=([data, cols, x], 2 * k * n, dt),
+                 library=(_library_ell(data, cols, x)
+                          if dtype == torch.float32 else None))
+        X = torch.randn((n, 3), generator=gen, device=dev, dtype=dtype)
+        _compare(records, "B10", f"{n} rows {dt} absolute columns q=3",
+                 lambda: ec.ell_gather_matvec_multi_cuda(data, cols, X),
+                 lambda: ec.ell_gather_matvec_multi_plain(data, cols, X))
+    del data32, x32, cols
+    torch.cuda.empty_cache()
+
+
 def _run_path(name, counters, records, drive, must_launch):
     """Drive one path with every launch count at 0 just before it; read
     the counts just after, check that the path's kernels launched, and
@@ -1150,6 +1289,10 @@ def _paths(dev, records):
               lambda: _drive_2d_dirichlet(dev), ("B7", "K2", "B5"))
     _run_path("scale", counters, records, lambda: _drive_scale(dev),
               ("K1", "B3", "B5b", "K3", "K4", "B4"))
+    _run_path("unstructured", counters, records,
+              lambda: _drive_unstructured(dev), ("B9", "B9g", "B10"))
+    _run_path("ell_small", counters, records, lambda: _drive_ell_small(dev),
+              ("B9", "B9g"))
 
 
 def _fp32_bf16_counts(name, levels, mv, mvd, b):
@@ -1346,6 +1489,201 @@ def _drive_scale(dev):
         return cg_fixed(mv, b, 10, M=M, matvec_dot=mvd, M_dot=M_dot)
 
     return lambda: _per_iteration("scale", pcg10)
+
+
+def _drive_unstructured(dev):
+    """examples/unstructured_1m.py's default, composed from the port at full
+    size; then the same solve through the entry point."""
+    import numpy as np
+    import torch
+
+    from tpufem_torch.assemble.dense import assemble_vector
+    from tpufem_torch.assemble.ell import ell_values_scatter
+    from tpufem_torch.assemble.local import element_load, p1_stiffness
+    from tpufem_torch.fem.elements import P1Triangle
+    from tpufem_torch.fem.quadrature import triangle_rule
+    from tpufem_torch.mesh.adjacency import ell_pattern, reverse_cuthill_mckee
+    from tpufem_torch.mesh.core import Mesh
+    from tpufem_torch.mesh.rectangle import perturbed_rectangle_mesh
+    from tpufem_torch.solve.bc import apply_dirichlet_ell
+    from tpufem_torch.solve.cg import cg, cg_fixed
+    from tpufem_torch.solve.poisson import model_problem_2d, solve_poisson_ell
+    from tpufem_torch.solve.precond import chebyshev, lambda_max_bound
+    from tpufem_torch.sparse import ell_cuda
+    from tpufem_torch.sparse.ell import ELLMatrix
+    from tpufem_torch.utils.timing import PhaseTimer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    f, exact = model_problem_2d()
+    timer = PhaseTimer()
+    with timer("host_mesh"):
+        mesh0 = perturbed_rectangle_mesh(-3, 3, -3, 3, N_ELL, N_ELL,
+                                         jitter=0.25, seed=0)
+    with timer("rcm"):
+        # RCM on the random numbering's pattern, then the mesh renumbered
+        cols0 = ell_pattern(mesh0.conn, mesh0.num_nodes, pad_to=8,
+                            with_sort_plan=False).cols
+        perm = reverse_cuthill_mckee(cols0)
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(perm.size, dtype=perm.dtype)
+        mesh = Mesh(coords=mesh0.coords[perm],
+                    conn=inv[mesh0.conn].astype(np.int32),
+                    node_flags=mesh0.node_flags[perm], cell_type="triangle")
+        del cols0
+    with timer("pattern"):
+        pat = ell_pattern(mesh.conn, mesh.num_nodes, pad_to=8,
+                          with_sort_plan=False)
+    nn = mesh.num_nodes
+    bw = int(np.abs(pat.cols.astype(np.int64)
+                    - np.arange(nn)[:, None]).max())
+    print(f"# unstructured: {nn} rows, {mesh.num_elements} elements, RCM "
+          f"bandwidth {bw}, ELL width {pat.width}")
+    check((nn, mesh.num_elements, bw, pat.width) == (
+        ELL_ROWS, ELL_ELEMENTS, ELL_BANDWIDTH, ELL_SLOTS),
+        f"unstructured: {nn} rows, {mesh.num_elements} elements, bandwidth "
+        f"{bw}, width {pat.width}")
+    el = P1Triangle()
+
+    def assemble(ec):
+        return (ell_values_scatter(pat.slots, p1_stiffness(ec, el), nn,
+                                   pat.width),
+                assemble_vector(mesh.conn, element_load(
+                    ec, el, triangle_rule(5), f), nn))
+
+    with timer("assemble"):
+        ec = torch.as_tensor(mesh.element_coords(), dtype=torch.float32,
+                             device=dev)
+        data, b = assemble(ec)
+        torch.cuda.synchronize()
+    # golden: stiffness rows sum to 0; the sorted accumulation repeats
+    # bit for bit
+    row_sum = (data.sum(dim=1).abs().max() / data.abs().max()).item()
+    again = assemble(ec)
+    same = torch.equal(again[0], data) and torch.equal(again[1], b)
+    del ec, again
+    print(f"# unstructured assembly: max |row sum| / max |a_ij| "
+          f"{row_sum:.3e}, a second assembly bit-identical: {same}")
+    check(row_sum <= 1e-5 and same,
+          f"unstructured assembly: row sums {row_sum:.3e}, repeatable {same}")
+    with timer("bc"):
+        A = ELLMatrix(data, torch.as_tensor(pat.cols, device=dev),
+                      diag_pos=torch.as_tensor(pat.diag_pos, device=dev))
+        A, b = apply_dirichlet_ell(A, b, torch.as_tensor(
+            mesh.node_flags != 0, device=dev))
+        torch.cuda.synchronize()
+    with timer("plan"):
+        A.resolve_band()
+        torch.cuda.synchronize()
+    plan = A._band[0]
+    print(f"# unstructured plan: R={plan.block_rows}, NP={plan.np_rows}, "
+          f"rel {plan.rel.dtype}, {len(plan.segments or ())} segments")
+    check(plan.block_rows == 8192 and plan.rel.dtype.name == "int16",
+          "unstructured: expected the R = 8192 int16 plan")
+    with timer("precond"):
+        lmax = lambda_max_bound(A)
+        M = chebyshev(A.matvec, A.diagonal(), degree=14, lmax=lmax)
+    before = ell_cuda.ell_matvec_cuda.launches
+    with timer("solve"):
+        res = cg(A.matvec, b, tol=1e-5, maxiter=3000, M=M, check_every=2)
+        torch.cuda.synchronize()
+    per_iter = (ell_cuda.ell_matvec_cuda.launches - before) / res.iterations
+    ue = torch.as_tensor(exact(mesh.coords), device=dev)
+    err = _rel_err(res.x, ue)
+    print(f"# unstructured Chebyshev(14)-PCG: {res.iterations} iterations, "
+          f"relres {res.residual_norm.item():.3e}, rel L2 error {err:.4e} "
+          f"(TPU reference: 242-244 iterations, 1.0e-5), lmax bound "
+          f"{lmax:.6g}, {per_iter:.2f} banded products per iteration")
+    check(res.converged and res.iterations <= 260,
+          f"unstructured: {res.iterations} iterations, converged "
+          f"{res.converged}")
+    check(err <= 2.0e-5, f"unstructured: rel L2 error {err:.3e} > 2.0e-5")
+    check(13.5 <= per_iter <= 14.5,
+          f"unstructured: {per_iter:.2f} banded products per iteration")
+
+    # the polynomial on an [n, 3] block: 13 products of B10
+    gen = torch.Generator(device=dev).manual_seed(7)
+    R3 = torch.randn((nn, 3), generator=gen, device=dev)
+    M_multi = chebyshev(A.matvec_multi, A.diagonal(), degree=14, lmax=lmax)
+    Z3 = M_multi(R3)
+    cols3 = torch.stack([M(R3[:, j].contiguous()) for j in range(3)], 1)
+    err3 = ((Z3 - cols3).abs().max() / cols3.abs().max()).item()
+    print(f"# unstructured Chebyshev on an [n, 3] block vs 3 single "
+          f"applications: max rel difference {err3:.3e}")
+    check(err3 <= 1e-6, f"unstructured: [n, 3] Chebyshev differs {err3:.3e}")
+    del R3, Z3, cols3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print("# unstructured phases (s, wall clock ending in a synchronize): "
+          + json.dumps({kk: round(v, 4) for kk, v in timer.report().items()})
+          + f"; peak device memory {peak_gb:.3f} GB "
+          "(torch.cuda.max_memory_allocated)")
+
+    t0 = time.perf_counter()
+    sol = solve_poisson_ell(mesh0, precond="chebyshev", matvec="pallas",
+                            dtype=torch.float32, tol=1e-5, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    err_e = _rel_err(sol.u, torch.as_tensor(exact(mesh0.coords),
+                                            device=dev))
+    print(f"# unstructured solve_poisson_ell(chebyshev, pallas, fp32): "
+          f"{sol.cg.iterations} iterations, relres "
+          f"{sol.cg.residual_norm.item():.3e}, rel L2 error {err_e:.4e}, "
+          f"wall {wall:.2f} s (host pattern, RCM and plan included)")
+    check(sol.cg.converged
+          and abs(sol.cg.iterations - res.iterations) <= 2,
+          f"unstructured entry: {sol.cg.iterations} iterations vs "
+          f"{res.iterations} by hand")
+    check(err_e <= 2.0e-5, f"unstructured entry: rel L2 error {err_e:.3e}")
+    del sol
+
+    def pcg10():
+        return cg_fixed(A.matvec, b, 10, M=M)
+
+    return lambda: _per_iteration("unstructured", pcg10)
+
+
+def _drive_ell_small(dev):
+    """The verify recipe's flagship at its own size, fp64 to 1e-10: the
+    64 x 64 row-major mesh (the banded kernel) and a randomly numbered
+    96 x 96 perturbed mesh (the gather form)."""
+    from tpufem_torch.mesh.rectangle import (RectangleMesh,
+                                             perturbed_rectangle_mesh)
+    from tpufem_torch.solve.poisson import model_problem_2d, solve_poisson_ell
+    from tpufem_torch.sparse import ell_cuda
+
+    import torch
+
+    exact = model_problem_2d()[1]
+    for name, mesh, err_max, banded in (
+            ("rect64", RectangleMesh(-3, 3, -3, 3, 64, 64), 2.1e-4, True),
+            ("perturbed96", perturbed_rectangle_mesh(
+                -3, 3, -3, 3, 96, 96, jitter=0.2, seed=1), 1.2e-4, False)):
+        before = (ell_cuda.ell_matvec_cuda.launches,
+                  ell_cuda.ell_gather_matvec_cuda.launches)
+        t0 = time.perf_counter()
+        sol = solve_poisson_ell(mesh, tol=1e-10, device=dev)
+        wall = time.perf_counter() - t0
+        band = ell_cuda.ell_matvec_cuda.launches - before[0]
+        gather = ell_cuda.ell_gather_matvec_cuda.launches - before[1]
+        err = _rel_err(sol.u, torch.as_tensor(exact(mesh.coords),
+                                              device=dev))
+        ref = JAX_ELL_SMALL_ITERS[name]
+        print(f"# ell_small {name}: {sol.num_dofs} DOFs, "
+              f"{sol.cg.iterations} iterations (JAX on the CPU: {ref}), "
+              f"relres {sol.cg.residual_norm.item():.4e}, rel L2 error "
+              f"{err:.4e}, banded launches {band}, gather launches {gather}, "
+              f"wall {wall:.3f} s")
+        # the 96 stop sits within 0.5% of the tolerance, where the order of
+        # a row sum alone moves the count by one
+        check(sol.cg.converged and abs(sol.cg.iterations - ref) <= 1,
+              f"ell_small {name}: {sol.cg.iterations} iterations vs {ref}")
+        check(err <= err_max, f"ell_small {name}: rel L2 error {err:.3e}")
+        if banded:
+            check(band >= sol.cg.iterations and gather == 1,
+                  f"ell_small {name}: banded {band}, gather {gather}")
+        else:
+            check(band == 0 and gather > sol.cg.iterations,
+                  f"ell_small {name}: banded {band}, gather {gather}")
 
 
 if __name__ == "__main__":

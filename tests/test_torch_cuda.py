@@ -1,5 +1,5 @@
-"""CUDA kernels K1-K4, B4 and B5 against their plain PyTorch versions on
-the card.
+"""CUDA kernels K1-K4, B3-B5, B5b, B7 and the ELL kernels B9-B11 against
+their plain PyTorch versions on the card.
 
 Every test here needs an NVIDIA GPU with nvcc (sm_90a) and skips without
 one.  This file imports neither JAX nor the JAX package, so it runs on a
@@ -426,3 +426,118 @@ def test_routed_wrappers_launch_the_blocked_kernels(dev, monkeypatch):
                                            con.plan)
     torch.cuda.synchronize()
     assert [c.launches - n for c, n in zip(counters, before)] == [2, 1, 0, 0]
+
+
+def _ell_case(dev, dtype, n=3000, k=8, band=300):
+    """A random banded ELL matrix [n, k] (half bandwidth ``band``) and a
+    vector, made on the CPU from a seed and moved to the card."""
+    g = torch.Generator(device="cpu").manual_seed(n + k)
+    cols = (torch.arange(n)[:, None] + torch.randint(
+        -band, band + 1, (n, k), generator=g)).clamp_(0, n - 1).to(
+        torch.int32)
+    data = torch.randn((n, k), generator=g, dtype=dtype)
+    x = torch.randn(n, generator=g, dtype=dtype)
+    return data.to(dev), cols.to(dev), x.to(dev)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("block_rows", [512, 11008], ids=["int16", "int32"])
+@pytest.mark.parametrize("per_block", [False, True], ids=["B9", "B11"])
+def test_ell_band_kernel_matches_plain(dev, dtype, block_rows, per_block):
+    from tpufem_torch.sparse import ell_cuda
+
+    data, cols, x = _ell_case(dev, dtype)
+    plan = ell_cuda.ell_band_plan(data, cols, block_rows=block_rows,
+                                  per_block=per_block)
+    assert plan.rel.dtype == (np.int16 if block_rows == 512 else np.int32)
+    d_t, rel = (torch.as_tensor(a, device=dev) for a in (plan.data_t,
+                                                          plan.rel))
+    before = ell_cuda.ell_matvec_cuda.launches
+    y = ell_cuda.ell_matvec_cuda(plan, d_t, rel, x, per_block=per_block)
+    ref = ell_cuda.ell_band_matvec_plain(plan, d_t, rel, x)
+    torch.cuda.synchronize()
+    assert ell_cuda.ell_matvec_cuda.launches == before + 1
+    _close(y, ref, dtype)
+    _close(y, ell_cuda.ell_gather_matvec_plain(data, cols, x), dtype)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_ell_gather_kernel_matches_plain(dev, dtype):
+    from tpufem_torch.sparse import ell_cuda
+
+    data, cols, x = _ell_case(dev, dtype, band=2999)
+    before = ell_cuda.ell_gather_matvec_cuda.launches
+    y = ell_cuda.ell_gather_matvec_cuda(data, cols, x)
+    torch.cuda.synchronize()
+    assert ell_cuda.ell_gather_matvec_cuda.launches == before + 1
+    _close(y, ell_cuda.ell_gather_matvec_plain(data, cols, x), dtype)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("q", [1, 3, 8])
+def test_ell_multi_kernel_matches_plain(dev, dtype, q):
+    """B10 on the banded plan, and the gather form's multi-RHS product."""
+    from tpufem_torch.sparse import ell_cuda
+
+    data, cols, _ = _ell_case(dev, dtype)
+    X = torch.randn((data.shape[0], q), generator=torch.Generator(
+        device="cpu").manual_seed(q), dtype=dtype).to(dev)
+    plan = ell_cuda.ell_band_plan(data, cols, block_rows=512)
+    d_t, rel = (torch.as_tensor(a, device=dev) for a in (plan.data_t,
+                                                          plan.rel))
+    before = (ell_cuda.ell_matvec_multi_cuda.launches,
+              ell_cuda.ell_gather_matvec_multi_cuda.launches)
+    Y = ell_cuda.ell_matvec_multi_cuda(plan, d_t, rel, X)
+    Yg = ell_cuda.ell_gather_matvec_multi_cuda(data, cols, X)
+    torch.cuda.synchronize()
+    assert (ell_cuda.ell_matvec_multi_cuda.launches,
+            ell_cuda.ell_gather_matvec_multi_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = ell_cuda.ell_band_matvec_multi_plain(plan, d_t, rel, X)
+    _close(Y, ref, dtype)
+    _close(Yg, ref, dtype)
+    for j in range(q):
+        _close(Y[:, j], ell_cuda.ell_matvec_cuda(plan, d_t, rel,
+                                                 X[:, j].contiguous()), dtype)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(precond="chebyshev",
+                                             matvec="pallas")],
+                         ids=["jacobi-banded", "chebyshev-pallas"])
+def test_solve_poisson_ell_on_the_card(dev, kw):
+    """The 64 x 64 verify-recipe solve on the card (fp64): the CPU's
+    iteration count and u within 1e-10."""
+    from tpufem_torch.mesh.rectangle import RectangleMesh
+    from tpufem_torch.solve.poisson import solve_poisson_ell
+    from tpufem_torch.sparse import ell_cuda
+
+    mesh = RectangleMesh(-3, 3, -3, 3, 64, 64)
+    before = ell_cuda.ell_matvec_cuda.launches
+    sol = solve_poisson_ell(mesh, tol=1e-10, **kw)
+    ref = solve_poisson_ell(mesh, tol=1e-10, device="cpu", **kw)
+    assert sol.u.device.type == "cuda"
+    assert ell_cuda.ell_matvec_cuda.launches > before
+    assert sol.cg.converged and sol.cg.iterations == ref.cg.iterations
+    u, u_ref = sol.u.cpu().numpy(), ref.u.numpy()
+    assert np.abs(u - u_ref).max() <= 1e-10 * np.abs(u_ref).max()
+
+
+def test_ell_assembly_on_the_card_is_deterministic(dev):
+    """The sorted accumulation repeats bit for bit on the card (float
+    atomics would not) and agrees with the CPU's within fp32 rounding."""
+    from tpufem_torch.assemble.ell import assemble_ell
+    from tpufem_torch.assemble.local import p1_stiffness
+    from tpufem_torch.fem.elements import P1Triangle
+    from tpufem_torch.mesh.adjacency import ell_pattern
+    from tpufem_torch.mesh.rectangle import perturbed_rectangle_mesh
+
+    mesh = perturbed_rectangle_mesh(-3, 3, -3, 3, 200, 200, seed=4)
+    pat = ell_pattern(mesh.conn, mesh.num_nodes, pad_to=8)
+    ec = torch.as_tensor(mesh.element_coords(), dtype=torch.float32)
+    Ke = p1_stiffness(ec.to(dev), P1Triangle())
+    for method in ("scatter", "sort"):
+        runs = [assemble_ell(pat, Ke, method=method).data for _ in range(3)]
+        assert all(torch.equal(r, runs[0]) for r in runs[1:])
+        ref = assemble_ell(pat, p1_stiffness(ec, P1Triangle()),
+                           method=method).data
+        _close(runs[0].cpu(), ref, torch.float32)

@@ -1,5 +1,6 @@
 """Port hygiene: tpufem_torch never imports JAX or the JAX package, and on
-CPU tensors no wrapper launches a kernel (K1-K4, B4, B5)."""
+CPU tensors no wrapper launches a kernel (K1-K4, B4, B5, B9-B11)."""
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -8,10 +9,14 @@ import pytest
 import torch
 
 from tpufem_torch.ops import fused_system_cuda, mg_transfer_cuda, stencil_cuda
+from tpufem_torch.mesh.rectangle import perturbed_rectangle_mesh
 from tpufem_torch.solve.multigrid import (build_poisson_multigrid,
                                           mg_preconditioner)
-from tpufem_torch.solve.poisson import model_problem_3d_planes
+from tpufem_torch.solve.poisson import (model_problem_3d_planes,
+                                        solve_poisson_dense,
+                                        solve_poisson_ell)
 from tpufem_torch.solve.structured_fast import solve_poisson_fast
+from tpufem_torch.sparse import ell_cuda
 
 # several pytest workers share the CPU: one intra-op thread each keeps
 # the many small tensor ops from oversubscribing it
@@ -22,7 +27,13 @@ REPO = Path(__file__).resolve().parent.parent
 _PORT_MODULES = [
     "tpufem_torch", "tpufem_torch.convert",
     "tpufem_torch.assemble.planar", "tpufem_torch.assemble.structured",
-    "tpufem_torch.sparse.stencil",
+    "tpufem_torch.sparse.stencil", "tpufem_torch.sparse.ell",
+    "tpufem_torch.sparse.ell_cuda",
+    "tpufem_torch.mesh.core", "tpufem_torch.mesh.rectangle",
+    "tpufem_torch.mesh.adjacency", "tpufem_torch.fem.quadrature",
+    "tpufem_torch.fem.elements", "tpufem_torch.fem.space",
+    "tpufem_torch.assemble.local", "tpufem_torch.assemble.dense",
+    "tpufem_torch.assemble.ell", "tpufem_torch.solve.precond",
     "tpufem_torch.ops._build", "tpufem_torch.ops.stencil_cuda",
     "tpufem_torch.ops.fused_system_cuda", "tpufem_torch.ops.mg_transfer_cuda",
     "tpufem_torch.solve.bc", "tpufem_torch.solve.cg",
@@ -66,3 +77,27 @@ def test_cpu_slice_launches_no_kernel(kw):
     assert stencil_cuda.const_stencil_apply.launches == 0
     assert mg_transfer_cuda.const_residual_restrict_embedded.launches == 0
     assert mg_transfer_cuda.const_prolong_add_smooth_embedded.launches == 0
+
+
+_ELL_COUNTERS = [(ell_cuda.ell_matvec_cuda, "launches"),
+                 (ell_cuda.ell_matvec_cuda, "launches_per_block"),
+                 (ell_cuda.ell_matvec_multi_cuda, "launches"),
+                 (ell_cuda.ell_gather_matvec_cuda, "launches"),
+                 (ell_cuda.ell_gather_matvec_multi_cuda, "launches")]
+
+
+@pytest.mark.parametrize("kw", [dict(precond="chebyshev", matvec="pallas"),
+                                dict(), dict(precondition=False,
+                                             matvec="pallas")],
+                         ids=["chebyshev+banded", "jacobi", "banded-plan"])
+def test_cpu_ell_path_launches_no_kernel(kw):
+    """The ELL path on CPU tensors runs the plain versions only, and its
+    entry points run on the card unless the caller asks for the CPU."""
+    before = [getattr(fn, attr) for fn, attr in _ELL_COUNTERS]
+    mesh = perturbed_rectangle_mesh(-3, 3, -3, 3, 10, 10, seed=1)
+    sol = solve_poisson_ell(mesh, tol=1e-8, device="cpu", **kw)
+    assert sol.cg.converged and sol.u.device.type == "cpu"
+    assert [getattr(fn, attr) for fn, attr in _ELL_COUNTERS] == before
+    for entry in (solve_poisson_ell, solve_poisson_dense):
+        assert inspect.signature(entry).parameters["device"].default \
+            == "cuda"

@@ -6,9 +6,12 @@ is the counterpart of ``tpufem/solve/multigrid.py``); every Pallas module
 source in ``csrc/X.cu``.  Kernels are compiled with nvcc at first use, never
 at import, so importing this package needs only torch and numpy.
 
-The first slice covers the 3D P1 Poisson main path: fused system build,
-stencil SpMV, constant-coefficient MG V-cycle with fused transfers, PCG and
-mixed-precision refinement (``solve.structured_fast.solve_poisson_fast``).
+Ported so far: the structured P1 Poisson fast path in 2D and 3D (fused
+system build, stencil SpMV, const and general MG V-cycles, PCG,
+mixed-precision refinement; ``solve.structured_fast.solve_poisson_fast``)
+and the unstructured ELL path (mesh, RCM, ELL pattern and assembly,
+Dirichlet elimination, Jacobi / Chebyshev PCG on the banded ELL kernel;
+``solve.poisson.solve_poisson_ell``).
 """
 
 __version__ = "0.1.0"

@@ -11,10 +11,14 @@ feeds both packages the same operator and the same MG hierarchy:
   * ``level_from_numpy`` / ``hierarchy_from_numpy``: general MG levels
     (data planes, inverse diagonal, Dirichlet mask, coarse inverse, plan
     metadata).  A bf16 plane arrives as float32 numpy (numpy has no bf16)
-    and is cast to ``dtype``.
+    and is cast to ``dtype``;
+  * ``ell_from_numpy``: an assembled ELL matrix (data, cols, row lengths,
+    diagonal positions), optionally with the banded plan that
+    ``band_plan_from_numpy`` carries over from a JAX ``ELLBandPlan``.
 
-The port rebuilds each plan from its StructuredInfo and checks it against
-the given store grid and offsets.
+The port rebuilds each structured plan from its StructuredInfo and checks
+it against the given store grid and offsets; a banded ELL plan is checked
+against the window rule of the banded kernel.
 """
 from __future__ import annotations
 
@@ -24,11 +28,13 @@ import torch
 from tpufem_torch.assemble.structured import structured_plan
 from tpufem_torch.mesh.core import StructuredInfo
 from tpufem_torch.solve.multigrid import ConstMGLevel, MGLevel
+from tpufem_torch.sparse.ell import ELLMatrix
+from tpufem_torch.sparse.ell_cuda import ELLBandPlan
 from tpufem_torch.sparse.stencil import StencilMatrix
 
 __all__ = ["system_from_numpy", "const_level_from_numpy",
            "const_hierarchy_from_numpy", "level_from_numpy",
-           "hierarchy_from_numpy"]
+           "hierarchy_from_numpy", "ell_from_numpy", "band_plan_from_numpy"]
 
 
 def system_from_numpy(data, b, offsets, *, dtype=torch.float64,
@@ -117,3 +123,59 @@ def hierarchy_from_numpy(levels, *, dtype=torch.float64, device="cpu"):
     ``level_from_numpy``."""
     return [level_from_numpy(**lv, dtype=dtype, device=device)
             for lv in levels]
+
+
+def band_plan_from_numpy(rel, data_t, *, n, np_rows, block_rows, d_lists,
+                         width, dtab=None, segments=None,
+                         dtype=torch.float64, device="cpu"):
+    """(ELLBandPlan, data_t, rel) on ``device`` from a JAX ELLBandPlan's
+    arrays (rel [K, NP] int16/int32, data_t [K, NP]) and statics; data_t is
+    cast to ``dtype``.  Raises if a real row's window column leaves [0, n)."""
+    rel, data_t = np.array(rel), np.array(data_t)      # own, writable
+    K, NP, R, n = int(width), int(np_rows), int(block_rows), int(n)
+    if (rel.shape != (K, NP) or data_t.shape != (K, NP) or R <= 0
+            or NP % R or not n <= NP < n + R
+            or rel.dtype not in (np.int16, np.int32)):
+        raise ValueError(f"band plan: rel {rel.shape} {rel.dtype}, data_t "
+                         f"{data_t.shape} for K={K}, NP={NP}, R={R}, n={n}")
+    base = (np.arange(n) // R - 1) * R
+    cols = base[None, :] + rel[:, :n].astype(np.int64)
+    if n and (cols.min() < 0 or cols.max() >= n):
+        raise ValueError("band plan: a window column leaves [0, n)")
+    plan = ELLBandPlan(
+        rel=rel, data_t=data_t, n=n, np_rows=NP, block_rows=R,
+        d_lists=tuple(tuple(int(v) for v in d) for d in d_lists), width=K,
+        dtab=None if dtab is None else np.asarray(dtab),
+        segments=None if segments is None else tuple(
+            (int(s), int(e), tuple(tuple(int(v) for v in d) for d in dl))
+            for s, e, dl in segments))
+    return (plan, torch.as_tensor(data_t, device=device).to(dtype),
+            torch.as_tensor(rel, device=device))
+
+
+def ell_from_numpy(data, cols, row_lengths=None, diag_pos=None, *,
+                   band=None, dtype=torch.float64,
+                   device="cpu") -> ELLMatrix:
+    """An ELLMatrix on ``device`` from numpy data [N, K] (cast to
+    ``dtype``), cols [N, K] int32 and optional row lengths / diagonal
+    positions [N].  ``band``: a (plan, data_t, rel) triple from
+    ``band_plan_from_numpy`` to run the products on (instead of the plan
+    the matrix would build itself)."""
+    data = torch.as_tensor(np.array(data), device=device).to(dtype)
+    cols = torch.as_tensor(np.array(cols, dtype=np.int32), device=device)
+    if data.dim() != 2 or cols.shape != data.shape:
+        raise ValueError(f"ELL: data {tuple(data.shape)}, cols "
+                         f"{tuple(cols.shape)}")
+
+    def vec(a):
+        return None if a is None else torch.as_tensor(
+            np.array(a, dtype=np.int32), device=device)
+
+    A = ELLMatrix(data.contiguous(), cols.contiguous(), vec(row_lengths),
+                  vec(diag_pos))
+    if band is not None:
+        plan = band[0]
+        if plan.n != data.shape[0] or plan.width != data.shape[1]:
+            raise ValueError("band plan does not fit the matrix")
+        A._band = tuple(band)
+    return A
