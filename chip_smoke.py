@@ -37,6 +37,17 @@
      its B11 route (per_block), the absolute-column (gather) mode, B10
      with q = 3, 1 and 8 on the banded plan and q = 3 in absolute mode;
      the library call is a torch.sparse CSR product.
+   - BCSR, at the elasticity paths' shapes (random data and patterns from
+     a seeded generator): B12 on 491,401 block rows (b = 2, K = 8, half
+     bandwidth 701) in fp32 and fp64 with int16 (R = 1024, and its
+     per_block route) and int32 (R = 11008) window indices, on 68,921 block
+     rows (b = 3, K = 16, R = 4096), and its absolute-column mode on
+     randomly numbered patterns of both shapes, fp32 and fp64 (the 3D
+     one is the BC correction's and the box6 gather's b = 3 build); every
+     output must equal the plain
+     version's bit for bit (no fused multiply-add, the reference's order),
+     which the field tolerance above contains; the library call is torch's
+     BSR product (its CSR expansion where BSR @ x does not run).
 4. The paths, each driven with every launch count set to 0 just before it
    and read just after (the per-iteration times are taken after that):
    - main, n=96 (912,673 DOFs): fused build, const MG-PCG (nu1 = nu2 = 1)
@@ -82,7 +93,28 @@
    - ell_small: solve_poisson_ell in fp64 to 1e-10 (Jacobi) on the 64 x 64
      row-major mesh (bandwidth 65: the banded kernel) and on a randomly
      numbered 96 x 96 perturbed mesh (bandwidth above 4096: the gather
-     form), each within one iteration of the JAX package's CPU count.
+     form), each within one iteration of the JAX package's CPU count;
+   - elasticity, examples/elasticity_unstructured.py --precond jacobi at
+     full width (perturbed 700 x 700 mesh: 982,802 DOFs, 980,000
+     triangles; lam = mu = 1, f = (1, -0.5), tol 1e-6): solve_elasticity
+     (matvec="pallas") in fp32 converges within ELAST_MAXITER (see there)
+     with B12 launched once per iteration plus the start; its fp64 twin's
+     true relative residual <= 1e-5, the fp32 solution within 1e-4 of
+     the fp64 one and its own true relative residual within the drift
+     limit (see _elasticity_pair; _drift_witness prints what it rests
+     on); then matvec="gather" on the random numbering (B12's
+     absolute-column mode) converges; B12 and its absolute mode must
+     launch;
+   - elasticity_3d: the same on the n = 40 box (206,763 DOFs, b = 3,
+     block_rows 4096);
+   - elasticity_small: fp64 to 1e-10 on a 48 x 48 perturbed mesh and a 6^3
+     box, both matvec branches, each at the JAX package's CPU count, the
+     two solutions within 1e-8;
+   - weakform: examples/poisson_2d.py composed from the port (the weak
+     form, ELL, apply_dirichlet_ell, Jacobi cg; 64 x 64, fp64) at the JAX
+     package's CPU count and nodal rms error, and the weak-form ELL
+     assembly of the 1000 x 1000 perturbed mesh within 1e-5 of the
+     closed-form P1 assembly (fp32; quadrature against closed form).
 
 The second-to-last line is the kernels' JSON record (launches summed over
 the paths), the last line {"ok": true, "device": {...}}.  Any failed check
@@ -163,6 +195,7 @@ def main() -> int:
     _check_scale(dev, records)
     _check_routed(dev, records)
     _check_ell(dev, records)
+    _check_bcsr(dev, records)
     print(f"# check phase {time.perf_counter() - t0:.1f} s")
     _paths(dev, records)
     print(f"# all phases {time.perf_counter() - t0:.1f} s")
@@ -201,6 +234,12 @@ _KERNELS = {
             "tpufem/sparse/ell_pallas.py:268"),
     "B10": ("ell_spmv_multi", "tpufem_torch/csrc/ell.cu",
             "tpufem/sparse/ell_pallas.py:275"),
+    "B12": ("bcsr_spmv (with its per_block route, "
+            "tpufem/sparse/ell_pallas.py:582)", "tpufem_torch/csrc/bcsr.cu",
+            "tpufem/sparse/ell_pallas.py:548"),
+    "B12g": ("bcsr_spmv absolute-column mode (the gather form of BCSRMatrix "
+             "and the Dirichlet correction)", "tpufem_torch/csrc/bcsr.cu",
+             "tpufem/sparse/ell_pallas.py:548"),
 }
 
 
@@ -225,7 +264,9 @@ def _counters():
             "B5b": (stencil_cuda.const_stencil_blocked_apply, "launches"),
             "B9": (ell_cuda.ell_matvec_cuda, "launches"),
             "B9g": (ell_cuda.ell_gather_matvec_cuda, "launches"),
-            "B10": (ell_cuda.ell_matvec_multi_cuda, "launches")}
+            "B10": (ell_cuda.ell_matvec_multi_cuda, "launches"),
+            "B12": (ell_cuda.bcsr_matvec_cuda, "launches"),
+            "B12g": (ell_cuda.bcsr_gather_matvec_cuda, "launches")}
 
 
 def _record(records, key):
@@ -257,6 +298,7 @@ def _build_kernels():
     plan, plan2 = _plan(N_MAIN), _plan(N_2D, 2)
     builds = {
         "ell.cu": ell_cuda._lib,
+        "bcsr.cu": ell_cuda._bcsr_lib,
         "stencil.cu": stencil_cuda._stencil_lib,
         "const_stencil.cu": stencil_cuda._const_lib,
         "stencil_blocked.cu": stencil_cuda._blocked_lib,
@@ -1008,6 +1050,140 @@ def _check_ell(dev, records):
     torch.cuda.empty_cache()
 
 
+# B12 at the elasticity paths' shapes: the 700 x 700 mesh's 491,401 nodes
+# (b = 2, K = 8, its RCM half bandwidth about 700, R = 1024) and the
+# n = 40 box's 68,921 nodes (b = 3, K = 16, half bandwidth 1723, R = 4096)
+BCSR_2D = dict(n=491_401, k=8, band=701, b=2, block_rows=1024)
+BCSR_3D = dict(n=68_921, k=16, band=1723, b=3, block_rows=4096)
+
+
+def _library_bcsr(data, cols, x, component_major):
+    """() -> (() -> A x) through one torch sparse product on the card, built
+    once: the BSR tensor of the blocks data [NR, K, b, b] (columns sorted
+    within each row) where torch runs BSR @ x on CUDA, else its scalar CSR
+    expansion.  x is node-major [NR * b]; with ``component_major`` the
+    product is returned as the kernel's [b, NR] view."""
+    import torch
+
+    def make():
+        nr, k, b, _ = data.shape
+        c, order = cols.long().sort(dim=1)
+        vals = data[torch.arange(nr, device=data.device)[:, None], order]
+        shape = (nr * b, nr * b)
+        view = ((lambda y: y.view(nr, b).T) if component_major
+                else (lambda y: y))
+        try:
+            A = torch.sparse_bsr_tensor(
+                torch.arange(0, nr * k + 1, k, dtype=torch.int32,
+                             device=data.device),
+                c.to(torch.int32).reshape(-1), vals.reshape(-1, b, b),
+                size=shape)
+            A @ x
+            torch.cuda.synchronize()
+            print("# library call: torch BSR @ x (blocks "
+                  f"{b}x{b})")
+        except (RuntimeError, NotImplementedError) as exc:
+            print(f"# library call: BSR @ x not available here "
+                  f"({type(exc).__name__}: {str(exc).splitlines()[0][:120]})"
+                  "; the scalar CSR expansion instead")
+            # block row i, component cc: the k*b entries (slot, d)
+            ccols = (c[:, None, :, None] * b + torch.arange(
+                b, device=data.device)).expand(nr, b, k, b)
+            A = torch.sparse_csr_tensor(
+                torch.arange(0, nr * b * k * b + 1, k * b, dtype=torch.int32,
+                             device=data.device),
+                ccols.reshape(-1).to(torch.int32),
+                vals.permute(0, 2, 1, 3).reshape(-1), size=shape)
+        del c, order, vals
+        return lambda: view(A @ x)
+
+    return make
+
+
+def _bcsr_case(gen, n, k, band, b, dev):
+    """Random BCSR data [n, k, b, b], int32 cols [n, k] within ``band`` of
+    the diagonal and a component-major x [b, n]."""
+    import torch
+
+    cols = (torch.arange(n, device=dev)[:, None] + torch.randint(
+        -band, band + 1, (n, k), generator=gen, device=dev)).clamp_(0, n - 1)
+    data = torch.randn((n, k, b, b), generator=gen, device=dev)
+    x = torch.randn((b, n), generator=gen, device=dev)
+    return data, cols.to(torch.int32), x
+
+
+def _check_bcsr(dev, records):
+    """B12 against its plain version at the elasticity paths' shapes: the 2D
+    one in fp32 and fp64 with int16 (R = 1024) and int32 (R = 11008) window
+    indices and the per_block route; the 3D one (b = 3, K = 16, R = 4096);
+    at both, the absolute-column mode on a randomly numbered pattern
+    (columns anywhere).  The library call is torch's BSR (or CSR)
+    product."""
+    import torch
+
+    from tpufem_torch.sparse import ell_cuda as ec
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for label, shape, idx_plans in (
+            ("2D", BCSR_2D, {"int16": dict(block_rows=1024, per_block=True),
+                             "int32": dict(block_rows=11008)}),
+            ("3D", BCSR_3D, {"int16": dict(block_rows=4096)})):
+        n, k, b = shape["n"], shape["k"], shape["b"]
+        data32, cols, x32 = _bcsr_case(gen, n, k, shape["band"], b, dev)
+        t0 = time.perf_counter()
+        plans = {kk: ec.bcsr_band_plan(data32, cols, **kw)
+                 for kk, kw in idx_plans.items()}
+        print(f"# bcsr checks {label}: plans {time.perf_counter() - t0:.2f} "
+              "s (host), " + ", ".join(
+                  f"{kk} R={p.block_rows} NP={p.np_rows} rel {p.rel.dtype}"
+                  for kk, (p, _) in plans.items()))
+        check(all(p.rel.dtype.name == kk for kk, (p, _) in plans.items()),
+              f"bcsr plans {label}: window index types")
+        for dtype in (torch.float32, torch.float64):
+            dt = str(dtype).replace("torch.", "")
+            data, x = data32.to(dtype), x32.to(dtype)
+            for idx, (plan, data_t) in plans.items():
+                d_t = torch.as_tensor(data_t, device=dev).to(dtype)
+                rel = torch.as_tensor(plan.rel, device=dev)
+                args = (plan, d_t, rel)
+                lib = dtype == torch.float32 and idx == "int16"
+                for per_block in ((False, True) if plan.dtab is not None
+                                  else (False,)):
+                    _compare(
+                        records, "B12",
+                        f"{label} {n} block rows b={b} K={k} {dt} {idx} rel"
+                        f"{' per_block' if per_block else ''}",
+                        lambda: ec.bcsr_matvec_cuda(*args, x,
+                                                    per_block=per_block),
+                        lambda: ec.bcsr_band_matvec_plain(*args, x),
+                        timed=True,
+                        work=([d_t[..., :n], rel[:, :n], x],
+                              2 * k * b * b * n, dt),
+                        library=(_library_bcsr(data, cols,
+                                               x.T.reshape(-1), True)
+                                 if lib and not per_block else None))
+                del d_t, rel
+            rcols = torch.randint(0, n, (n, k), generator=gen,
+                                  device=dev).to(torch.int32)
+            xn = x.T.reshape(-1).contiguous()
+            _compare(records, "B12g",
+                     f"{label} {n} block rows b={b} K={k} {dt} absolute "
+                     "columns, random numbering",
+                     lambda: ec.bcsr_gather_matvec_cuda(data, rcols, xn),
+                     lambda: ec.bcsr_gather_matvec_plain(data, rcols, xn),
+                     timed=True,
+                     work=([data, rcols, xn], 2 * k * b * b * n, dt),
+                     library=(_library_bcsr(data, rcols, xn, False)
+                              if dtype == torch.float32 else None))
+            del rcols
+            del data, x
+        del data32, cols, x32, plans
+        torch.cuda.empty_cache()
+    check(records["B12"]["max_abs_err"] == 0
+          and records["B12g"]["max_abs_err"] == 0,
+          "B12: an output differs from its plain version's bits")
+
+
 def _run_path(name, counters, records, drive, must_launch):
     """Drive one path with every launch count at 0 just before it; read
     the counts just after, check that the path's kernels launched, and
@@ -1292,6 +1468,14 @@ def _paths(dev, records):
     _run_path("unstructured", counters, records,
               lambda: _drive_unstructured(dev), ("B9", "B9g", "B10"))
     _run_path("ell_small", counters, records, lambda: _drive_ell_small(dev),
+              ("B9", "B9g"))
+    _run_path("elasticity", counters, records,
+              lambda: _drive_elasticity(dev), ("B12", "B12g"))
+    _run_path("elasticity_3d", counters, records,
+              lambda: _drive_elasticity_3d(dev), ("B12", "B12g"))
+    _run_path("elasticity_small", counters, records,
+              lambda: _drive_elasticity_small(dev), ("B12", "B12g"))
+    _run_path("weakform", counters, records, lambda: _drive_weakform(dev),
               ("B9", "B9g"))
 
 
@@ -1684,6 +1868,375 @@ def _drive_ell_small(dev):
         else:
             check(band == 0 and gather > sol.cg.iterations,
                   f"ell_small {name}: banded {band}, gather {gather}")
+
+
+N_ELAST = 700                   # mesh lines a side: 982,802 DOFs
+ELAST_DOFS, ELAST_ELEMENTS = 982_802, 980_000
+N_ELAST_3D = 40                 # box cells a side: 206,763 DOFs
+ELAST_3D_DOFS = 206_763
+# The example's maxiter is 3000 (the TPU reference took 2923 fp32
+# iterations).  On the H100 the fp64 solve of the same system takes 3033
+# (so exact-arithmetic CG already needs more than 3000), and the fp32 count
+# moves with the last bits of the assembly: 3216 with element kernels
+# summed by torch's reductions, 2953 with the left-to-right sums the weak
+# form now uses.  The cap and the gate are 3300, above both fp32 counts and
+# 9% above the fp64 one.
+ELAST_MAXITER = 3300
+# The gather branch iterates on the mesh's random numbering, whose fp32
+# sums round differently: the cap leaves it room, the gate is convergence.
+ELAST_GATHER_MAXITER = 4000
+# The JAX package's own CPU iteration counts of the elasticity_small solves
+# (float64, block-Jacobi, tol 1e-10; the same for matvec="gather" and
+# "pallas" with interpret=True): solve_elasticity on
+# perturbed_rectangle_mesh(-1, 1, -1, 1, 48, 48, jitter=0.2, seed=0) with
+# f = (1, -0.5), and on box_mesh(-1, 1, -1, 1, -1, 1, 6, 6, 6) with
+# f = (1, -0.5, 0.25), lam = mu = 1: 305 and 33 iterations.
+JAX_ELAST_SMALL_ITERS = {"perturbed48": 305, "box6": 33}
+# examples/poisson_2d.py's defaults (64 x 64, Jacobi, tol 1e-8) with the JAX
+# package on the CPU in float64: 103 iterations, nodal rms error 8.568e-3.
+JAX_WEAKFORM_ITERS, JAX_WEAKFORM_RMS = 103, 8.568e-3
+
+
+def _body_force(dim):
+    """The examples' body force (1, -0.5) as a torch callable; 3D adds
+    0.25 along z."""
+    import torch
+
+    comps = (1.0, -0.5, 0.25)[:dim]
+
+    def f(x):
+        return torch.stack([0 * x[..., i] + c for i, c in enumerate(comps)],
+                           dim=-1)
+
+    return f
+
+
+def _eliminated_rhs(mesh, dim, dtype, dev):
+    """The eliminated right-hand side of the clamped body-force problem, as
+    solve_elasticity builds it (the Dirichlet rows hold 0)."""
+    import torch
+
+    from tpufem_torch.assemble.dense import assemble_vector
+    from tpufem_torch.fem.space import VectorFunctionSpace
+    from tpufem_torch.solve.elasticity import elasticity_forms
+
+    V = VectorFunctionSpace(mesh)
+    wf = elasticity_forms(V, 1.0, 1.0, _body_force(dim))
+    wf.dtype, wf.device = dtype, dev
+    ec = torch.as_tensor(mesh.element_coords(), dtype=dtype, device=dev)
+    b = assemble_vector(V.dof_conn, wf.element_vectors(ec), V.num_dofs)
+    return torch.where(torch.as_tensor(V.dof_flags, device=dev), 0.0, b)
+
+
+def _elasticity_pair(name, mesh, dev, **kw):
+    """solve_elasticity(matvec="pallas", block-Jacobi, tol 1e-6) in fp32 and
+    in fp64 on one mesh: gates convergence, B12 once per iteration plus the
+    start, the fp64 solution's true relative residual (fp64, the unpermuted
+    operator) <= 1e-5, the fp32 solution within 1e-4 of the fp64 one, and
+    the fp32 solution's own true relative residual within the drift limit.
+    Returns the fp32 solution.
+
+    Why the fp32 solution is not held to 1e-5: rounding the fp64 solution
+    to fp32 alone leaves a relative residual rr_round (about 3e-3 at
+    982,802 DOFs: the stiffness amplifies the rounding's high-frequency
+    part), and each of CG's k updates x += alpha p rounds x once more,
+    which the recursive residual never sees.  Independent roundings add up
+    as a random walk, so the true residual is about sqrt(k) rr_round
+    (_drift_witness shows the gap growing so).  The limit is twice that:
+    2 sqrt(k) rr_round."""
+    import torch
+
+    from tpufem_torch.solve.elasticity import solve_elasticity
+    from tpufem_torch.sparse import ell_cuda
+
+    sols = {}
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).replace("torch.", "")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = (ell_cuda.bcsr_matvec_cuda.launches,
+                  ell_cuda.bcsr_gather_matvec_cuda.launches)
+        t0 = time.perf_counter()
+        sol = solve_elasticity(mesh, body_force=_body_force(mesh.dim),
+                               dtype=dtype, tol=1e-6, matvec="pallas",
+                               precond="jacobi", device=dev, **kw)
+        wall = time.perf_counter() - t0
+        band = ell_cuda.bcsr_matvec_cuda.launches - before[0]
+        gather = ell_cuda.bcsr_gather_matvec_cuda.launches - before[1]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        its = sol.cg.iterations
+        print(f"# {name} {dt} solve_elasticity(pallas, jacobi): "
+              f"{sol.space.num_dofs} DOFs, {its} iterations, relres "
+              f"{sol.cg.residual_norm.item():.4e}, B12 launches {band} "
+              f"({band / max(its, 1):.4f} per iteration), absolute-mode "
+              f"launches {gather}, phases (s, each ending in a synchronize) "
+              + json.dumps({k: round(v, 4) for k, v in sol.walls.items()})
+              + f", wall {wall:.2f} s, peak device memory {peak_gb:.3f} GB "
+              "(torch.cuda.max_memory_allocated)")
+        check(sol.cg.converged, f"{name} {dt}: not converged in {its}")
+        check(band == its + 1, f"{name} {dt}: {band} B12 launches for {its} "
+                               "iterations")
+        sols[dt] = sol
+    A64 = sols["float64"].A
+    b64 = _eliminated_rhs(mesh, mesh.dim, torch.float64, dev)
+
+    def true_relres(u):
+        r = b64 - ell_cuda.bcsr_gather_matvec_cuda(A64.data, A64.cols,
+                                                   u.double())
+        return (torch.linalg.vector_norm(r)
+                / torch.linalg.vector_norm(b64)).item()
+
+    u32, u64 = sols["float32"].u, sols["float64"].u
+    rr64, rr32, rr_round = (true_relres(u64), true_relres(u32),
+                            true_relres(u64.float()))
+    du = (torch.linalg.vector_norm(u32.double() - u64)
+          / torch.linalg.vector_norm(u64)).item()
+    its32 = sols["float32"].cg.iterations
+    drift_max = 2.0 * math.sqrt(its32) * rr_round
+    print(f"# {name} true relres in fp64 (the unpermuted operator): fp64 "
+          f"solution {rr64:.4e}, fp32 solution {rr32:.4e} (limit 2 sqrt("
+          f"{its32}) x rounded = {drift_max:.4e}; sqrt(k) x rounded "
+          f"{rr_round * math.sqrt(its32):.4e}), fp64 solution rounded to "
+          f"fp32 {rr_round:.4e}; ||u32 - u64|| / ||u64|| {du:.4e}")
+    check(rr64 <= 1e-5, f"{name}: fp64 true relres {rr64:.3e} > 1e-5")
+    check(du <= 1e-4, f"{name}: fp32 solution {du:.3e} from the fp64 one")
+    check(rr32 <= drift_max, f"{name}: fp32 true relres {rr32:.3e} > "
+                             f"{drift_max:.3e}")
+    return sols["float32"]
+
+
+def _drift_witness(name, sol, mesh, mv, M, perm, dev):
+    """Where the fp32 solution's true residual comes from.  cg_fixed runs
+    cg's recurrence step for step (the same operations, so k = its gives
+    the solve's iterate) from 0 for k = its/8, its/4, its/2 and its steps;
+    at each k: the recursive residual r_k, the true one b - A x_k (the fp32
+    operator and iterate, evaluated in fp64) and the gap between them.  If
+    the roundings of the x updates add up as a random walk, gap / sqrt(k)
+    stays about constant."""
+    import torch
+
+    from tpufem_torch.solve.cg import cg_fixed
+    from tpufem_torch.sparse import ell_cuda
+
+    A, nb, its = sol.A, sol.A.block_size, sol.cg.iterations
+    b = _eliminated_rhs(mesh, mesh.dim, A.dtype, dev)
+    perm_t = torch.as_tensor(perm, device=dev)
+    inv_t = torch.empty_like(perm_t)
+    inv_t[perm_t] = torch.arange(perm_t.numel(), device=dev)
+    b_cm = b.reshape(-1, nb)[perm_t].T.contiguous()
+    b64, data64 = b.double(), A.data.double()
+    b_norm = torch.linalg.vector_norm(b64)
+    for k in sorted({max(1, its // 8), max(1, its // 4), max(1, its // 2),
+                     its}):
+        x, r = cg_fixed(mv, b_cm, k, M=M)
+        u = x.T[inv_t].reshape(-1)
+        r_true = b64 - ell_cuda.bcsr_gather_matvec_cuda(data64, A.cols,
+                                                        u.double())
+        r_rec = r.T[inv_t].reshape(-1).double()
+        rec, true, gap = (
+            (torch.linalg.vector_norm(v) / b_norm).item()
+            for v in (r_rec, r_true, r_true - r_rec))
+        print(f"# {name} drift witness, fp32, k = {k}: recursive relres "
+              f"{rec:.4e}, true relres {true:.4e} (fp64, the fp32 "
+              f"operator), gap {gap:.4e}, gap / sqrt(k) "
+              f"{gap / math.sqrt(k):.4e}"
+              + (f"; x_k equals the solve's iterate: {torch.equal(u, sol.u)}"
+                 if k == its else ""))
+
+
+def _drive_elasticity(dev):
+    """examples/elasticity_unstructured.py --precond jacobi at full width
+    (982,802 DOFs), fp32 with its fp64 twin; then matvec="gather" on the
+    mesh's random numbering (B12's absolute-column mode)."""
+    import torch
+
+    from tpufem_torch.mesh.rectangle import perturbed_rectangle_mesh
+    from tpufem_torch.solve.elasticity import solve_elasticity
+    from tpufem_torch.sparse import ell_cuda
+
+    t0 = time.perf_counter()
+    mesh = perturbed_rectangle_mesh(-1.0, 1.0, -1.0, 1.0, N_ELAST, N_ELAST,
+                                    jitter=0.2, seed=0)
+    print(f"# elasticity mesh: {2 * mesh.num_nodes} DOFs, "
+          f"{mesh.num_elements} triangles, {time.perf_counter() - t0:.4f} s")
+    check((2 * mesh.num_nodes, mesh.num_elements) == (ELAST_DOFS,
+                                                      ELAST_ELEMENTS),
+          "elasticity: mesh size")
+    sol = _elasticity_pair("elasticity", mesh, dev, maxiter=ELAST_MAXITER)
+    its = sol.cg.iterations
+    check(its <= ELAST_MAXITER, f"elasticity: {its} iterations")
+
+    before = (ell_cuda.bcsr_matvec_cuda.launches,
+              ell_cuda.bcsr_gather_matvec_cuda.launches)
+    t0 = time.perf_counter()
+    solg = solve_elasticity(mesh, body_force=_body_force(2),
+                            dtype=torch.float32, tol=1e-6,
+                            maxiter=ELAST_GATHER_MAXITER, matvec="gather",
+                            precond="jacobi", device=dev)
+    wall = time.perf_counter() - t0
+    du = (torch.linalg.vector_norm(solg.u - sol.u)
+          / torch.linalg.vector_norm(sol.u)).item()
+    print(f"# elasticity fp32 solve_elasticity(gather, jacobi): "
+          f"{solg.cg.iterations} iterations, relres "
+          f"{solg.cg.residual_norm.item():.4e}, B12 banded launches "
+          f"{ell_cuda.bcsr_matvec_cuda.launches - before[0]}, absolute-mode "
+          f"launches {ell_cuda.bcsr_gather_matvec_cuda.launches - before[1]}"
+          f", phases " + json.dumps({k: round(v, 4)
+                                     for k, v in solg.walls.items()})
+          + f", wall {wall:.2f} s; ||u_gather - u_pallas|| / ||u_pallas|| "
+          f"{du:.4e}")
+    check(solg.cg.converged, "elasticity gather: not converged")
+    del solg
+
+    return _after_elasticity("elasticity", sol, mesh, 1024, dev)
+
+
+def _after_elasticity(name, sol, mesh, block_rows, dev):
+    """() -> on the solved fp32 system's pallas operator: the drift witness,
+    then the per-iteration numbers (10 fixed iterations of block-Jacobi
+    PCG, a random rhs)."""
+    import torch
+
+    from tpufem_torch.solve.cg import cg_fixed
+    from tpufem_torch.solve.elasticity import banded_block_system
+
+    def after():
+        mv, M, perm = banded_block_system(sol.A, sol.A.cols.cpu().numpy(),
+                                          block_rows=block_rows)
+        _drift_witness(name, sol, mesh, mv, M, perm, dev)
+        gen = torch.Generator(device=dev).manual_seed(9)
+        b_cm = torch.randn((sol.A.block_size, sol.A.data.shape[0]),
+                           generator=gen, device=dev, dtype=sol.A.dtype)
+        _per_iteration(name, lambda: cg_fixed(mv, b_cm, 10, M=M))
+
+    return after
+
+
+def _drive_elasticity_3d(dev):
+    """The n = 40 box (206,763 DOFs), fp32 with its fp64 twin, block_rows
+    4096: B12 with b = 3."""
+    from tpufem_torch.mesh.box import box_mesh
+
+    mesh = box_mesh(-1, 1, -1, 1, -1, 1, N_ELAST_3D, N_ELAST_3D, N_ELAST_3D)
+    check(3 * mesh.num_nodes == ELAST_3D_DOFS, "elasticity_3d: DOF count")
+    sol = _elasticity_pair("elasticity_3d", mesh, dev, maxiter=3000,
+                           block_rows=4096)
+    return _after_elasticity("elasticity_3d", sol, mesh, 4096, dev)
+
+
+def _drive_elasticity_small(dev):
+    """fp64 to 1e-10 on the 48 x 48 perturbed mesh and the 6^3 box, both
+    matvec branches: the JAX package's CPU counts, the two solutions within
+    1e-8."""
+    import torch
+
+    from tpufem_torch.mesh.box import box_mesh
+    from tpufem_torch.mesh.rectangle import perturbed_rectangle_mesh
+    from tpufem_torch.solve.elasticity import solve_elasticity
+
+    for name, mesh in (("perturbed48", perturbed_rectangle_mesh(
+            -1, 1, -1, 1, 48, 48, jitter=0.2, seed=0)),
+                       ("box6", box_mesh(-1, 1, -1, 1, -1, 1, 6, 6, 6))):
+        us = {}
+        for matvec in ("pallas", "gather"):
+            sol = solve_elasticity(mesh, body_force=_body_force(mesh.dim),
+                                   tol=1e-10, matvec=matvec, device=dev)
+            ref = JAX_ELAST_SMALL_ITERS[name]
+            print(f"# elasticity_small {name} {matvec}: {sol.space.num_dofs}"
+                  f" DOFs, {sol.cg.iterations} iterations (JAX on the CPU: "
+                  f"{ref}), relres {sol.cg.residual_norm.item():.4e}")
+            check(sol.cg.converged and sol.cg.iterations == ref,
+                  f"elasticity_small {name} {matvec}: {sol.cg.iterations} "
+                  f"iterations vs {ref}")
+            us[matvec] = sol.u
+        du = ((us["pallas"] - us["gather"]).abs().max()
+              / us["gather"].abs().max()).item()
+        check(du <= 1e-8, f"elasticity_small {name}: branches differ {du:.3e}")
+        del us
+    torch.cuda.empty_cache()
+
+
+def _drive_weakform(dev):
+    """examples/poisson_2d.py composed from the port at its defaults (fp64);
+    then the weak-form ELL assembly of the 1000 x 1000 perturbed mesh
+    against the closed-form P1 assembly (``assemble_ell(p1_stiffness)``),
+    fp32."""
+    import numpy as np
+    import torch
+
+    from tpufem_torch.assemble.dense import assemble_vector
+    from tpufem_torch.assemble.ell import assemble_ell
+    from tpufem_torch.assemble.local import element_load, p1_stiffness
+    from tpufem_torch.fem.quadrature import triangle_rule
+    from tpufem_torch.fem.space import FunctionSpace
+    from tpufem_torch.forms.language import SpatialCoordinate, dot, grad
+    from tpufem_torch.forms.weakform import WeakForm
+    from tpufem_torch.mesh.adjacency import ell_pattern
+    from tpufem_torch.mesh.rectangle import (RectangleMesh,
+                                             perturbed_rectangle_mesh)
+    from tpufem_torch.solve.bc import apply_dirichlet_ell
+    from tpufem_torch.solve.cg import cg
+    from tpufem_torch.solve.poisson import model_problem_2d
+    from tpufem_torch.solve.precond import jacobi
+    from tpufem_torch.utils.timing import PhaseTimer
+
+    mesh = RectangleMesh(-3.0, 3.0, -3.0, 3.0, 64, 64)
+    V = FunctionSpace(mesh, "Lagrange", 1)
+    X = SpatialCoordinate(V)
+    f = -2 * (X[0] * X[0] + X[1] * X[1]) + 36
+    t0 = time.perf_counter()
+    wf = WeakForm(V, device=dev).build(lambda u, v: dot(grad(u), grad(v)),
+                                       lambda v: f * v)
+    A, b = wf.assemble(format="ell")
+    A, b = apply_dirichlet_ell(A, b, torch.as_tensor(V.dof_flags,
+                                                     device=dev))
+    res = cg(A.matvec, b, tol=1e-8, maxiter=10_000, M=jacobi(A))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ue = model_problem_2d()[1](mesh.coords)
+    rms = float(np.sqrt(np.mean((res.x.cpu().numpy() - ue) ** 2)))
+    print(f"# weakform poisson_2d (64 x 64, fp64): {V.num_dofs} DOFs, "
+          f"{res.iterations} iterations (JAX on the CPU: "
+          f"{JAX_WEAKFORM_ITERS}), nodal rms error {rms:.4e} (JAX: "
+          f"{JAX_WEAKFORM_RMS}), wall {wall:.3f} s")
+    check(res.converged and res.iterations == JAX_WEAKFORM_ITERS,
+          f"weakform: {res.iterations} iterations")
+    check(abs(rms - JAX_WEAKFORM_RMS) <= 0.01 * JAX_WEAKFORM_RMS,
+          f"weakform: nodal rms error {rms:.4e}")
+
+    timer = PhaseTimer()
+    with timer("host_mesh_pattern"):
+        mesh = perturbed_rectangle_mesh(-3, 3, -3, 3, N_ELL, N_ELL,
+                                        jitter=0.25, seed=0)
+        pat = ell_pattern(mesh.conn, mesh.num_nodes, pad_to=8,
+                          with_sort_plan=False)
+    V = FunctionSpace(mesh)
+    X = SpatialCoordinate(V)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with timer("weak_form_assemble"):
+        wf = WeakForm(V, dtype=torch.float32, device=dev).build(
+            lambda u, v: dot(grad(u), grad(v)),
+            lambda v: (36 - 2 * (X[0] * X[0] + X[1] * X[1])) * v)
+        A_wf, b_wf = wf.assemble(format="ell", pattern=pat)
+        torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with timer("closed_form_assemble"):
+        ec = torch.as_tensor(mesh.element_coords(), dtype=torch.float32,
+                             device=dev)
+        A_p1 = assemble_ell(pat, p1_stiffness(ec, V.element))
+        b_p1 = assemble_vector(mesh.conn, element_load(
+            ec, V.element, triangle_rule(5), model_problem_2d()[0]),
+            mesh.num_nodes)
+        torch.cuda.synchronize()
+    dA = ((A_wf.data - A_p1.data).abs().max() / A_p1.data.abs().max()).item()
+    db = ((b_wf - b_p1).abs().max() / b_p1.abs().max()).item()
+    print(f"# weakform ELL assembly at {mesh.num_nodes} rows (fp32): max "
+          f"|A_wf - A_p1| / max |A_p1| {dA:.3e}, rhs {db:.3e}; phases (s) "
+          + json.dumps({k: round(v, 4) for k, v in timer.report().items()})
+          + f"; weak-form peak device memory {peak_gb:.3f} GB")
+    check(A_wf.data.shape == A_p1.data.shape and dA <= 1e-5 and db <= 1e-5,
+          f"weakform at 1M rows: matrix {dA:.3e}, rhs {db:.3e}")
 
 
 if __name__ == "__main__":

@@ -172,9 +172,14 @@ def test_quadrature_elements_and_space_equal_jax():
     assert sp.num_dofs == ref.num_dofs and sp.local_dofs == ref.local_dofs
     np.testing.assert_array_equal(sp.default_quadrature().points,
                                   ref.default_quadrature().points)
-    for kw in (dict(degree=2), dict(num_components=2)):
-        with pytest.raises(NotImplementedError):
-            FunctionSpace(mesh, **kw)
+    # the vector space's node-major DOF arrays (the P2 space still raises)
+    vs, vref = (FunctionSpace(mesh, num_components=2),
+                JaxSpace(ref_mesh, num_components=2))
+    np.testing.assert_array_equal(vs.dof_conn, vref.dof_conn)
+    np.testing.assert_array_equal(vs.dof_flags, vref.dof_flags)
+    assert vs.num_dofs == vref.num_dofs and vs.local_dofs == vref.local_dofs
+    with pytest.raises(NotImplementedError):
+        FunctionSpace(mesh, degree=2)
 
 
 def _local(name):

@@ -1,5 +1,5 @@
-"""CUDA kernels K1-K4, B3-B5, B5b, B7 and the ELL kernels B9-B11 against
-their plain PyTorch versions on the card.
+"""CUDA kernels K1-K4, B3-B5, B5b, B7, the ELL kernels B9-B11 and the BCSR
+kernel B12 against their plain PyTorch versions on the card.
 
 Every test here needs an NVIDIA GPU with nvcc (sm_90a) and skips without
 one.  This file imports neither JAX nor the JAX package, so it runs on a
@@ -541,3 +541,120 @@ def test_ell_assembly_on_the_card_is_deterministic(dev):
         ref = assemble_ell(pat, p1_stiffness(ec, P1Triangle()),
                            method=method).data
         _close(runs[0].cpu(), ref, torch.float32)
+
+
+def _bcsr_case(dev, dtype, b, n=2000, k=8, band=300):
+    """A random banded BCSR matrix [n, k, b, b] (half bandwidth ``band``)
+    and a component-major vector [b, n], made on the CPU from a seed."""
+    g = torch.Generator(device="cpu").manual_seed(n + k + b)
+    cols = (torch.arange(n)[:, None] + torch.randint(
+        -band, band + 1, (n, k), generator=g)).clamp_(0, n - 1).to(
+        torch.int32)
+    data = torch.randn((n, k, b, b), generator=g, dtype=dtype)
+    x = torch.randn((b, n), generator=g, dtype=dtype)
+    return data.to(dev), cols.to(dev), x.to(dev)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("b", [2, 3])
+@pytest.mark.parametrize("block_rows", [512, 11008], ids=["int16", "int32"])
+@pytest.mark.parametrize("per_block", [False, True])
+def test_bcsr_band_kernel_matches_plain(dev, dtype, b, block_rows,
+                                        per_block):
+    """B12 on the banded plan (and its per_block route) equals its plain
+    version bit for bit, and the gather form's plain version."""
+    from tpufem_torch.sparse import ell_cuda
+
+    data, cols, x = _bcsr_case(dev, dtype, b)
+    plan, data_t = ell_cuda.bcsr_band_plan(data, cols, block_rows=block_rows,
+                                           per_block=per_block)
+    assert plan.rel.dtype == (np.int16 if block_rows == 512 else np.int32)
+    d_t, rel = (torch.as_tensor(a, device=dev) for a in (data_t, plan.rel))
+    before = (ell_cuda.bcsr_matvec_cuda.launches,
+              ell_cuda.bcsr_matvec_cuda.launches_per_block)
+    y = ell_cuda.bcsr_matvec_cuda(plan, d_t, rel, x, per_block=per_block)
+    ref = ell_cuda.bcsr_band_matvec_plain(plan, d_t, rel, x)
+    torch.cuda.synchronize()
+    assert (ell_cuda.bcsr_matvec_cuda.launches,
+            ell_cuda.bcsr_matvec_cuda.launches_per_block) == (
+        before[0] + 1, before[1] + int(per_block))
+    assert torch.equal(y, ref)
+    g = ell_cuda.bcsr_gather_matvec_plain(data, cols, x.T.reshape(-1))
+    assert torch.equal(y, g.reshape(-1, b).T)
+    # a transposed view of a node-major vector gives the same product
+    xn = x.T.contiguous()
+    assert torch.equal(ell_cuda.bcsr_matvec_cuda(plan, d_t, rel, xn.T), y)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("b", [2, 3])
+def test_bcsr_gather_kernel_matches_plain(dev, dtype, b):
+    """B12's absolute-column mode on a pattern with columns anywhere."""
+    from tpufem_torch.sparse import ell_cuda
+
+    data, cols, x = _bcsr_case(dev, dtype, b, band=1999)
+    xf = x.T.reshape(-1).contiguous()
+    before = ell_cuda.bcsr_gather_matvec_cuda.launches
+    y = ell_cuda.bcsr_gather_matvec_cuda(data, cols, xf)
+    torch.cuda.synchronize()
+    assert ell_cuda.bcsr_gather_matvec_cuda.launches == before + 1
+    assert torch.equal(y, ell_cuda.bcsr_gather_matvec_plain(data, cols, xf))
+
+
+@pytest.mark.parametrize("kw", [dict(matvec="pallas"), dict()],
+                         ids=["pallas", "gather"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_solve_elasticity_on_the_card(dev, kw, dim):
+    """The fp64 body-force solve on the card: the CPU's iteration count and
+    u within 1e-10; B12 launched on every iteration."""
+    from tpufem_torch.mesh.box import box_mesh
+    from tpufem_torch.mesh.rectangle import perturbed_rectangle_mesh
+    from tpufem_torch.solve.elasticity import solve_elasticity
+    from tpufem_torch.sparse import ell_cuda
+
+    if dim == 2:
+        mesh = perturbed_rectangle_mesh(-1, 1, -1, 1, 24, 24, seed=0)
+        f = lambda x: torch.stack([0 * x[..., 0] + 1.0,
+                                   0 * x[..., 1] - 0.5], -1)
+    else:
+        mesh = box_mesh(-1, 1, -1, 1, -1, 1, 5, 5, 5)
+        f = lambda x: torch.stack([0 * x[..., 0] + 1.0, 0 * x[..., 1] - 0.5,
+                                   0 * x[..., 2] + 0.25], -1)
+    counters = (ell_cuda.bcsr_matvec_cuda, ell_cuda.bcsr_gather_matvec_cuda)
+    before = sum(c.launches for c in counters)
+    sol = solve_elasticity(mesh, body_force=f, tol=1e-10, **kw)
+    ref = solve_elasticity(mesh, body_force=f, tol=1e-10, device="cpu", **kw)
+    assert sol.u.device.type == "cuda"
+    assert sum(c.launches for c in counters) - before >= sol.cg.iterations
+    assert sol.cg.converged and sol.cg.iterations == ref.cg.iterations
+    u, u_ref = sol.u.cpu().numpy(), ref.u.numpy()
+    assert np.abs(u - u_ref).max() <= 1e-10 * np.abs(u_ref).max()
+
+
+def test_elasticity_build_on_the_card_is_deterministic(dev, monkeypatch):
+    """Chunked element matrices equal the unchunked ones bit for bit, and
+    the sorted BCSR scatter repeats bit for bit on the card."""
+    from tpufem_torch.fem.space import VectorFunctionSpace
+    from tpufem_torch.forms import weakform
+    from tpufem_torch.mesh.adjacency import ell_pattern
+    from tpufem_torch.mesh.rectangle import perturbed_rectangle_mesh
+    from tpufem_torch.solve.elasticity import elasticity_forms
+    from tpufem_torch.sparse.bcsr import assemble_bcsr
+
+    mesh = perturbed_rectangle_mesh(-1, 1, -1, 1, 100, 100, seed=2)
+    V = VectorFunctionSpace(mesh)
+    wf = elasticity_forms(V, 1.0, 1.0)
+    wf.dtype = torch.float32
+    ec = torch.as_tensor(mesh.element_coords(), dtype=torch.float32,
+                         device=dev)
+    Ke = wf.element_matrices(ec)
+    # 6 x 6 local DOFs, 7 points, 2 x 2 values, 4 bytes: 4032 per element
+    monkeypatch.setattr(weakform, "_CHUNK_BYTES", 777 * 4032)
+    assert weakform.chunk_elements(V, wf.quadrature, wf.dtype) == 777
+    assert torch.equal(Ke, wf.element_matrices(ec))
+    monkeypatch.undo()
+    pat = ell_pattern(V.scalar_dof_conn, V.num_scalar_dofs, pad_to=8)
+    runs = [assemble_bcsr(pat, Ke, 2).data for _ in range(3)]
+    assert all(torch.equal(r, runs[0]) for r in runs[1:])
+    ref = assemble_bcsr(pat, wf.element_matrices(ec.cpu()), 2).data
+    _close(runs[0].cpu(), ref, torch.float32)

@@ -1,5 +1,5 @@
 """Port hygiene: tpufem_torch never imports JAX or the JAX package, and on
-CPU tensors no wrapper launches a kernel (K1-K4, B4, B5, B9-B11)."""
+CPU tensors no wrapper launches a kernel (K1-K4, B4, B5, B9-B12)."""
 import inspect
 import subprocess
 import sys
@@ -17,6 +17,12 @@ from tpufem_torch.solve.poisson import (model_problem_3d_planes,
                                         solve_poisson_ell)
 from tpufem_torch.solve.structured_fast import solve_poisson_fast
 from tpufem_torch.sparse import ell_cuda
+from tpufem_torch.fem.space import FunctionSpace
+from tpufem_torch.forms.language import dot, grad
+from tpufem_torch.forms.weakform import WeakForm, integrate
+from tpufem_torch.mesh.box import box_mesh
+from tpufem_torch.solve.bc import apply_dirichlet_ell
+from tpufem_torch.solve.elasticity import solve_elasticity
 
 # several pytest workers share the CPU: one intra-op thread each keeps
 # the many small tensor ops from oversubscribing it
@@ -40,6 +46,9 @@ _PORT_MODULES = [
     "tpufem_torch.solve.multigrid",
     "tpufem_torch.solve.refine", "tpufem_torch.solve.structured_fast",
     "tpufem_torch.solve.poisson", "tpufem_torch.utils.timing",
+    "tpufem_torch.mesh.box", "tpufem_torch.forms.language",
+    "tpufem_torch.forms.weakform", "tpufem_torch.sparse.bcsr",
+    "tpufem_torch.solve.elasticity",
     "chip_smoke",
 ]
 
@@ -83,7 +92,10 @@ _ELL_COUNTERS = [(ell_cuda.ell_matvec_cuda, "launches"),
                  (ell_cuda.ell_matvec_cuda, "launches_per_block"),
                  (ell_cuda.ell_matvec_multi_cuda, "launches"),
                  (ell_cuda.ell_gather_matvec_cuda, "launches"),
-                 (ell_cuda.ell_gather_matvec_multi_cuda, "launches")]
+                 (ell_cuda.ell_gather_matvec_multi_cuda, "launches"),
+                 (ell_cuda.bcsr_matvec_cuda, "launches"),
+                 (ell_cuda.bcsr_matvec_cuda, "launches_per_block"),
+                 (ell_cuda.bcsr_gather_matvec_cuda, "launches")]
 
 
 @pytest.mark.parametrize("kw", [dict(precond="chebyshev", matvec="pallas"),
@@ -99,5 +111,28 @@ def test_cpu_ell_path_launches_no_kernel(kw):
     assert sol.cg.converged and sol.u.device.type == "cpu"
     assert [getattr(fn, attr) for fn, attr in _ELL_COUNTERS] == before
     for entry in (solve_poisson_ell, solve_poisson_dense):
+        assert inspect.signature(entry).parameters["device"].default \
+            == "cuda"
+
+
+@pytest.mark.parametrize("matvec", ["gather", "pallas"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_cpu_elasticity_path_launches_no_kernel(matvec, dim):
+    """The elasticity path and the weak-form assembly on CPU tensors run the
+    plain versions only (B12's included), and their entry points run on
+    the card unless the caller asks for the CPU."""
+    before = [getattr(fn, attr) for fn, attr in _ELL_COUNTERS]
+    mesh = (perturbed_rectangle_mesh(-1, 1, -1, 1, 6, 6, seed=2) if dim == 2
+            else box_mesh(-1, 1, -1, 1, -1, 1, 3, 3, 3))
+    sol = solve_elasticity(mesh, bc_values=1.0, tol=1e-8, matvec=matvec,
+                           device="cpu")
+    assert sol.cg.converged and sol.u.device.type == "cpu"
+    wf = WeakForm(FunctionSpace(mesh), device="cpu").build(
+        lambda u, v: dot(grad(u), grad(v)))
+    A, _ = wf.assemble(format="ell")
+    apply_dirichlet_ell(A, torch.ones(A.shape[0], dtype=torch.float64),
+                        mesh.node_flags != 0)
+    assert [getattr(fn, attr) for fn, attr in _ELL_COUNTERS] == before
+    for entry in (solve_elasticity, WeakForm, integrate):
         assert inspect.signature(entry).parameters["device"].default \
             == "cuda"

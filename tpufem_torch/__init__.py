@@ -8,10 +8,14 @@ at import, so importing this package needs only torch and numpy.
 
 Ported so far: the structured P1 Poisson fast path in 2D and 3D (fused
 system build, stencil SpMV, const and general MG V-cycles, PCG,
-mixed-precision refinement; ``solve.structured_fast.solve_poisson_fast``)
-and the unstructured ELL path (mesh, RCM, ELL pattern and assembly,
+mixed-precision refinement; ``solve.structured_fast.solve_poisson_fast``),
+the unstructured ELL path (mesh, RCM, ELL pattern and assembly,
 Dirichlet elimination, Jacobi / Chebyshev PCG on the banded ELL kernel;
-``solve.poisson.solve_poisson_ell``).
+``solve.poisson.solve_poisson_ell``), the weak-form frontend
+(``forms.language``, ``forms.weakform``: volume forms on affine cells,
+dense and ELL assembly) and unstructured linear elasticity (vector P1
+spaces, BCSR assembly, block-Jacobi PCG on the banded block kernel;
+``solve.elasticity.solve_elasticity``).
 """
 
 __version__ = "0.1.0"

@@ -16,9 +16,11 @@ __all__ = ["assemble_dense", "assemble_vector", "accumulate"]
 
 def accumulate(size: int, index: torch.Tensor,
                values: torch.Tensor) -> torch.Tensor:
-    """out[i] = sum of values[j] over index[j] == i, out of ``size`` zeros;
-    deterministic on every device."""
-    out = torch.zeros(size, dtype=values.dtype, device=values.device)
+    """out[i] = sum of values[j] over index[j] == i, out of ``size`` zeros
+    (each values[j] may itself be a block, e.g. [b, b]); deterministic on
+    every device."""
+    out = torch.zeros((size,) + tuple(values.shape[1:]), dtype=values.dtype,
+                      device=values.device)
     return out.index_put_((index,), values, accumulate=True)
 
 

@@ -14,7 +14,11 @@ feeds both packages the same operator and the same MG hierarchy:
     and is cast to ``dtype``;
   * ``ell_from_numpy``: an assembled ELL matrix (data, cols, row lengths,
     diagonal positions), optionally with the banded plan that
-    ``band_plan_from_numpy`` carries over from a JAX ``ELLBandPlan``.
+    ``band_plan_from_numpy`` carries over from a JAX ``ELLBandPlan``;
+  * ``bcsr_from_numpy``: an assembled BCSR matrix (data, cols, diagonal
+    positions), optionally with the banded block plan that
+    ``bcsr_band_plan_from_numpy`` carries over from the JAX package's
+    ``bcsr_band_plan`` (its plan and data_t).
 
 The port rebuilds each structured plan from its StructuredInfo and checks
 it against the given store grid and offsets; a banded ELL plan is checked
@@ -28,13 +32,15 @@ import torch
 from tpufem_torch.assemble.structured import structured_plan
 from tpufem_torch.mesh.core import StructuredInfo
 from tpufem_torch.solve.multigrid import ConstMGLevel, MGLevel
+from tpufem_torch.sparse.bcsr import BCSRMatrix
 from tpufem_torch.sparse.ell import ELLMatrix
 from tpufem_torch.sparse.ell_cuda import ELLBandPlan
 from tpufem_torch.sparse.stencil import StencilMatrix
 
 __all__ = ["system_from_numpy", "const_level_from_numpy",
            "const_hierarchy_from_numpy", "level_from_numpy",
-           "hierarchy_from_numpy", "ell_from_numpy", "band_plan_from_numpy"]
+           "hierarchy_from_numpy", "ell_from_numpy", "band_plan_from_numpy",
+           "bcsr_from_numpy", "bcsr_band_plan_from_numpy"]
 
 
 def system_from_numpy(data, b, offsets, *, dtype=torch.float64,
@@ -151,6 +157,49 @@ def band_plan_from_numpy(rel, data_t, *, n, np_rows, block_rows, d_lists,
             for s, e, dl in segments))
     return (plan, torch.as_tensor(data_t, device=device).to(dtype),
             torch.as_tensor(rel, device=device))
+
+
+def bcsr_band_plan_from_numpy(plan, data_t, *, dtype=torch.float64,
+                              device="cpu"):
+    """(ELLBandPlan, data_t [K, b, b, NP], rel [K, NP]) on ``device`` from
+    the JAX package's ``bcsr_band_plan`` result: its plan (arrays as
+    numpy, statics as Python values) and its data_t, cast to ``dtype``."""
+    data_t = np.array(data_t)
+    port_plan, _, rel = band_plan_from_numpy(
+        np.asarray(plan.rel), np.asarray(plan.data_t), n=plan.n,
+        np_rows=plan.np_rows, block_rows=plan.block_rows,
+        d_lists=plan.d_lists, width=plan.width, dtab=plan.dtab,
+        segments=plan.segments, dtype=dtype, device=device)
+    K, NP = port_plan.width, port_plan.np_rows
+    if data_t.ndim != 4 or data_t.shape[0] != K or data_t.shape[3] != NP \
+            or data_t.shape[1] != data_t.shape[2]:
+        raise ValueError(f"BCSR band plan: data_t {data_t.shape} for K={K}, "
+                         f"NP={NP}")
+    return (port_plan, torch.as_tensor(data_t, device=device).to(dtype),
+            rel)
+
+
+def bcsr_from_numpy(data, cols, diag_pos=None, *, band=None,
+                    dtype=torch.float64, device="cpu") -> BCSRMatrix:
+    """A BCSRMatrix on ``device`` from numpy data [ns, K, b, b] (cast to
+    ``dtype``), cols [ns, K] int32 and optional diagonal positions [ns].
+    ``band``: a (plan, data_t, rel) triple from
+    ``bcsr_band_plan_from_numpy`` to run the products on."""
+    data = torch.as_tensor(np.array(data), device=device).to(dtype)
+    cols = torch.as_tensor(np.array(cols, dtype=np.int32), device=device)
+    if data.dim() != 4 or tuple(cols.shape) != tuple(data.shape[:2]) \
+            or data.shape[2] != data.shape[3]:
+        raise ValueError(f"BCSR: data {tuple(data.shape)}, cols "
+                         f"{tuple(cols.shape)}")
+    A = BCSRMatrix(data.contiguous(), cols.contiguous(),
+                   None if diag_pos is None else torch.as_tensor(
+                       np.array(diag_pos, dtype=np.int32), device=device))
+    if band is not None:
+        plan = band[0]
+        if plan.n != data.shape[0] or plan.width != data.shape[1]:
+            raise ValueError("band plan does not fit the matrix")
+        A._band = tuple(band)
+    return A
 
 
 def ell_from_numpy(data, cols, row_lengths=None, diag_pos=None, *,

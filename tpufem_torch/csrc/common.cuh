@@ -1,7 +1,9 @@
 // Shared device helpers of the port's kernels: a deterministic two-pass
-// dot product, the widening load of stored coefficients, the stencil
-// epilogues and the sweep's rounding of omega * inv_diag, and the row of
-// the constant-coefficient (uniform-grid) operator.
+// dot product, the separately rounded product and sum and the banded
+// window base of the sparse kernels, the widening load of stored
+// coefficients, the stencil epilogues and the sweep's rounding of
+// omega * inv_diag, and the row of the constant-coefficient (uniform-grid)
+// operator.
 //
 // The TPU kernels accumulate a dot into one SMEM cell across their
 // sequential grid (tpufem/ops/stencil_pallas.py::_kernel_matvec_dot,
@@ -55,6 +57,30 @@ __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ double widen(double v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+
+// A product and a sum each rounded on its own (no fused multiply-add): the
+// sparse kernels (B9-B12) add in the reference's order with its rounding,
+// so they equal their plain PyTorch versions bit for bit.
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+
+// First column of the window of row i in a banded plan of block_rows R:
+// row i of block j = i / R reads x at (j - 1) R + rel.  block_rows 0 marks
+// absolute columns (base 0).
+__device__ __forceinline__ long long window_base(long long i,
+                                                 long long block_rows) {
+  return block_rows > 0 ? (i / block_rows - 1) * block_rows : 0;
 }
 
 // The stencil kernels' epilogues (K2/B4, B5 and their blocked twins B3,

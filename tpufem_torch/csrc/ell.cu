@@ -50,18 +50,9 @@
 
 namespace {
 
-__device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ double mul_rn(double a, double b) {
-  return __dmul_rn(a, b);
-}
-__device__ __forceinline__ float add_rn(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ double add_rn(double a, double b) {
-  return __dadd_rn(a, b);
-}
+using tpufem::add_rn;
+using tpufem::mul_rn;
+using tpufem::window_base;
 
 // Layout of one launch.  Banded: row_stride 1, slot_stride NP,
 // block_rows R.  Absolute: row_stride K, slot_stride 1, block_rows 0.
@@ -72,11 +63,6 @@ struct EllLayout {
   long long slot_stride;  // elements between slots of one row
   long long block_rows;   // R of the banded plan; 0 for absolute columns
 };
-
-__device__ __forceinline__ long long window_base(long long i,
-                                                 long long block_rows) {
-  return block_rows > 0 ? (i / block_rows - 1) * block_rows : 0;
-}
 
 template <typename T, typename Idx>
 __global__ void __launch_bounds__(tpufem::kBlock)

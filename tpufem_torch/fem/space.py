@@ -1,7 +1,10 @@
 """Function spaces: the DOF layout over a mesh, as in tpufem.fem.space.
 
-Ported: the scalar P1 Lagrange space, whose DOFs are the mesh nodes.
-Degree 2 and vector-valued spaces are not ported yet and raise.
+Ported: P1 Lagrange spaces, scalar (DOF = node index) and vector-valued
+(node-major, component-minor: the global DOF of node d, component c is
+``d * num_components + c``, which keeps each node's block contiguous, as
+the BCSR format wants).  Degree 2 waits for the P2 elements (ROADMAP A5)
+and raises.
 """
 from __future__ import annotations
 
@@ -13,12 +16,13 @@ from tpufem_torch.fem.elements import element_for_cell
 from tpufem_torch.fem.quadrature import QuadratureRule, rule_for_cell
 from tpufem_torch.mesh.core import Mesh
 
-__all__ = ["FunctionSpace"]
+__all__ = ["FunctionSpace", "VectorFunctionSpace"]
 
 
 @dataclasses.dataclass
 class FunctionSpace:
-    """Scalar P1 Lagrange space on a mesh (DOF = node index)."""
+    """P1 Lagrange space on a mesh, scalar or (``num_components > 1``)
+    vector-valued."""
 
     mesh: Mesh
     family: str = "Lagrange"
@@ -28,19 +32,29 @@ class FunctionSpace:
     def __post_init__(self):
         if self.family not in ("Lagrange", "P", "CG"):
             raise NotImplementedError(f"family {self.family!r}")
-        if self.degree != 1 or self.num_components != 1:
+        if self.degree != 1:
             raise NotImplementedError(
-                f"degree {self.degree} with {self.num_components} "
-                "components: the port has the scalar P1 space")
+                f"degree {self.degree}: the port has the P1 spaces (P2 "
+                "waits for its elements, ROADMAP A5)")
         self.element = element_for_cell(self.mesh.cell_type, self.degree)
         mesh = self.mesh
         self.scalar_dof_conn = mesh.conn.copy()
         self.num_scalar_dofs = mesh.num_nodes
         self.scalar_dof_flags = mesh.node_flags != 0
         self.scalar_dof_coords = mesh.coords.copy()
-        self.dof_conn = self.scalar_dof_conn
-        self.num_dofs = self.num_scalar_dofs
-        self.dof_flags = self.scalar_dof_flags
+        nc = self.num_components
+        if nc == 1:
+            self.dof_conn = self.scalar_dof_conn
+            self.num_dofs = self.num_scalar_dofs
+            self.dof_flags = self.scalar_dof_flags
+        else:
+            # node-major, component-minor expansion
+            base = self.scalar_dof_conn.astype(np.int64) * nc
+            self.dof_conn = (
+                base[:, :, None] + np.arange(nc, dtype=np.int64)
+            ).reshape(base.shape[0], -1).astype(np.int32)
+            self.num_dofs = self.num_scalar_dofs * nc
+            self.dof_flags = np.repeat(self.scalar_dof_flags, nc)
 
     @property
     def local_dofs(self) -> int:
@@ -57,3 +71,12 @@ class FunctionSpace:
 
     def boundary_dofs(self) -> np.ndarray:
         return np.nonzero(self.dof_flags)[0].astype(np.int32)
+
+
+def VectorFunctionSpace(mesh: Mesh, family: str = "Lagrange", degree: int = 1,
+                        num_components: int | None = None) -> FunctionSpace:
+    """Vector-valued Lagrange space (default: one component per space
+    dimension)."""
+    nc = mesh.dim if num_components is None else num_components
+    return FunctionSpace(mesh, family=family, degree=degree,
+                         num_components=nc)

@@ -7,7 +7,9 @@ back per ``check_every`` block, ``cg_fixed`` none at all.
 
 ``matvec_dot`` / ``M_dot`` are the fused hooks: ``p -> (A p, <p, A p>)``
 (the stencil kernel's dot) and ``r -> (M^-1 r, <r, M^-1 r>)`` (the V-cycle's
-final pass).
+final pass).  Without them the dots run over the flattened vectors, as the
+reference's ``jnp.vdot`` does, so the vectors may have any shape (the
+elasticity solve iterates on a component-major [b, n] block).
 """
 from __future__ import annotations
 
@@ -26,17 +28,22 @@ class CGResult(NamedTuple):
     diverged: bool                # NaN/Inf or breakdown detected
 
 
+def _vdot(a, b):
+    """<a, b> over the flattened tensors (``jnp.vdot`` of real vectors)."""
+    return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
 def _hooks(matvec, M, matvec_dot, M_dot):
     if M is None:
         M = lambda r: r
     if matvec_dot is None:
         def matvec_dot(p):
             Ap = matvec(p)
-            return Ap, torch.dot(p, Ap)
+            return Ap, _vdot(p, Ap)
     if M_dot is None:
         def M_dot(r):
             z = M(r)
-            return z, torch.dot(r, z)
+            return z, _vdot(r, z)
     return matvec_dot, M_dot
 
 

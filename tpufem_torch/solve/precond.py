@@ -1,11 +1,13 @@
-"""Preconditioners: Jacobi and Chebyshev-Jacobi, as in
+"""Preconditioners: Jacobi, block-Jacobi and Chebyshev-Jacobi, as in
 tpufem.solve.precond.
+
+Block-Jacobi pairs with the BCSR vector-element format: the inverses of the
+per-node b x b diagonal blocks, applied as a batched small product.
 
 Chebyshev-Jacobi is the mesh-size-robust choice for unstructured systems,
 where geometric multigrid's nested grids do not exist: a fixed degree-m
 polynomial in D^-1 A per PCG iteration, m SpMVs (the banded kernel) traded
-against about m-fold fewer CG iterations.  ``block_jacobi`` waits for the
-BCSR format.
+against about m-fold fewer CG iterations.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import torch
 
 from tpufem_torch.sparse.ell import ELLMatrix
 
-__all__ = ["jacobi", "jacobi_from_diagonal", "chebyshev",
+__all__ = ["jacobi", "jacobi_from_diagonal", "block_jacobi", "chebyshev",
            "estimate_lambda_max", "lambda_max_bound"]
 
 
@@ -35,6 +37,32 @@ def jacobi_from_diagonal(diag: torch.Tensor):
 def jacobi(A: ELLMatrix):
     """Jacobi preconditioner extracted from an ELL matrix."""
     return jacobi_from_diagonal(A.diagonal())
+
+
+def block_jacobi(diag_blocks: torch.Tensor, *,
+                 component_major: bool = False):
+    """Block-Jacobi from [n_blocks, b, b] diagonal blocks (the 2x2 / 3x3
+    per-node blocks of a vector-elasticity BCSR matrix): a batched inverse
+    once, then r -> blockwise inv_blocks @ r.  ``r`` is node-major (any
+    shape holding n_blocks * b values), or with ``component_major`` a
+    [b, n_blocks] block (the banded elasticity solve's layout)."""
+    inv_blocks = torch.linalg.inv(diag_blocks)   # [nb, b, b]
+    bsize = diag_blocks.shape[-1]
+
+    if component_major:
+        inv_cm = inv_blocks.permute(1, 2, 0).contiguous()   # [b, b, nb]
+
+        def apply_cm(r):
+            return (inv_cm * r[None]).sum(1)
+
+        return apply_cm
+
+    def apply(r):
+        rb = r.reshape(-1, bsize)
+        out = (inv_blocks * rb[:, None, :]).sum(2)
+        return out.reshape(r.shape)
+
+    return apply
 
 
 def estimate_lambda_max(matvec, diag: torch.Tensor, n: int, *,

@@ -34,6 +34,13 @@ __all__ = ["ELLMatrix", "ell_matvec", "ell_matvec_multi", "reorder_ell"]
 _AUTO_BAND_MAX = 4096
 
 
+def _bandwidth(cols: np.ndarray) -> int:
+    """max |cols[i, k] - i| of a pattern (0 for an empty one)."""
+    nr = cols.shape[0]
+    return int(np.abs(cols.astype(np.int64)
+                      - np.arange(nr)[:, None]).max()) if nr else 0
+
+
 class _Linear(torch.autograd.Function):
     """A product that is linear in x through a kernel: its JVP applies the
     same kernel to the tangent (what matrix-free Newton-Krylov needs); the
@@ -90,11 +97,10 @@ class ELLMatrix:
         self._band = None
         try:
             cols = _numpy(self.cols)
-            n = cols.shape[0]
-            bw = int(np.abs(cols.astype(np.int64)
-                            - np.arange(n)[:, None]).max())
+            bw = _bandwidth(cols)
             if bw <= _AUTO_BAND_MAX:
-                self.prime_band_plan(auto_block_rows(bw, n, cols.shape[1]))
+                self.prime_band_plan(auto_block_rows(bw, cols.shape[0],
+                                                     cols.shape[1]))
         except Exception as exc:  # noqa: BLE001 - named, then the gather
             warnings.warn(
                 f"ELLMatrix band-plan build failed ({type(exc).__name__}: "

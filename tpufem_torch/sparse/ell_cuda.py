@@ -1,5 +1,6 @@
 """ELL SpMV kernels for banded unstructured meshes: B9, its per-block
-route B11 and B10 (csrc/ell.cu), as in tpufem.sparse.ell_pallas.
+route B11 and B10 (csrc/ell.cu), and the BCSR block SpMV B12
+(csrc/bcsr.cu), as in tpufem.sparse.ell_pallas.
 
 The banded plan (``ell_band_plan``) is the reference's: rows in blocks of
 R, the matrix transposed to data_t / rel [K, NP] with each column stored
@@ -15,7 +16,13 @@ CUDA kernel gathers each column directly, so ``segmented`` and
   * ``ell_matvec_multi_cuda`` (B10): Y = A X for X [n, q];
   * ``ell_gather_matvec_cuda`` / ``ell_gather_matvec_multi_cuda``: the same
     kernels in absolute-column mode on row-major data / cols [N, K] (the
-    gather form of ``ELLMatrix``).
+    gather form of ``ELLMatrix``);
+  * ``bcsr_matvec_cuda`` (B12, both TPU variants): y = A x for a BCSR
+    matrix of b x b blocks (b = 2, 3) on the node pattern's banded plan
+    (``bcsr_band_plan``), x and y component-major [b, n];
+    ``bcsr_gather_matvec_cuda``: the same kernel in absolute-column mode on
+    row-major data [NR, K, b, b] / cols [NR, K] and node-major x (the
+    gather form of ``BCSRMatrix``).
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 PyTorch version (the ``*_plain`` functions) for a CPU tensor, and counts
@@ -35,7 +42,9 @@ __all__ = ["ELLBandPlan", "ell_band_plan", "auto_block_rows",
            "ell_matvec_cuda", "ell_matvec_multi_cuda",
            "ell_gather_matvec_cuda", "ell_gather_matvec_multi_cuda",
            "ell_band_matvec_plain", "ell_band_matvec_multi_plain",
-           "ell_gather_matvec_plain", "ell_gather_matvec_multi_plain"]
+           "ell_gather_matvec_plain", "ell_gather_matvec_multi_plain",
+           "bcsr_band_plan", "bcsr_matvec_cuda", "bcsr_gather_matvec_cuda",
+           "bcsr_band_matvec_plain", "bcsr_gather_matvec_plain"]
 
 
 class ELLBandPlan(NamedTuple):
@@ -396,3 +405,162 @@ def ell_gather_matvec_multi_cuda(data, cols, X):
 
 
 ell_gather_matvec_multi_cuda.launches = 0
+
+
+# -- B12: the BCSR block SpMV ------------------------------------------------------
+
+def bcsr_band_plan(data, cols, *, block_rows: int = 1024, **plan_kw):
+    """Banded plan of a BCSR matrix (data [NR, K, b, b], cols [NR, K];
+    numpy arrays or tensors).
+
+    Returns (plan, data_t [K, b, b, NP] numpy): the plan's rel and schedule
+    are ``ell_band_plan``'s on the node pattern (its own data_t holds ones:
+    only the pattern matters), the values are transposed to block-plane
+    major so each (c, d) component streams contiguously.
+    """
+    data = _numpy(data)
+    cols = _numpy(cols)
+    nr, K, b, _ = data.shape
+    scalar = np.ones((nr, K), data.dtype)     # only the pattern matters
+    plan = ell_band_plan(scalar, cols, block_rows=block_rows, **plan_kw)
+    pad = plan.np_rows - nr
+    if pad:
+        data = np.pad(data, ((0, pad), (0, 0), (0, 0), (0, 0)))
+    return plan, np.ascontiguousarray(np.transpose(data, (1, 2, 3, 0)))
+
+
+def bcsr_band_matvec_plain(plan: ELLBandPlan, data_dev, rel_dev, x):
+    """Plain PyTorch version of B12: x [b, n] (or [b, NP]) padded to NP as
+    the reference pads it; y [b, n] summed k outer, then source component
+    d, each product added to every output c (the TPU kernel's order)."""
+    cols = _window_cols(plan, rel_dev)
+    b = data_dev.shape[1]
+    xp = x
+    if x.shape[-1] != plan.np_rows:
+        xp = torch.cat([x, x.new_zeros((b, plan.np_rows - x.shape[-1]))], 1)
+    y = [torch.zeros(plan.np_rows, dtype=x.dtype, device=x.device)
+         for _ in range(b)]
+    for k in range(plan.width):
+        for d in range(b):
+            g = xp[d][cols[k]]
+            for c in range(b):
+                y[c] = y[c] + data_dev[k, c, d] * g
+    return torch.stack(y)[:, :plan.n]
+
+
+def bcsr_gather_matvec_plain(data, cols, x):
+    """The gather form y = A x: data [NR, K, b, b], cols [NR, K], x
+    node-major [NR * b] -> y [NR * b].  The reference's
+    ``(data * x[cols][:, :, None, :]).sum((1, 3))`` with its sum written
+    out in B12's order (k, then d), so the kernel's absolute-column mode
+    equals it bit for bit."""
+    nr, K, b, _ = data.shape
+    xb = x.reshape(nr, b)
+    c = cols.long()
+    y = torch.zeros((nr, b), dtype=x.dtype, device=x.device)
+    for k in range(K):
+        g = xb[c[:, k]]                                   # [NR, b]
+        for d in range(b):
+            y = y + data[:, k, :, d] * g[:, d, None]
+    return y.reshape(-1)
+
+
+_BCSR_ARGS = (_P, _P, _P, _P, _LL, _I) + (_LL,) * 10 + (_P,)
+_BCSR_ENTRY = {(t, i, b): f"tpufem_bcsr_spmv_{tn}_{iname}_b{b}"
+               for t, tn in ((torch.float32, "f32"), (torch.float64, "f64"))
+               for i, iname in ((torch.int16, "i16"), (torch.int32, "i32"))
+               for b in (2, 3)}
+
+
+def _bcsr_lib():
+    return load_library("bcsr.cu", {e: _BCSR_ARGS
+                                    for e in _BCSR_ENTRY.values()})
+
+
+def _bcsr_launch(what, data, idx, x, y, rows, k, d_strides, i_strides,
+                 block_rows):
+    """One launch of csrc/bcsr.cu: ``rows`` block rows of ``k`` slots;
+    d_strides (row, slot, component) of data, i_strides (row, slot) of the
+    indices; x and y 2-D [b, rows-or-more] views (component, node)."""
+    b = data.shape[1] if block_rows else data.shape[-1]
+    entry = _BCSR_ENTRY.get((data.dtype, idx.dtype, b))
+    if entry is None:
+        raise TypeError(f"{what}: takes fp32/fp64 values, int16/int32 "
+                        f"indices and b in (2, 3), got ({data.dtype}, "
+                        f"{idx.dtype}, b={b})")
+    if x.dtype != data.dtype or x.device != data.device:
+        raise ValueError(f"{what}: x must be {data.dtype} on {data.device}, "
+                         f"got {x.dtype} {x.device}")
+    with torch.cuda.device(x.device):
+        status = getattr(_bcsr_lib(), entry)(
+            data.data_ptr(), idx.data_ptr(), x.data_ptr(), y.data_ptr(),
+            rows, k, *d_strides, *i_strides, block_rows, *x.stride(),
+            *y.stride(), stream_handle())
+    check_launch(status, what)
+    return y
+
+
+def bcsr_matvec_cuda(plan: ELLBandPlan, data_dev, rel_dev, x, *,
+                     per_block: bool = False):
+    """B12: y = A x for a banded BCSR matrix.
+
+    data_dev [K, b, b, NP] (from ``bcsr_band_plan``), rel_dev [K, NP], x
+    [b, n] (or [b, NP]) component-major, in any strides (a transposed view
+    of a node-major vector is fine); returns y [b, n].  ``per_block`` (the
+    TPU's delta-table variant; the plan must carry its ``dtab``) launches
+    the same kernel.  No host sync.
+    """
+    if per_block and plan.dtab is None:
+        raise ValueError("per_block needs a plan built with per_block=True")
+    if x.device.type == "cpu":
+        return bcsr_band_matvec_plain(plan, data_dev, rel_dev, x)
+    what = "bcsr_matvec" + ("_per_block" if per_block else "")
+    K, NP = plan.width, plan.np_rows
+    if data_dev.dim() != 4 or x.dim() != 2:
+        raise ValueError(f"{what}: expected data_t [K, b, b, NP] and x "
+                         f"[b, n], got {tuple(data_dev.shape)} and "
+                         f"{tuple(x.shape)}")
+    b = data_dev.shape[1]
+    _expect(what + " data_t", data_dev, x.dtype, (K, b, b, NP), x.device)
+    if rel_dev.dtype not in (torch.int16, torch.int32):
+        raise TypeError(f"{what}: rel must be int16 or int32, got "
+                        f"{rel_dev.dtype}")
+    _expect(what + " rel", rel_dev, rel_dev.dtype, (K, NP), x.device)
+    if x.shape[0] != b or x.shape[1] not in (plan.n, NP):
+        raise ValueError(f"{what}: x has shape {tuple(x.shape)}, the plan "
+                         f"[{b}, {plan.n}] (or {NP} padded)")
+    y = torch.empty((b, plan.n), dtype=x.dtype, device=x.device)
+    _bcsr_launch(what, data_dev, rel_dev, x, y, plan.n, K,
+                 (1, b * b * NP, NP), (1, NP), plan.block_rows)
+    bcsr_matvec_cuda.launches += 1
+    if per_block:
+        bcsr_matvec_cuda.launches_per_block += 1
+    return y
+
+
+bcsr_matvec_cuda.launches = 0
+bcsr_matvec_cuda.launches_per_block = 0
+
+
+def bcsr_gather_matvec_cuda(data, cols, x):
+    """y = A x on row-major data [NR, K, b, b] / int32 cols [NR, K]
+    (absolute columns) for node-major x [NR * b]: the B12 kernel in
+    absolute-column mode.  No host sync."""
+    if x.device.type == "cpu":
+        return bcsr_gather_matvec_plain(data, cols, x)
+    what = "bcsr_gather_matvec"
+    if data.dim() != 4:
+        raise ValueError(f"{what}: expected data [NR, K, b, b], got "
+                         f"{tuple(data.shape)}")
+    nr, K, b, _ = data.shape
+    _expect(what + " data", data, x.dtype, (nr, K, b, b), x.device)
+    _expect(what + " cols", cols, torch.int32, (nr, K), x.device)
+    _expect(what + " x", x, x.dtype, (nr * b,), x.device)
+    y = torch.empty_like(x)
+    _bcsr_launch(what, data, cols, x.view(nr, b).T, y.view(nr, b).T, nr, K,
+                 (K * b * b, b * b, 1), (K, 1), 0)
+    bcsr_gather_matvec_cuda.launches += 1
+    return y
+
+
+bcsr_gather_matvec_cuda.launches = 0
