@@ -48,6 +48,17 @@
      version's bit for bit (no fused multiply-add, the reference's order),
      which the field tolerance above contains; the library call is torch's
      BSR product (its CSR expansion where BSR @ x does not run).
+   - Assembly: B13 on the embedded element coordinates of the n=96 Kuhn
+     box (the assembly path's shape) and of the non-cubic 5 x 4 x 6 box,
+     fp32 and fp64, bit for bit against its plain version (no library
+     call computes it).
+   - Reduction and SAXPY: B14 on examples/reduction_bench.py's 64 MB
+     vector (block = n / 8) in fp32 and fp64 and at an n that is not a
+     block multiple, bit for bit against its plain version and within
+     1e-5 of the fp64 host sum (library call: torch.sum); B15 at
+     examples/saxpy_pallas.py's n = 524,288 and at n = 1,000,003, bit for
+     bit and within 1e-4 of the example's golden values (library call:
+     torch.add(y, x, alpha=a)).
 4. The paths, each driven with every launch count set to 0 just before it
    and read just after (the per-iteration times are taken after that):
    - main, n=96 (912,673 DOFs): fused build, const MG-PCG (nu1 = nu2 = 1)
@@ -114,7 +125,23 @@
      form, ELL, apply_dirichlet_ell, Jacobi cg; 64 x 64, fp64) at the JAX
      package's CPU count and nodal rms error, and the weak-form ELL
      assembly of the 1000 x 1000 perturbed mesh within 1e-5 of the
-     closed-form P1 assembly (fp32; quadrature against closed form).
+     closed-form P1 assembly (fp32; quadrature against closed form);
+   - assembly, n=96 fp32: examples/poisson_3d_multigrid.py composed from
+     the port with its stiffness from B13 (mesh, structured_plan(mesh),
+     element_coords_bt_embedded, B13 launched exactly once, the host-layout
+     RHS with the degree-3 rule, apply_dirichlet_stencil on the mesh's
+     flags, the general hierarchy on the built operator, the guarded cg to
+     1e-6 with K2): converged within one iteration of the same solve on
+     K1's eliminated operator, rel L2 error <= 2.0e-4; B13's raw planes
+     within 1e-5 x max of K1's raw ones (apply_bc=False); the weak form's
+     stencil format within 1e-5 x max of B13's planes (matched by grid
+     offset) and of the structured RHS of its own element vectors; its
+     phases (B13's wall beside K1's) and peak device memory; B13, K2 and
+     B4 must launch;
+   - reduction: examples/reduction_bench.py (reduce_sum, B14 with block =
+     n / 8, segment_reduce over 1000 segments) on 64 MB, each within 1e-5
+     of the fp64 host sum; B14 must launch;
+   - saxpy: examples/saxpy_pallas.py, max |err| < 1e-4; B15 must launch.
 
 The second-to-last line is the kernels' JSON record (launches summed over
 the paths), the last line {"ok": true, "device": {...}}.  Any failed check
@@ -196,6 +223,8 @@ def main() -> int:
     _check_routed(dev, records)
     _check_ell(dev, records)
     _check_bcsr(dev, records)
+    _check_assembly(dev, records)
+    _check_reduction_saxpy(dev, records)
     print(f"# check phase {time.perf_counter() - t0:.1f} s")
     _paths(dev, records)
     print(f"# all phases {time.perf_counter() - t0:.1f} s")
@@ -240,12 +269,19 @@ _KERNELS = {
     "B12g": ("bcsr_spmv absolute-column mode (the gather form of BCSRMatrix "
              "and the Dirichlet correction)", "tpufem_torch/csrc/bcsr.cu",
              "tpufem/sparse/ell_pallas.py:548"),
+    "B13": ("assemble_stencil", "tpufem_torch/csrc/assemble.cu",
+            "tpufem/ops/assemble_pallas.py:88"),
+    "B14": ("block_reduce (pallas_block_reduce)",
+            "tpufem_torch/csrc/reduction.cu", "tpufem/ops/reduction.py:49"),
+    "B15": ("saxpy", "tpufem_torch/csrc/saxpy.cu",
+            "examples/saxpy_pallas.py:23"),
 }
 
 
 def _counters():
     """Each kernel's launch count: (the wrapper that carries it, its
     attribute)."""
+    from tpufem_torch.ops import assemble_cuda, reduction, saxpy_cuda
     from tpufem_torch.ops import fused_system_cuda, mg_transfer_cuda
     from tpufem_torch.ops import stencil_cuda
     from tpufem_torch.sparse import ell_cuda
@@ -266,7 +302,10 @@ def _counters():
             "B9g": (ell_cuda.ell_gather_matvec_cuda, "launches"),
             "B10": (ell_cuda.ell_matvec_multi_cuda, "launches"),
             "B12": (ell_cuda.bcsr_matvec_cuda, "launches"),
-            "B12g": (ell_cuda.bcsr_gather_matvec_cuda, "launches")}
+            "B12g": (ell_cuda.bcsr_gather_matvec_cuda, "launches"),
+            "B13": (assemble_cuda.assemble_stencil_cuda, "launches"),
+            "B14": (reduction.block_reduce, "launches"),
+            "B15": (saxpy_cuda.saxpy, "launches")}
 
 
 def _record(records, key):
@@ -288,6 +327,7 @@ def _rhs_2d_zero():
 
 def _build_kernels():
     from tpufem_torch.fem.quadrature import tetrahedron_rule, triangle_rule
+    from tpufem_torch.ops import assemble_cuda, reduction, saxpy_cuda
     from tpufem_torch.ops import fused_system_cuda, mg_transfer_cuda
     from tpufem_torch.ops import stencil_cuda
     from tpufem_torch.ops._build import BUILD_DIR
@@ -309,6 +349,9 @@ def _build_kernels():
             plan2, triangle_rule(2), model_problem_2d_planes().c_expr),
         "fused_system_2d.cu (f = 0)": lambda: fused_system_cuda._lib(
             plan2, triangle_rule(2), _rhs_2d_zero().c_expr),
+        "assemble.cu": lambda: assemble_cuda._lib(plan),
+        "reduction.cu": reduction._lib,
+        "saxpy.cu": saxpy_cuda._lib,
     }
 
     def timed(build):
@@ -1477,6 +1520,12 @@ def _paths(dev, records):
               lambda: _drive_elasticity_small(dev), ("B12", "B12g"))
     _run_path("weakform", counters, records, lambda: _drive_weakform(dev),
               ("B9", "B9g"))
+    _run_path("assembly", counters, records,
+              lambda: _drive_assembly(dev, main), ("B13", "K2", "B4"))
+    _run_path("reduction", counters, records,
+              lambda: _drive_reduction(dev), ("B14",))
+    _run_path("saxpy", counters, records, lambda: _drive_saxpy(dev),
+              ("B15",))
 
 
 def _fp32_bf16_counts(name, levels, mv, mvd, b):
@@ -2237,6 +2286,338 @@ def _drive_weakform(dev):
           + f"; weak-form peak device memory {peak_gb:.3f} GB")
     check(A_wf.data.shape == A_p1.data.shape and dA <= 1e-5 and db <= 1e-5,
           f"weakform at 1M rows: matrix {dA:.3e}, rhs {db:.3e}")
+
+
+
+# -- generic structured assembly (B13), the reduction (B14), SAXPY (B15) ----
+
+# operations per tetrahedron of the fused assembly, counted from B13's
+# formulas: geometry 57 (J 9, cofactors 27, det 5, reciprocal 1, inverse 9,
+# last gradient 6), |det| / 6 2, 16 entries x (5 + 1) and their 16 sums
+_ASSEMBLE_FLOPS = 171
+N_REDUCE = 64 * 1024 * 1024 // 4     # examples/reduction_bench.py: 64 MB
+N_SAXPY = 32 * 128 * 128             # examples/saxpy_pallas.py
+
+
+def _embedded_coords(n_or_dims, dev):
+    """(mesh, embedded plan, X_emb fp64 on the card) of the Kuhn box on
+    (-3, 3)^3 with n cells a side, or of tests/test_embedded_pipeline.py's
+    box with the given cells (nx, ny, nz)."""
+    import numpy as np
+    import torch
+
+    from tpufem_torch.assemble.structured import structured_plan
+    from tpufem_torch.mesh.box import box_mesh
+    from tpufem_torch.ops.assemble_cuda import element_coords_bt_embedded
+
+    if isinstance(n_or_dims, tuple):
+        mesh = box_mesh(-1, 2, 0, 1, -2, 0, *n_or_dims)
+    else:
+        mesh = box_mesh(*DOMAIN, *DOMAIN, *DOMAIN, *(n_or_dims,) * 3)
+    plan = structured_plan(mesh, embed=True)
+    X = torch.as_tensor(element_coords_bt_embedded(mesh, plan,
+                                                   dtype=np.float64),
+                        device=dev)
+    return mesh, plan, X
+
+
+def _check_assembly(dev, records):
+    """B13 at n=96 (the assembly path's shape) in fp32 and fp64 and on the
+    non-cubic 5 x 4 x 6 box: bit for bit against its plain version."""
+    import torch
+
+    from tpufem_torch.ops.assemble_cuda import (assemble_stencil_cuda,
+                                                assemble_stencil_plain)
+
+    for shape in (N_MAIN, (5, 4, 6)):
+        mesh, plan, X64 = _embedded_coords(shape, dev)
+        label = (f"n={shape}" if shape == N_MAIN
+                 else "box {}x{}x{}".format(*shape))
+        for dt in (torch.float32, torch.float64):
+            X = X64.to(dt)
+            name = str(dt).replace("torch.", "")
+            # the bound counts only the coordinates B13 reads: those of
+            # cells inside the cell grid (padding cells are skipped)
+            m0, m1, m2 = plan.info.cell_grid
+            read = X[:, :, :, :m0, 1:1 + m1, 1:1 + m2]
+            _compare(records, "B13", f"{label} {name}",
+                     lambda: assemble_stencil_cuda(plan, X).data,
+                     lambda: assemble_stencil_plain(plan, X).data,
+                     timed=True,
+                     work=([read], mesh.num_elements * _ASSEMBLE_FLOPS, name))
+            same = torch.equal(assemble_stencil_cuda(plan, X).data,
+                               assemble_stencil_plain(plan, X).data)
+            print(f"# check B13 {label} {name}: bit for bit {same}")
+            check(same, f"B13 {label} {name}: differs from its plain version")
+            del X
+        del X64
+        torch.cuda.empty_cache()
+
+
+def _check_reduction_saxpy(dev, records):
+    """B14 on the 64 MB vector of examples/reduction_bench.py (block =
+    n / 8) in fp32 and fp64 and at an n that is not a block multiple; B15
+    at examples/saxpy_pallas.py's n and at an odd n.  Each bit for bit
+    against its plain version; the library calls are torch.sum and
+    torch.add(y, x, alpha=a)."""
+    import numpy as np
+    import torch
+
+    from tpufem_torch.ops.reduction import (block_reduce,
+                                            block_reduce_plain,
+                                            reduction_check)
+    from tpufem_torch.ops.saxpy_cuda import saxpy, saxpy_plain
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    x32 = torch.rand(N_REDUCE, generator=gen, device=dev)
+    for label, x, block in (
+            ("64 MB fp32", x32, N_REDUCE // 8),
+            ("128 MB fp64", x32.double(), N_REDUCE // 8),
+            ("fp32, n = 2^24 - 12,345 (padded)", x32[:N_REDUCE - 12345],
+             N_REDUCE // 8)):
+        name = str(x.dtype).replace("torch.", "")
+        _compare(records, "B14", label,
+                 lambda: block_reduce(x, block).reshape(1),
+                 lambda: block_reduce_plain(x, block).reshape(1),
+                 timed="padded" not in label, work=([x], x.numel(), name),
+                 library=lambda: (lambda: torch.sum(x).reshape(1)))
+        out = block_reduce(x, block)
+        golden = reduction_check(x, out)
+        same = torch.equal(out, block_reduce_plain(x, block))
+        print(f"# check B14 {label}: bit for bit {same}, host fp64 golden "
+              f"rel diff {golden['rel_diff']:.3e}")
+        check(same and golden["match"], f"B14 {label}: bit for bit {same}, "
+                                         f"golden {golden}")
+
+    for label, n in (("n = 524,288 fp32", N_SAXPY),
+                     ("n = 1,000,003 fp32", 1_000_003)):
+        a = torch.tensor([5.1], dtype=torch.float32, device=dev)
+        x = torch.arange(n, dtype=torch.float32, device=dev)
+        y = x * 2.0
+        alpha = a.item()
+        _compare(records, "B15", label, lambda: saxpy(a, x, y),
+                 lambda: saxpy_plain(a, x, y), timed=n == N_SAXPY,
+                 work=([a, x, y], 2 * n, "float32"),
+                 library=lambda: (lambda: torch.add(y, x, alpha=alpha)))
+        out = saxpy(a, x, y)
+        expected = 5.1 * np.arange(n, dtype=np.float32) + 2.0 * np.arange(
+            n, dtype=np.float32)
+        err = float(np.abs(out.cpu().numpy() - expected).max())
+        same = torch.equal(out, saxpy_plain(a, x, y))
+        print(f"# check B15 {label}: bit for bit {same}, max |err| vs the "
+              f"example's golden {err}")
+        check(same and err < 1e-4, f"B15 {label}: bit for bit {same}, "
+                                   f"golden error {err}")
+    del x32
+    torch.cuda.empty_cache()
+
+
+def _drive_assembly(dev, main):
+    """examples/poisson_3d_multigrid.py composed from the port at n=96,
+    with its stiffness from B13: the mesh and its embedded plan
+    (structured_plan(mesh)), element_coords_bt_embedded, B13 (once), the
+    host-layout RHS (element_coords_bt, element_load_bt with the degree-3
+    rule, assemble_vector_structured_bt), apply_dirichlet_stencil on the
+    mesh's boundary flags, the general hierarchy on the built operator
+    (top=) and the guarded cg to 1e-6 with K2 as the matvec.  Held to: the
+    same solve on K1's eliminated operator (main path) within one
+    iteration, the error against the manufactured solution, B13's raw
+    planes against K1's raw ones, and the weak form's stencil assembly
+    against B13's planes and the structured RHS."""
+    import numpy as np
+    import torch
+
+    from tpufem_torch.assemble.planar import element_coords_bt, element_load_bt
+    from tpufem_torch.assemble.structured import (
+        assemble_vector_structured, assemble_vector_structured_bt,
+        structured_plan)
+    from tpufem_torch.fem.quadrature import tetrahedron_rule
+    from tpufem_torch.fem.space import FunctionSpace
+    from tpufem_torch.forms.language import Coefficient, dot, grad
+    from tpufem_torch.forms.weakform import WeakForm
+    from tpufem_torch.mesh.box import box_mesh
+    from tpufem_torch.ops.assemble_cuda import (assemble_stencil_cuda,
+                                                element_coords_bt_embedded)
+    from tpufem_torch.ops.fused_system_cuda import (
+        build_poisson_system, node_coords_embedded_from_grid)
+    from tpufem_torch.ops.stencil_cuda import stencil_matvec_embedded
+    from tpufem_torch.solve import multigrid as mg
+    from tpufem_torch.solve.bc import apply_dirichlet_stencil
+    from tpufem_torch.solve.cg import cg
+    from tpufem_torch.solve.poisson import (model_problem_3d,
+                                            model_problem_3d_planes)
+    from tpufem_torch.utils.timing import PhaseTimer
+
+    n = N_MAIN
+    f_planes = model_problem_3d_planes()
+    f, exact = model_problem_3d()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    timer = PhaseTimer()
+    with timer("host_mesh_plan"):
+        mesh = box_mesh(*DOMAIN, *DOMAIN, *DOMAIN, n, n, n)
+        plan = structured_plan(mesh, embed=True)
+    with timer("host_element_coords"):
+        X_emb = element_coords_bt_embedded(mesh, plan)
+    with timer("to_device"):
+        X_emb = torch.as_tensor(X_emb, device=dev)
+        torch.cuda.synchronize()
+    with timer("assemble"):
+        t0 = time.perf_counter()
+        A_raw = assemble_stencil_cuda(plan, X_emb)
+        issue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    with timer("rhs"):
+        X = torch.as_tensor(element_coords_bt(mesh, np.float32), device=dev)
+        b = assemble_vector_structured_bt(plan, element_load_bt(
+            X, "tetrahedron", tetrahedron_rule(3), f_planes))
+        del X
+        torch.cuda.synchronize()
+    with timer("dirichlet"):
+        bc = plan.embed_field(torch.as_tensor(mesh.node_flags != 0,
+                                              device=dev), fill=0)
+        A, b = apply_dirichlet_stencil(A_raw, b, bc)
+        torch.cuda.synchronize()
+
+    def solve(A, b, bc):
+        levels = mg.build_poisson_multigrid(DOMAIN, n, dtype=torch.float32,
+                                            top=(A.data, bc), device=dev)
+        M = mg.mg_preconditioner(levels, nu1=1, nu2=1)
+        res = cg(lambda v: stencil_matvec_embedded(A.data, v, plan), b,
+                 tol=1e-6, maxiter=100, M=M)
+        torch.cuda.synchronize()
+        return res
+
+    with timer("hierarchy_and_solve"):
+        res = solve(A, b, bc)
+    ue = torch.as_tensor(exact(mesh.coords), device=dev)
+    err = _rel_err(plan.extract_field(res.x), ue)
+    bc_main = torch.as_tensor(mg._embed_grid_numpy(
+        main["bc"], plan.store_grid, fill=False), device=dev)
+    ref = solve(main["A"], main["b"], bc_main)
+    launches = assemble_stencil_cuda.launches
+    print(f"# assembly solve (B13 + host RHS, n={n}): {res.iterations} "
+          f"iterations, relres {res.residual_norm.item():.3e}, rel L2 "
+          f"error {err:.4e}; the same solve on K1's eliminated operator: "
+          f"{ref.iterations} iterations, relres "
+          f"{ref.residual_norm.item():.3e}; B13 launches {launches}")
+    check(launches == 1, f"assembly: B13 launched {launches} times, not 1")
+    check(res.converged and ref.converged, "assembly: not converged")
+    check(abs(res.iterations - ref.iterations) <= 1,
+          f"assembly: {res.iterations} iterations against K1's "
+          f"{ref.iterations}")
+    check(err <= 2.0e-4, f"assembly: rel L2 error {err:.3e} > 2.0e-4")
+
+    # B13's raw planes against K1's (apply_bc=False): two kernels, one
+    # stiffness; K1's build wall at the same n beside B13's
+    C = torch.as_tensor(node_coords_embedded_from_grid(
+        main["coords"], plan, np.float32), device=dev)
+    torch.cuda.synchronize()
+    with timer("k1_build"):
+        K1, _ = build_poisson_system(plan, C, f_planes, tetrahedron_rule(2),
+                                     apply_bc=False)
+        torch.cuda.synchronize()
+    dk, bound = _err(A_raw.data, K1.data, "float32")
+    print(f"# assembly B13 raw vs K1 raw: max abs diff {dk:.3e} (bound "
+          f"{bound:.3e})")
+    check(dk <= bound, f"assembly: B13 vs K1 raw {dk:.3e} > {bound:.3e}")
+    del K1, C
+
+    # the weak form's stencil format (node order, not embedded) against
+    # B13's planes and the structured RHS of its own element vectors
+    V = FunctionSpace(mesh, degree=1)
+    with timer("weak_form_stencil"):
+        wf = WeakForm(V, dtype=torch.float32, device=dev).build(
+            lambda u, v: dot(grad(u), grad(v)), lambda v: Coefficient(f) * v)
+        A_wf, b_wf = wf.assemble(format="stencil")
+        torch.cuda.synchronize()
+    plan_wf = structured_plan(mesh)
+    k_of = {g: k for k, g in enumerate(plan.offsets_grid)}
+    diff = max((A_wf.data[k] - plan.extract_field(
+        A_raw.data[k_of[g]])).abs().max().item()
+        for k, g in enumerate(plan_wf.offsets_grid))
+    dmax = A_raw.data.abs().max().item()
+    ec = torch.as_tensor(mesh.element_coords(), dtype=torch.float32,
+                         device=dev)
+    b_st = assemble_vector_structured(plan_wf, wf.element_vectors(ec))
+    del ec
+    db = (b_wf - b_st).abs().max().item()
+    bmax = b_st.abs().max().item()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"# assembly weak form (stencil format, fp32): max |A_wf - B13| "
+          f"{diff:.3e} (max |B13| {dmax:.3e}), max |b_wf - b_structured| "
+          f"{db:.3e} (max {bmax:.3e})")
+    print(f"# assembly phases (s, wall clock ending in a synchronize): "
+          + json.dumps({k: round(v, 4) for k, v in timer.report().items()})
+          + f"; B13's call returned after {issue_s:.4f} s of the "
+          f"assemble phase; peak device memory {peak_gb:.3f} GB")
+    check(diff <= 1e-5 * dmax, f"assembly: weak-form stencil vs B13 "
+                               f"{diff:.3e}")
+    check(db <= 1e-5 * bmax, f"assembly: weak-form b vs structured {db:.3e}")
+
+    def after():
+        """Walls of one warm call each (host clock, ending in a
+        synchronize), B13 and K1 in turns, beside the path's first call."""
+        C = torch.as_tensor(node_coords_embedded_from_grid(
+            main["coords"], plan, np.float32), device=dev)
+        calls = {"B13": lambda: assemble_stencil_cuda(plan, X_emb),
+                 "K1": lambda: build_poisson_system(
+                     plan, C, f_planes, tetrahedron_rule(2), apply_bc=False)}
+        walls = {key: [] for key in calls}
+        for _ in range(5):
+            for key in ("B13", "K1", "K1", "B13"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                calls[key]()
+                torch.cuda.synchronize()
+                walls[key].append(time.perf_counter() - t0)
+        print("# assembly warm walls (ms, median of 10 calls each, in "
+              "turns): " + ", ".join(
+                  f"{key} {1e3 * sorted(w)[len(w) // 2]:.4f}"
+                  for key, w in walls.items()))
+
+    return after
+
+
+def _drive_reduction(dev):
+    """examples/reduction_bench.py composed from the port at its size on
+    the card (64 MB fp32, seeded uniform values): reduce_sum,
+    pallas_block_reduce (B14) with block = n / 8 and segment_reduce over
+    1000 segments, each against the fp64 host golden sum."""
+    import torch
+
+    from tpufem_torch.ops.reduction import (pallas_block_reduce, reduce_sum,
+                                            reduction_check, segment_reduce)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand(N_REDUCE, generator=gen, device=dev)
+    ids = torch.randint(0, 1000, (N_REDUCE,), generator=gen, device=dev)
+    for label, result in (
+            ("fused sum", reduce_sum(x)),
+            ("block sum (B14)", pallas_block_reduce(x, block=N_REDUCE // 8)),
+            ("segment sum", segment_reduce(x, ids, 1000).sum())):
+        golden = reduction_check(x, result)
+        print(f"# reduction {label}: {golden}")
+        check(golden["match"], f"reduction {label}: {golden}")
+
+
+def _drive_saxpy(dev):
+    """examples/saxpy_pallas.py composed from the port: n = 32 x 16,384,
+    a = 5.1, x = arange, y = 2 arange, max |err| against the golden
+    values < 1e-4."""
+    import numpy as np
+    import torch
+
+    from tpufem_torch.ops.saxpy_cuda import saxpy
+
+    a = torch.tensor([5.1], dtype=torch.float32, device=dev)
+    x = torch.arange(N_SAXPY, dtype=torch.float32, device=dev)
+    out = saxpy(a, x, x * 2.0)
+    expected = 5.1 * np.arange(N_SAXPY, dtype=np.float32) + 2.0 * np.arange(
+        N_SAXPY, dtype=np.float32)
+    err = float(np.abs(out.cpu().numpy() - expected).max())
+    print(f"# saxpy n={N_SAXPY}: max |err| = {err}")
+    check(err < 1e-4, f"saxpy: max |err| {err}")
 
 
 if __name__ == "__main__":

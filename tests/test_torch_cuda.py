@@ -1,5 +1,6 @@
-"""CUDA kernels K1-K4, B3-B5, B5b, B7, the ELL kernels B9-B11 and the BCSR
-kernel B12 against their plain PyTorch versions on the card.
+"""CUDA kernels K1-K4, B3-B5, B5b, B7, the ELL kernels B9-B11, the BCSR
+kernel B12, the fused assembly B13, the block sum B14 and SAXPY B15
+against their plain PyTorch versions on the card.
 
 Every test here needs an NVIDIA GPU with nvcc (sm_90a) and skips without
 one.  This file imports neither JAX nor the JAX package, so it runs on a
@@ -658,3 +659,112 @@ def test_elasticity_build_on_the_card_is_deterministic(dev, monkeypatch):
     assert all(torch.equal(r, runs[0]) for r in runs[1:])
     ref = assemble_bcsr(pat, wf.element_matrices(ec.cpu()), 2).data
     _close(runs[0].cpu(), ref, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("dims", [(5, 4, 6), (8, 8, 8)],
+                         ids=["box5x4x6", "cube8"])
+def test_assemble_kernel_matches_plain_and_k1(dev, dtype, dims):
+    """B13 equals its plain version bit for bit, and its planes are K1's
+    raw stiffness (apply_bc=False) within the field tolerance."""
+    from tpufem_torch.mesh.box import box_mesh
+    from tpufem_torch.ops.assemble_cuda import (assemble_stencil_cuda,
+                                                assemble_stencil_plain,
+                                                element_coords_bt_embedded)
+
+    mesh = box_mesh(-1, 2, 0, 1, -2, 0, *dims)
+    plan = structured_plan(mesh, embed=True)
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    X = torch.as_tensor(element_coords_bt_embedded(mesh, plan, dtype=np_dt),
+                        device=dev)
+    before = assemble_stencil_cuda.launches
+    A = assemble_stencil_cuda(plan, X)
+    assert assemble_stencil_cuda.launches == before + 1
+    ref = assemble_stencil_plain(plan, X)
+    torch.cuda.synchronize()
+    assert A.data.device.type == "cuda" and A.offsets == ref.offsets
+    assert torch.equal(A.data, ref.data)
+    ng = plan.info.node_grid
+    coords = np.moveaxis(mesh.coords.reshape(*ng, 3), -1, 0)
+    C = torch.as_tensor(node_coords_embedded_from_grid(coords, plan, np_dt),
+                        device=dev)
+    K1, _ = build_poisson_system(plan, C, model_problem_3d_planes(),
+                                 tetrahedron_rule(2), apply_bc=False)
+    _close(A.data, K1.data, dtype)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("n, block", [(1 << 20, 1 << 17), (1000003, 65536),
+                                      (100, 4096)],
+                         ids=["blocks", "padded", "tiny"])
+def test_reduction_kernel_matches_plain(dev, dtype, n, block):
+    from tpufem_torch.ops.reduction import (block_reduce,
+                                            block_reduce_plain,
+                                            reduction_check)
+
+    g = torch.Generator(device="cpu").manual_seed(n)
+    x = torch.rand(n, generator=g, dtype=dtype).to(dev)
+    before = block_reduce.launches
+    out = block_reduce(x, block)
+    assert block_reduce.launches == before + 1
+    ref = block_reduce_plain(x, block)
+    torch.cuda.synchronize()
+    assert out.dim() == 0 and out.dtype == dtype
+    assert torch.equal(out, ref)
+    assert reduction_check(x, out)["match"]
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("n", [32 * 128 * 128, 1001])
+def test_saxpy_kernel_matches_plain(dev, dtype, n):
+    from tpufem_torch.ops.saxpy_cuda import saxpy, saxpy_plain
+
+    a = torch.tensor([5.1], dtype=dtype, device=dev)
+    x = torch.arange(n, dtype=dtype, device=dev)
+    y = x * 2.0
+    before = saxpy.launches
+    out = saxpy(a, x, y)
+    assert saxpy.launches == before + 1
+    assert torch.equal(out, saxpy_plain(a, x, y))
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    expected = 5.1 * np.arange(n, dtype=np_dt) + 2.0 * np.arange(n,
+                                                                dtype=np_dt)
+    assert float(np.abs(out.cpu().numpy() - expected).max()) < 1e-4
+
+
+def test_assemble_slice_on_the_card(dev):
+    """The slice at n = 8 on the card (B13, K2 and the MG-PCG on the built
+    operator) takes the CPU run's iteration count, solutions within
+    1e-10."""
+    from tpufem_torch.assemble.planar import element_coords_bt, element_load_bt
+    from tpufem_torch.assemble.structured import assemble_vector_structured_bt
+    from tpufem_torch.mesh.box import box_mesh
+    from tpufem_torch.ops.assemble_cuda import (assemble_stencil_cuda,
+                                                element_coords_bt_embedded)
+    from tpufem_torch.solve.bc import apply_dirichlet_stencil
+    from tpufem_torch.solve.cg import cg
+    from tpufem_torch.solve.multigrid import mg_preconditioner
+
+    mesh = box_mesh(-3, 3, -3, 3, -3, 3, 8, 8, 8)
+    plan = structured_plan(mesh, embed=True)
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        A = assemble_stencil_cuda(plan, torch.as_tensor(
+            element_coords_bt_embedded(mesh, plan, dtype=np.float64),
+            device=device))
+        X = torch.as_tensor(element_coords_bt(mesh, np.float64),
+                            device=device)
+        b = assemble_vector_structured_bt(plan, element_load_bt(
+            X, "tetrahedron", tetrahedron_rule(3), model_problem_3d_planes()))
+        bc = plan.embed_field(torch.as_tensor(mesh.node_flags != 0,
+                                              device=device), fill=0)
+        A, b = apply_dirichlet_stencil(A, b, bc)
+        levels = build_poisson_multigrid((-3.0, 3.0), 8, dtype=torch.float64,
+                                         coarse_max=2, top=(A.data, bc),
+                                         device=device)
+        runs.append(cg(A.matvec, b, tol=1e-10, maxiter=100,
+                       M=mg_preconditioner(levels, nu1=1, nu2=1)))
+    card, cpu = runs
+    assert card.converged and card.iterations == cpu.iterations
+    x, x_ref = card.x.cpu().numpy(), cpu.x.numpy()
+    assert np.abs(x - x_ref).max() <= 1e-10 * np.abs(x_ref).max()

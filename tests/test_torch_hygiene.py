@@ -1,10 +1,13 @@
-"""Port hygiene: tpufem_torch never imports JAX or the JAX package, and on
-CPU tensors no wrapper launches a kernel (K1-K4, B4, B5, B9-B12)."""
+"""Port hygiene: tpufem_torch never imports JAX or the JAX package, its
+root exports what the JAX package's does (as far as ported) without
+building a kernel, the ported members keep the reference's signatures, and
+on CPU tensors no wrapper launches a kernel (K1-K4, B4, B5, B9-B15)."""
 import inspect
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -48,15 +51,41 @@ _PORT_MODULES = [
     "tpufem_torch.solve.poisson", "tpufem_torch.utils.timing",
     "tpufem_torch.mesh.box", "tpufem_torch.forms.language",
     "tpufem_torch.forms.weakform", "tpufem_torch.sparse.bcsr",
-    "tpufem_torch.solve.elasticity",
+    "tpufem_torch.solve.elasticity", "tpufem_torch.assemble.stencil",
+    "tpufem_torch.ops.assemble_cuda", "tpufem_torch.ops.reduction",
+    "tpufem_torch.ops.saxpy_cuda",
     "chip_smoke",
 ]
 
+# the names tpufem_torch's root exports: eagerly, then lazily
+_EXPORTS = [
+    "Mesh", "rectangle_mesh", "unit_square_mesh", "RectangleMesh",
+    "UnitSquareMesh", "box_mesh", "unit_cube_mesh", "BoxMesh",
+    "UnitCubeMesh", "ell_pattern", "node_adjacency", "FunctionSpace",
+    "VectorFunctionSpace", "triangle_rule", "tetrahedron_rule",
+    "rule_for_cell", "cg", "CGResult", "ELLMatrix", "StencilMatrix",
+    "WeakForm", "solve_poisson_fast", "build_poisson_multigrid",
+    "solve_elasticity", "solve_poisson_ell"]
+# the JAX package's other root names, with the ROADMAP item that ports each
+_NOT_PORTED = {
+    "rectangle_quad_mesh": "A3", "box_hex_mesh": "A3",
+    "greedy_element_coloring": "A3", "build_amg": "A2",
+    "build_block_amg": "A2", "build_dist_amg": "A6",
+    "newton_krylov": "A4", "smallest_eigenpairs": "A4",
+    "leapfrog_wave": "A4", "solve_stokes": "A4", "minres": "A4"}
+
 
 def test_port_imports_no_jax():
+    """Every port module and every exported name, in a fresh interpreter:
+    no JAX, and importing the package builds no kernel."""
     code = (
         "import importlib, sys\n"
+        "import tpufem_torch\n"
+        "from tpufem_torch.ops import _build\n"
+        "assert not _build._LOADED, _build._LOADED\n"
+        f"for name in {_EXPORTS!r}: getattr(tpufem_torch, name)\n"
         f"for m in {_PORT_MODULES!r}: importlib.import_module(m)\n"
+        "assert not _build._LOADED, _build._LOADED\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'jaxlib' or m == 'tpufem' or "
         "m.startswith('tpufem.'))\n"
@@ -136,3 +165,129 @@ def test_cpu_elasticity_path_launches_no_kernel(matvec, dim):
     for entry in (solve_elasticity, WeakForm, integrate):
         assert inspect.signature(entry).parameters["device"].default \
             == "cuda"
+
+
+def test_root_exports_match_the_reference():
+    import tpufem
+    import tpufem_torch
+
+    for name in _EXPORTS:
+        port, ref = getattr(tpufem_torch, name), getattr(tpufem, name)
+        assert getattr(port, "__name__", None) == getattr(ref, "__name__",
+                                                          None), name
+    for name, item in _NOT_PORTED.items():
+        assert hasattr(tpufem, name)
+        with pytest.raises(AttributeError, match=f"ROADMAP {item}"):
+            getattr(tpufem_torch, name)
+    with pytest.raises(AttributeError, match="no attribute"):
+        tpufem_torch.no_such_name
+
+
+def _members():
+    """(port member, reference member) pairs whose signatures must agree."""
+    from tpufem.assemble import planar as jplanar
+    from tpufem.assemble import stencil as jstencil
+    from tpufem.assemble import structured as jstructured
+    from tpufem.fem.quadrature import QuadratureRule as JaxRule
+    from tpufem.mesh.core import Mesh as JaxMesh
+    from tpufem.ops import reduction as jreduction
+    from tpufem.sparse import stencil as jsparse
+    from tpufem.utils.timing import PhaseTimer as JaxTimer
+
+    from tpufem_torch.assemble import planar, stencil, structured
+    from tpufem_torch.fem.quadrature import QuadratureRule
+    from tpufem_torch.mesh.core import Mesh
+    from tpufem_torch.ops import reduction
+    from tpufem_torch.sparse import stencil as sparse
+    from tpufem_torch.utils.timing import PhaseTimer
+
+    pairs = [(getattr(Mesh, m), getattr(JaxMesh, m)) for m in
+             ("interior_nodes", "print_mesh", "neighbor_nodes_list")]
+    pairs += [(QuadratureRule.barycentric, JaxRule.barycentric),
+              (structured.StructuredPlan.embed_field,
+               jstructured.StructuredPlan.embed_field),
+              (sparse.StencilMatrix.to_dense, jsparse.StencilMatrix.to_dense),
+              (PhaseTimer.start, JaxTimer.start),
+              (PhaseTimer.stop, JaxTimer.stop),
+              (sparse.stencil_pattern, jsparse.stencil_pattern),
+              (reduction.segment_reduce, jreduction.segment_reduce),
+              (reduction.reduction_check, jreduction.reduction_check)]
+    pairs += [(getattr(mod, name), getattr(ref, name)) for mod, ref, names in (
+        (planar, jplanar, ("p1_stiffness_views", "element_load_views",
+                           "element_coords_bt", "p1_stiffness_bt",
+                           "element_load_bt", "element_coord_views")),
+        (structured, jstructured, ("structured_plan",
+                                   "assemble_stencil_structured",
+                                   "assemble_vector_structured",
+                                   "assemble_stencil_structured_bt",
+                                   "assemble_vector_structured_bt",
+                                   "stencil_pattern_structured")),
+        (stencil, jstencil, ("stencil_values", "assemble_stencil")))
+        for name in names]
+    return pairs
+
+
+def test_ported_members_keep_the_reference_signatures():
+    def shape(fn):
+        return [(p.name, p.kind, p.default)
+                for p in inspect.signature(fn).parameters.values()]
+
+    for port, ref in _members():
+        assert shape(port) == shape(ref), port.__qualname__
+    # B14 under the reference's name: its data arguments and default block
+    # (interpret= is the TPU's and is not ported)
+    from tpufem.ops.reduction import pallas_block_reduce as jax_reduce
+
+    from tpufem_torch.ops.reduction import pallas_block_reduce
+
+    assert shape(pallas_block_reduce) == shape(jax_reduce)[:2]
+
+
+def test_ported_members_match_the_reference():
+    import io
+
+    from tpufem.fem.quadrature import tetrahedron_rule as jax_rule
+    from tpufem.mesh.box import box_mesh as jax_box_mesh
+
+    from tpufem_torch.fem.quadrature import tetrahedron_rule
+    from tpufem_torch.utils.timing import PhaseTimer
+
+    m, jm = (f(-1, 1, -1, 1, -1, 1, 2, 1, 3) for f in (box_mesh,
+                                                       jax_box_mesh))
+    np.testing.assert_array_equal(m.interior_nodes(), jm.interior_nodes())
+    for a, b in zip(m.neighbor_nodes_list(), jm.neighbor_nodes_list(30)):
+        assert a.shape[0] == b.shape[0]
+    for a, b in zip(m.neighbor_nodes_list(30), jm.neighbor_nodes_list(30)):
+        np.testing.assert_array_equal(a, b)
+    out, jout = io.StringIO(), io.StringIO()
+    m.print_mesh(out)
+    jm.print_mesh(jout)
+    assert out.getvalue() == jout.getvalue()
+    assert out.getvalue().startswith(f"number of nodes = {m.num_nodes}")
+    np.testing.assert_array_equal(tetrahedron_rule(3).barycentric(),
+                                  jax_rule(3).barycentric())
+    timer = PhaseTimer()
+    assert timer.start("a") is timer
+    seconds = timer.stop()
+    assert seconds >= 0.0 and timer.report() == {"a": seconds}
+    with timer("b"):
+        pass
+    assert set(timer.report()) == {"a", "b"}
+
+
+def test_cpu_assembly_reduction_saxpy_launch_no_kernel():
+    """B13, B14 and B15 on CPU tensors run their plain versions."""
+    from tpufem_torch.assemble.structured import structured_plan
+    from tpufem_torch.ops import assemble_cuda, reduction, saxpy_cuda
+
+    counters = (assemble_cuda.assemble_stencil_cuda, reduction.block_reduce,
+                saxpy_cuda.saxpy)
+    before = [fn.launches for fn in counters]
+    mesh = box_mesh(0, 1, 0, 1, 0, 1, 2, 2, 2)
+    plan = structured_plan(mesh, embed=True)
+    A = assemble_cuda.assemble_stencil_cuda(plan, torch.as_tensor(
+        assemble_cuda.element_coords_bt_embedded(mesh, plan)))
+    assert A.data.device.type == "cpu"
+    reduction.block_reduce(torch.ones(10))
+    saxpy_cuda.saxpy(torch.ones(1), torch.ones(3), torch.ones(3))
+    assert [fn.launches for fn in counters] == before

@@ -133,7 +133,7 @@ def test_element_kernels_match_jax(name, monkeypatch):
         assert torch.equal(be, tf.element_vectors(torch.as_tensor(ec)))
 
 
-@pytest.mark.parametrize("fmt", ["dense", "ell"])
+@pytest.mark.parametrize("fmt", ["dense", "ell", "stencil"])
 @pytest.mark.parametrize("name", ["elasticity_2d", "elasticity_3d",
                                   "anisotropic"])
 def test_assemble_matches_jax(name, fmt):
@@ -143,11 +143,20 @@ def test_assemble_matches_jax(name, fmt):
         tf.build(rhs=lambda v: (1 + X[1]) * v)
         jX = jl.SpatialCoordinate(None)
         jf.build(rhs=lambda v: (1 + jX[1]) * v)
+    if fmt == "stencil" and tV.num_components > 1:
+        # the stencil format takes P1 scalar spaces only, in both packages
+        for wf in (tf, jf):
+            with pytest.raises(ValueError, match="scalar"):
+                wf.assemble(format=fmt)
+        return
     A, b = tf.assemble(format=fmt)
     jA, jb = jf.assemble(format=fmt)
     _close(b.numpy(), jb)
     if fmt == "dense":
         _close(A.numpy(), jA)
+    elif fmt == "stencil":
+        assert A.offsets == jA.offsets
+        _close(A.data.numpy(), jA.data)
     else:
         np.testing.assert_array_equal(A.cols.numpy(), np.asarray(jA.cols))
         np.testing.assert_array_equal(A.diag_pos.numpy(),
@@ -192,13 +201,11 @@ def test_chunk_rule_and_unported_parts():
     # 6 x 6 local DOFs, 7 points, 2 x 2 values, 4 bytes: 4032 per element
     assert twf.chunk_elements(tV, wf.quadrature, torch.float32) == \
         twf._CHUNK_BYTES // 4032
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError, match="A3"):
         wf.build_boundary(rhs=lambda v: v[0])
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError, match="A3"):
         twf.integrate_boundary(tV, tl.Constant(1.0))
     wf.build(lambda u, v: tl.inner(tl.grad(u), tl.grad(v)))
-    with pytest.raises(NotImplementedError, match="A5"):
-        wf.assemble(format="stencil")
     with pytest.raises(ValueError, match="format"):
         wf.assemble(format="coo")
     with pytest.raises(ValueError, match="lhs"):
@@ -208,6 +215,44 @@ def test_chunk_rule_and_unported_parts():
         tl.inner(tl.grad(tl.TrialFunction(tV)), tl.TestFunction(tV))
     with pytest.raises(ValueError, match="FacetNormal"):
         tl.FacetNormal(tV).evaluate(object())
+
+
+def test_stencil_format_matches_jax():
+    """The shift-invariant stencil assembly of the weak form against the
+    JAX package's (tests/test_weakform.py's 5^3 box): the operator on a
+    random vector and b at 1e-12, and against the port's own ELL
+    assembly; an unstructured mesh is rejected."""
+    from tpufem.mesh.rectangle import perturbed_rectangle_mesh as jax_pert
+
+    from tpufem_torch.mesh.rectangle import perturbed_rectangle_mesh
+
+    args = (-3, 3, -3, 3, -3, 3, 5, 5, 5)
+    jV, tV = JaxSpace(jax_box_mesh(*args)), FunctionSpace(box_mesh(*args))
+
+    def f(X):
+        return 36 - 2 * (X[0] ** 2 + X[1] ** 2 + X[2] ** 2)
+
+    jX, tX = jl.SpatialCoordinate(jV), tl.SpatialCoordinate(tV)
+    jf = jwf.WeakForm(jV).build(lambda u, v: jl.dot(jl.grad(u), jl.grad(v)),
+                                lambda v: f(jX) * v)
+    tf = twf.WeakForm(tV, device="cpu").build(
+        lambda u, v: tl.dot(tl.grad(u), tl.grad(v)), lambda v: f(tX) * v)
+    A, b = tf.assemble(format="stencil")
+    jA, jb = jf.assemble(format="stencil")
+    assert A.offsets == jA.offsets and A.data.shape == (15, tV.num_dofs)
+    x = np.random.default_rng(0).standard_normal(tV.num_dofs)
+    ref = np.asarray(jA.matvec(jnp.asarray(x)))
+    _close(A.matvec(torch.as_tensor(x)).numpy(), ref)
+    _close(b.numpy(), jb)
+    A_ell, b_ell = tf.assemble(format="ell")
+    _close(A_ell.matvec(torch.as_tensor(x)).numpy(), ref)
+    assert torch.equal(b, b_ell)
+    for wf in (twf.WeakForm(FunctionSpace(perturbed_rectangle_mesh(
+            -1, 1, -1, 1, 4, 4, seed=0)), device="cpu"),
+               jwf.WeakForm(JaxSpace(jax_pert(-1, 1, -1, 1, 4, 4, seed=0)))):
+        wf.build(lambda u, v: u * v)
+        with pytest.raises(ValueError, match="structured"):
+            wf.assemble(format="stencil")
 
 
 def test_weakform_entry_defaults_to_the_card():

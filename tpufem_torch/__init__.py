@@ -9,13 +9,66 @@ at import, so importing this package needs only torch and numpy.
 Ported so far: the structured P1 Poisson fast path in 2D and 3D (fused
 system build, stencil SpMV, const and general MG V-cycles, PCG,
 mixed-precision refinement; ``solve.structured_fast.solve_poisson_fast``),
-the unstructured ELL path (mesh, RCM, ELL pattern and assembly,
-Dirichlet elimination, Jacobi / Chebyshev PCG on the banded ELL kernel;
+generic structured assembly (shift-invariant stencil assembly, the fused
+Kuhn-tetrahedron stiffness kernel ``ops.assemble_cuda``), the unstructured
+ELL path (mesh, RCM, ELL pattern and assembly, Dirichlet elimination,
+Jacobi / Chebyshev PCG on the banded ELL kernel;
 ``solve.poisson.solve_poisson_ell``), the weak-form frontend
 (``forms.language``, ``forms.weakform``: volume forms on affine cells,
-dense and ELL assembly) and unstructured linear elasticity (vector P1
+dense, ELL and stencil assembly), unstructured linear elasticity (vector P1
 spaces, BCSR assembly, block-Jacobi PCG on the banded block kernel;
-``solve.elasticity.solve_elasticity``).
+``solve.elasticity.solve_elasticity``) and the reduction and SAXPY kernels
+(``ops.reduction``, ``ops.saxpy_cuda``).
+
+The package root exports the meshes, spaces, rules, ``cg`` and the matrix
+classes, and resolves the heavier entry points lazily, as the JAX
+package's root does.
 """
+from tpufem_torch.mesh.core import Mesh
+from tpufem_torch.mesh.rectangle import (rectangle_mesh, unit_square_mesh,
+                                         RectangleMesh, UnitSquareMesh)
+from tpufem_torch.mesh.box import (box_mesh, unit_cube_mesh, BoxMesh,
+                                   UnitCubeMesh)
+from tpufem_torch.mesh.adjacency import ell_pattern, node_adjacency
+from tpufem_torch.fem.space import FunctionSpace, VectorFunctionSpace
+from tpufem_torch.fem.quadrature import (triangle_rule, tetrahedron_rule,
+                                         rule_for_cell)
+from tpufem_torch.solve.cg import cg, CGResult
+from tpufem_torch.sparse.ell import ELLMatrix
+from tpufem_torch.sparse.stencil import StencilMatrix
 
 __version__ = "0.1.0"
+
+# name -> (module, attribute): resolved on first access
+_LAZY = {
+    "WeakForm": ("tpufem_torch.forms.weakform", "WeakForm"),
+    "solve_poisson_fast": ("tpufem_torch.solve.structured_fast",
+                           "solve_poisson_fast"),
+    "build_poisson_multigrid": ("tpufem_torch.solve.multigrid",
+                                "build_poisson_multigrid"),
+    "solve_elasticity": ("tpufem_torch.solve.elasticity",
+                         "solve_elasticity"),
+    "solve_poisson_ell": ("tpufem_torch.solve.poisson", "solve_poisson_ell"),
+}
+
+# names the JAX package exports that the port does not have yet, with the
+# ROADMAP item that brings each
+_NOT_PORTED = {
+    "rectangle_quad_mesh": "A3", "box_hex_mesh": "A3",
+    "greedy_element_coloring": "A3", "build_amg": "A2",
+    "build_block_amg": "A2", "build_dist_amg": "A6",
+    "newton_krylov": "A4", "smallest_eigenpairs": "A4",
+    "leapfrog_wave": "A4", "solve_stokes": "A4", "minres": "A4",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        module, attr = _LAZY[name]
+        return getattr(importlib.import_module(module), attr)
+    if name in _NOT_PORTED:
+        raise AttributeError(f"tpufem_torch.{name} is not ported yet "
+                             f"(ROADMAP {_NOT_PORTED[name]})")
+    raise AttributeError(f"module 'tpufem_torch' has no attribute {name!r}")

@@ -1,19 +1,28 @@
 """Batch-trailing P1 element kernels on triangles (2D) and tetrahedra (3D),
-as in tpufem.assemble.planar: coordinates are nested lists Xviews[t][n][d]
-of [*cell_grid] planes, so a structured grid passes zero-copy slices of its
-node-coordinate grid; the cell type follows from the number of coordinates.
+as in tpufem.assemble.planar.  Everything is stored batch-trailing:
+
+    coords   X  [T, npe, dim, *grid]    (T = element types per cell)
+    stiffness K [T, npe, npe, *grid]
+    loads    b  [T, npe, *grid]
+
+``element_coords_bt`` gathers X from a structured mesh on the host;
+``p1_stiffness_bt`` and ``element_load_bt`` compute on X, and their
+``*_views`` forms on nested lists Xviews[t][n][d] of [*cell_grid] planes,
+so a structured grid passes zero-copy slices of its node-coordinate grid.
 The planes may be numpy arrays (the one-cell stiffness of the analytic
 multigrid hierarchy, float64) or torch tensors (the host build behind
-``solve_poisson_fast(use_fused=False)``, and ``p1_gradients`` in the plain
-versions of the fused builds)."""
+``solve_poisson_fast(use_fused=False)``, the plain version of B13, and
+``p1_gradients`` in the plain versions of the fused builds)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from tpufem_torch.fem.elements import P1Tetrahedron, P1Triangle
+from tpufem_torch.fem.elements import element_for_cell
+from tpufem_torch.fem.quadrature import QuadratureRule
 
-__all__ = ["element_coord_views", "element_load_views", "p1_gradients",
+__all__ = ["element_coords_bt", "p1_stiffness_bt", "element_load_bt",
+           "element_coord_views", "element_load_views", "p1_gradients",
            "p1_stiffness_views"]
 
 
@@ -23,9 +32,40 @@ def _stack(planes):
     return np.stack(planes)
 
 
-# reference-cell measure by dimension: triangle 1/2, tetrahedron 1/6
-_REF_VOLUME = {2: 0.5, 3: 1.0 / 6.0}
-_ELEMENT = {2: P1Triangle, 3: P1Tetrahedron}
+_REF_VOLUME = {"triangle": 0.5, "tetrahedron": 1.0 / 6.0}
+_CELL = {2: "triangle", 3: "tetrahedron"}
+
+
+def element_coords_bt(mesh, dtype=np.float32) -> np.ndarray:
+    """[T, npe, dim, *cell_grid] element coordinates (host numpy), plane
+    [t, n, d] holding coordinate d of node n of the type-t elements on the
+    cell grid (the generators enumerate cell-major, T interleaved)."""
+    info = mesh.structured
+    if info is None:
+        raise ValueError("mesh has no structured-grid metadata")
+    ec = mesh.element_coords().reshape(*info.cell_grid, info.num_types,
+                                       mesh.nodes_per_element, mesh.dim)
+    g = len(info.cell_grid)
+    perm = (g, g + 1, g + 2) + tuple(range(g))
+    return np.ascontiguousarray(np.transpose(ec, perm), dtype=dtype)
+
+
+def _views(X):
+    T, npe, dim = X.shape[0], X.shape[1], X.shape[2]
+    return [[[X[t, n, d] for d in range(dim)] for n in range(npe)]
+            for t in range(T)]
+
+
+def p1_stiffness_bt(X, cell_type: str):
+    """X [T, npe, dim, *B] -> Ke [T, npe, npe, *B] (P1 Poisson stiffness)."""
+    return p1_stiffness_views(_views(X), cell_type)
+
+
+def element_load_bt(X, cell_type: str, rule: QuadratureRule, f_planes):
+    """X [T, npe, dim, *B] -> be [T, npe, *B]:
+    b_a = sum_q w_q phi_a(q) f(x_q) |det J|; ``f_planes(*coords)`` takes
+    dim coordinate planes and returns one plane."""
+    return element_load_views(_views(X), cell_type, rule, f_planes)
 
 
 def _det_inv_2x2(J):
@@ -59,7 +99,7 @@ def p1_gradients(Xt):
     tensors; dim 2 or 3) -> (G [dim+1][dim] planes of d phi_n / d x_d,
     signed det J plane)."""
     dim = len(Xt[0])
-    if dim not in _REF_VOLUME or len(Xt) != dim + 1:
+    if dim not in _CELL or len(Xt) != dim + 1:
         raise NotImplementedError("P1 kernels take triangles or tetrahedra")
     J = [[Xt[m][d] - Xt[dim][d] for m in range(dim)] for d in range(dim)]
     det, inv = (_det_inv_2x2 if dim == 2 else _det_inv_3x3)(J)
@@ -68,14 +108,22 @@ def p1_gradients(Xt):
     return G, det
 
 
-def p1_stiffness_views(Xviews):
+def _check_cell(Xviews, cell_type: str) -> int:
+    dim = len(Xviews[0][0])
+    if _CELL.get(dim) != cell_type:
+        raise ValueError(f"cell_type {cell_type!r} with {dim}D coordinates "
+                         "(P1 triangles or tetrahedra)")
+    return dim
+
+
+def p1_stiffness_views(Xviews, cell_type: str):
     """Xviews[t][n][d] of [*B] planes -> Ke [T, npe, npe, *B] (P1 Poisson
     stiffness on triangles or tetrahedra)."""
-    dim = len(Xviews[0][0])
+    dim = _check_cell(Xviews, cell_type)
     out_t = []
     for Xt in Xviews:
         G, det = p1_gradients(Xt)
-        vol = abs(det) * _REF_VOLUME[dim]
+        vol = abs(det) * _REF_VOLUME[cell_type]
         npe = len(G)
         out_t.append(_stack([
             _stack([sum(G[a][d] * G[b][d] for d in range(dim)) * vol
@@ -83,11 +131,12 @@ def p1_stiffness_views(Xviews):
     return _stack(out_t)
 
 
-def element_load_views(Xviews, rule, f_planes):
+def element_load_views(Xviews, cell_type: str, rule: QuadratureRule,
+                       f_planes):
     """Xviews[t][n][d] of [*B] planes -> be [T, npe, *B]:
     b_a = sum_q w_q phi_a(q) f(x_q) |det J| (P1 triangles or tetrahedra)."""
-    dim = len(Xviews[0][0])
-    phi = _ELEMENT[dim]().shape_values(rule.points)
+    dim = _check_cell(Xviews, cell_type)
+    phi = element_for_cell(cell_type, 1).shape_values(rule.points)
     w = rule.weights
     out_t = []
     for Xt in Xviews:

@@ -17,11 +17,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpufem_torch.mesh.core import StructuredInfo
-from tpufem_torch.sparse.stencil import StencilMatrix
+from tpufem_torch.mesh.core import Mesh, StructuredInfo
+from tpufem_torch.sparse.stencil import StencilMatrix, StencilPattern
 
-__all__ = ["StructuredPlan", "structured_plan",
-           "assemble_stencil_structured_bt", "assemble_vector_structured_bt"]
+__all__ = ["StructuredPlan", "structured_plan", "assemble_stencil_structured",
+           "assemble_vector_structured", "assemble_stencil_structured_bt",
+           "assemble_vector_structured_bt", "stencil_pattern_structured"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -45,13 +46,13 @@ class StructuredPlan:
     def num_store_rows(self) -> int:
         return int(np.prod(self.store_grid))
 
-    def embed_field(self, flat: torch.Tensor) -> torch.Tensor:
-        """Node field [NN] -> storage field [num_store_rows], zero on the
-        border and padding (same device and dtype as ``flat``)."""
+    def embed_field(self, flat: torch.Tensor, fill=0) -> torch.Tensor:
+        """Node field [NN] -> storage field [num_store_rows], ``fill`` on
+        the border and padding (same device and dtype as ``flat``)."""
         ng = self.info.node_grid
         if not self.embedded:
             return flat.reshape(-1)
-        out = flat.new_zeros(self.store_grid)
+        out = flat.new_full(self.store_grid, fill)
         out[tuple(slice(1, 1 + n) for n in ng)] = flat.reshape(ng)
         return out.reshape(-1)
 
@@ -76,11 +77,13 @@ def _roundup(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def structured_plan(info: StructuredInfo, embed: bool = False
-                    ) -> StructuredPlan:
-    """Build the shift-invariant assembly plan of a structured grid."""
+def structured_plan(mesh_or_info, embed: bool = False) -> StructuredPlan:
+    """Build the shift-invariant assembly plan of a structured grid from a
+    Mesh (with structured metadata) or its StructuredInfo directly, which
+    lets large-grid callers skip the element connectivity."""
+    info = getattr(mesh_or_info, "structured", mesh_or_info)
     if not isinstance(info, StructuredInfo):
-        raise ValueError("structured_plan needs a StructuredInfo")
+        raise ValueError("mesh has no structured-grid metadata")
     off = info.type_node_offsets          # [T, npe, g]
     ng = info.node_grid
     g = len(ng)
@@ -129,12 +132,10 @@ def _padded(plane, shift, cell_grid, store_grid):
     return torch.nn.functional.pad(plane, pads)
 
 
-def assemble_stencil_structured_bt(plan: StructuredPlan, Ke_bt
-                                   ) -> StencilMatrix:
-    """Batch-trailing element matrices Ke_bt [T, npe, npe, *cell_grid]
-    (assemble.planar) -> StencilMatrix [K, num_store_rows]: each stencil
-    plane is the sum of its entries' shifted planes, added in the
-    reference's order."""
+def _sum_per_offset(plan: StructuredPlan, plane_of, like: torch.Tensor
+                    ) -> StencilMatrix:
+    """Stencil plane k = the sum of the shifted planes of its entries
+    (t, a, b), added in the reference's order (t, then a, then b)."""
     info = plan.info
     npe = info.type_node_offsets.shape[1]
     planes = [None] * plan.width
@@ -142,23 +143,68 @@ def assemble_stencil_structured_bt(plan: StructuredPlan, Ke_bt
         for a in range(npe):
             for b in range(npe):
                 k = int(plan.entry_k[t, a, b])
-                p = _padded(Ke_bt[t, a, b], plan.entry_shift[t, a, b],
+                p = _padded(plane_of(t, a, b), plan.entry_shift[t, a, b],
                             info.cell_grid, plan.store_grid)
                 planes[k] = p if planes[k] is None else planes[k] + p
-    zero = Ke_bt.new_zeros(plan.store_grid)
+    zero = like.new_zeros(plan.store_grid)
     data = torch.stack([zero if p is None else p for p in planes])
     return StencilMatrix(data.reshape(plan.width, -1), plan.offsets)
 
 
-def assemble_vector_structured_bt(plan: StructuredPlan, be_bt):
-    """Batch-trailing element loads be_bt [T, npe, *cell_grid] ->
-    RHS [num_store_rows]."""
+def _sum_vector(plan: StructuredPlan, plane_of) -> torch.Tensor:
     info = plan.info
     origin = plan.entry_shift[0, 0, 0] - info.type_node_offsets[0, 0]
     b = None
     for t in range(info.num_types):
         for a in range(info.type_node_offsets.shape[1]):
-            p = _padded(be_bt[t, a], info.type_node_offsets[t, a] + origin,
+            p = _padded(plane_of(t, a), info.type_node_offsets[t, a] + origin,
                         info.cell_grid, plan.store_grid)
             b = p if b is None else b + p
     return b.reshape(-1)
+
+
+def assemble_stencil_structured(plan: StructuredPlan,
+                                element_matrices: torch.Tensor
+                                ) -> StencilMatrix:
+    """Ke [NE, npe, npe] in generator order (cell-major, the T types
+    interleaved) -> StencilMatrix [K, num_store_rows] by shifted
+    slice-adds, no index arrays."""
+    info = plan.info
+    npe = info.type_node_offsets.shape[1]
+    KeT = element_matrices.reshape(*info.cell_grid, info.num_types, npe, npe)
+    return _sum_per_offset(plan, lambda t, a, b: KeT[..., t, a, b],
+                           element_matrices)
+
+
+def assemble_vector_structured(plan: StructuredPlan,
+                               element_vectors: torch.Tensor) -> torch.Tensor:
+    """be [NE, npe] in generator order -> RHS [num_store_rows]."""
+    info = plan.info
+    beT = element_vectors.reshape(*info.cell_grid, info.num_types,
+                                  info.type_node_offsets.shape[1])
+    return _sum_vector(plan, lambda t, a: beT[..., t, a])
+
+
+def assemble_stencil_structured_bt(plan: StructuredPlan, Ke_bt
+                                   ) -> StencilMatrix:
+    """Batch-trailing element matrices Ke_bt [T, npe, npe, *cell_grid]
+    (assemble.planar) -> StencilMatrix [K, num_store_rows]."""
+    return _sum_per_offset(plan, lambda t, a, b: Ke_bt[t, a, b], Ke_bt)
+
+
+def assemble_vector_structured_bt(plan: StructuredPlan, be_bt):
+    """Batch-trailing element loads be_bt [T, npe, *cell_grid] ->
+    RHS [num_store_rows]."""
+    return _sum_vector(plan, lambda t, a: be_bt[t, a])
+
+
+def stencil_pattern_structured(mesh: Mesh) -> StencilPattern:
+    """StencilPattern whose offsets match ``structured_plan(mesh)`` (for
+    boundary conditions and the diagonal); the offsets are derived from
+    the plan, and the slot tables are not built (None)."""
+    plan = structured_plan(mesh)
+    offsets = np.asarray(plan.offsets, dtype=np.int64)
+    return StencilPattern(offsets=offsets, slots=None, perm=None,
+                          sorted_slots=None,
+                          diag_k=int(np.searchsorted(offsets, 0)),
+                          num_rows=int(np.prod(plan.info.node_grid)))

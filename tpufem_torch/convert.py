@@ -18,7 +18,10 @@ feeds both packages the same operator and the same MG hierarchy:
   * ``bcsr_from_numpy``: an assembled BCSR matrix (data, cols, diagonal
     positions), optionally with the banded block plan that
     ``bcsr_band_plan_from_numpy`` carries over from the JAX package's
-    ``bcsr_band_plan`` (its plan and data_t).
+    ``bcsr_band_plan`` (its plan and data_t);
+  * ``stencil_pattern_from_numpy``: a ``StencilPattern`` (the index-based
+    stencil assembly plan; slot tables may be None, as the structured
+    pattern leaves them).
 
 The port rebuilds each structured plan from its StructuredInfo and checks
 it against the given store grid and offsets; a banded ELL plan is checked
@@ -35,12 +38,13 @@ from tpufem_torch.solve.multigrid import ConstMGLevel, MGLevel
 from tpufem_torch.sparse.bcsr import BCSRMatrix
 from tpufem_torch.sparse.ell import ELLMatrix
 from tpufem_torch.sparse.ell_cuda import ELLBandPlan
-from tpufem_torch.sparse.stencil import StencilMatrix
+from tpufem_torch.sparse.stencil import StencilMatrix, StencilPattern
 
 __all__ = ["system_from_numpy", "const_level_from_numpy",
            "const_hierarchy_from_numpy", "level_from_numpy",
            "hierarchy_from_numpy", "ell_from_numpy", "band_plan_from_numpy",
-           "bcsr_from_numpy", "bcsr_band_plan_from_numpy"]
+           "bcsr_from_numpy", "bcsr_band_plan_from_numpy",
+           "stencil_pattern_from_numpy"]
 
 
 def system_from_numpy(data, b, offsets, *, dtype=torch.float64,
@@ -228,3 +232,18 @@ def ell_from_numpy(data, cols, row_lengths=None, diag_pos=None, *,
             raise ValueError("band plan does not fit the matrix")
         A._band = tuple(band)
     return A
+
+
+def stencil_pattern_from_numpy(*, offsets, slots, perm, sorted_slots,
+                               diag_k, num_rows) -> StencilPattern:
+    """The port's StencilPattern from a JAX one's fields (numpy arrays, or
+    None for the slot tables of ``stencil_pattern_structured``)."""
+    def arr(a):
+        return None if a is None else np.array(a, dtype=np.int64)
+
+    offsets = arr(offsets)
+    if offsets is None or offsets[int(diag_k)] != 0:
+        raise ValueError("stencil pattern: offsets[diag_k] must be 0")
+    return StencilPattern(offsets=offsets, slots=arr(slots), perm=arr(perm),
+                          sorted_slots=arr(sorted_slots), diag_k=int(diag_k),
+                          num_rows=int(num_rows))

@@ -29,6 +29,11 @@ class QuadratureRule:
     def num_points(self) -> int:
         return self.weights.shape[0]
 
+    def barycentric(self) -> np.ndarray:
+        """[Q, dim+1] full barycentric coordinates (last = 1 - sum)."""
+        last = 1.0 - self.points.sum(axis=1, keepdims=True)
+        return np.concatenate([self.points, last], axis=1)
+
 
 def _tri7_exact() -> QuadratureRule:
     """The exact degree-5 7-point rule, in the reference's point order."""

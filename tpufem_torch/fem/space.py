@@ -3,7 +3,7 @@
 Ported: P1 Lagrange spaces, scalar (DOF = node index) and vector-valued
 (node-major, component-minor: the global DOF of node d, component c is
 ``d * num_components + c``, which keeps each node's block contiguous, as
-the BCSR format wants).  Degree 2 waits for the P2 elements (ROADMAP A5)
+the BCSR format wants).  Degree 2 waits for the P2 elements (ROADMAP A3)
 and raises.
 """
 from __future__ import annotations
@@ -35,7 +35,7 @@ class FunctionSpace:
         if self.degree != 1:
             raise NotImplementedError(
                 f"degree {self.degree}: the port has the P1 spaces (P2 "
-                "waits for its elements, ROADMAP A5)")
+                "waits for its elements, ROADMAP A3)")
         self.element = element_for_cell(self.mesh.cell_type, self.degree)
         mesh = self.mesh
         self.scalar_dof_conn = mesh.conn.copy()

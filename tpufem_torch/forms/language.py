@@ -208,7 +208,7 @@ class _Normal(Expr):
 
 def FacetNormal(space_or_mesh):  # noqa: N802 (UFL-style name)
     """The outward unit normal n on the boundary: valid only inside
-    boundary forms (which wait for fem/facets.py, ROADMAP A5)."""
+    boundary forms (which wait for fem/facets.py, ROADMAP A3)."""
     return _Normal()
 
 

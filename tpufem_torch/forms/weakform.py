@@ -20,10 +20,10 @@ only on its own coordinates, and every sum is an explicit left-to-right
 ``fsum`` (torch's reductions group rows by shape), so the chunking changes
 no bit.
 
-Ported: affine cells (triangles, tetrahedra), volume forms, the "dense"
-and "ell" formats and ``integrate``.  Boundary terms (``build_boundary``,
-``integrate_boundary``: they need ``fem/facets.py``), the "stencil" format
-and tensor-product cells wait for ROADMAP A5 and raise.
+Ported: affine cells (triangles, tetrahedra), volume forms, the "dense",
+"ell" and "stencil" formats and ``integrate``.  Boundary terms
+(``build_boundary``, ``integrate_boundary``: they need ``fem/facets.py``)
+and tensor-product cells wait for ROADMAP A3 and raise.
 """
 from __future__ import annotations
 
@@ -34,6 +34,8 @@ import torch
 
 from tpufem_torch.assemble.dense import assemble_dense, assemble_vector
 from tpufem_torch.assemble.ell import assemble_ell
+from tpufem_torch.assemble.structured import (assemble_stencil_structured,
+                                              structured_plan)
 from tpufem_torch.assemble.local import _inv_and_det
 from tpufem_torch.fem.elements import element_for_cell, is_affine_cell
 from tpufem_torch.fem.quadrature import QuadratureRule, rule_for_cell
@@ -47,8 +49,8 @@ __all__ = ["WeakForm", "EvalContext", "Function", "integrate",
 # one broadcast intermediate [A, B, chunk, Q, d, d] stays under this size
 _CHUNK_BYTES = 1 << 29
 
-_NOT_PORTED_A5 = ("boundary (facet) terms need fem/facets.py, which the "
-                  "port does not have yet (ROADMAP A5)")
+_NOT_PORTED_A3 = ("boundary (facet) terms need fem/facets.py, which the "
+                  "port does not have yet (ROADMAP A3)")
 
 
 def chunk_elements(space: FunctionSpace, rule: QuadratureRule,
@@ -163,7 +165,7 @@ def _geometry(ecoords, dN, space: FunctionSpace, rule, dtype):
     if not is_affine_cell(cell):
         raise NotImplementedError(
             f"{cell} cells (a Jacobian that varies over the cell) wait for "
-            "the quad/hex elements (ROADMAP A5)")
+            "the quad/hex elements (ROADMAP A3)")
     device = ecoords.device
     geo = element_for_cell(cell, 1)
     phi_geo = _table(geo.shape_values(rule.points), dtype, device)  # [Q, npe]
@@ -234,13 +236,13 @@ class WeakForm:
         return self
 
     def build_boundary(self, lhs=None, rhs=None, *, where=None):
-        raise NotImplementedError(_NOT_PORTED_A5)
+        raise NotImplementedError(_NOT_PORTED_A3)
 
     def boundary_element_matrices(self, setup=None):
-        raise NotImplementedError(_NOT_PORTED_A5)
+        raise NotImplementedError(_NOT_PORTED_A3)
 
     def boundary_element_vectors(self, setup=None):
-        raise NotImplementedError(_NOT_PORTED_A5)
+        raise NotImplementedError(_NOT_PORTED_A3)
 
     # -- element kernels -----------------------------------------------------
 
@@ -318,17 +320,23 @@ class WeakForm:
     # -- assembly ------------------------------------------------------------
 
     def assemble(self, format: str = "ell", pattern=None, pad_to=None):
-        """Assemble (A, b) on ``self.device``.  format in {"dense", "ell"};
-        "stencil" waits for ROADMAP A5."""
+        """Assemble (A, b) on ``self.device``.  format in {"dense", "ell",
+        "stencil"}; "stencil" (P1 scalar spaces on structured meshes) runs
+        the shift-invariant assembly into the StencilMatrix of
+        ``structured_plan(mesh)`` (node order, not embedded), the storage
+        that ``solve.bc.apply_dirichlet_stencil`` takes."""
         from tpufem_torch.mesh.adjacency import ell_pattern
 
-        if format == "stencil":
-            raise NotImplementedError(
-                "format='stencil' (the weak form on the shift-invariant "
-                "stencil) is not ported yet (ROADMAP A5)")
-        if format not in ("dense", "ell"):
+        if format not in ("dense", "ell", "stencil"):
             raise ValueError(f"unknown format {format!r}")
         space = self.space
+        if format == "stencil":
+            if getattr(space.mesh, "structured", None) is None:
+                raise ValueError("format='stencil' needs a structured mesh "
+                                 "(rectangle_mesh / box_mesh)")
+            if space.degree != 1 or space.num_components != 1:
+                raise ValueError("format='stencil' supports P1 scalar "
+                                 "spaces; use 'ell' otherwise")
         ecoords = torch.as_tensor(space.mesh.element_coords(),
                                   dtype=self.dtype, device=self.device)
         Ke = self.element_matrices(ecoords)
@@ -338,6 +346,9 @@ class WeakForm:
             b = assemble_vector(space.dof_conn, be, space.num_dofs)
         if format == "dense":
             return assemble_dense(space.dof_conn, Ke, space.num_dofs), b
+        if format == "stencil":
+            plan = structured_plan(space.mesh)
+            return assemble_stencil_structured(plan, Ke), b
         if pattern is None:
             if pad_to is None:
                 pad_to = 8 if space.mesh.dim == 2 else 16
@@ -365,5 +376,5 @@ def integrate(space: FunctionSpace, expr: Expr, *, quadrature=None,
 
 def integrate_boundary(space: FunctionSpace, expr: Expr, *, quadrature=None,
                        where=None, dtype=torch.float64, device="cuda"):
-    """∫_Γ expr ds: waits for fem/facets.py (ROADMAP A5)."""
-    raise NotImplementedError(_NOT_PORTED_A5)
+    """∫_Γ expr ds: waits for fem/facets.py (ROADMAP A3)."""
+    raise NotImplementedError(_NOT_PORTED_A3)

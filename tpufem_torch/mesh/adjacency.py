@@ -102,14 +102,17 @@ def reverse_cuthill_mckee(cols: np.ndarray, *,
 
 def _unique_pairs(conn: np.ndarray, num_nodes: int):
     """Sorted unique (row, col) pairs of the FEM sparsity pattern: every
-    element couples all of its nodes pairwise, self-pairs included."""
+    element couples all of its nodes pairwise, self-pairs included.
+    Returns (unique keys, their rows, their cols, every entry's key
+    row * num_nodes + col in element order)."""
     npe = conn.shape[1]
     c64 = conn.astype(np.int64)
     rows = np.repeat(c64, npe, axis=1).ravel()          # [NE*npe*npe]
     cols = np.tile(c64, (1, npe)).ravel()
     keys = rows * num_nodes + cols
     unique_keys = np.unique(keys)                        # sorted ascending
-    return unique_keys, unique_keys // num_nodes, unique_keys % num_nodes
+    return (unique_keys, unique_keys // num_nodes, unique_keys % num_nodes,
+            keys)
 
 
 def node_adjacency(conn: np.ndarray, num_nodes: int,
@@ -119,7 +122,7 @@ def node_adjacency(conn: np.ndarray, num_nodes: int,
     Returns (lengths [NN] int32, indices [NN, K] int32); padding slots hold
     the node's own index so gathers stay in bounds.
     """
-    _, urows, ucols = _unique_pairs(conn, num_nodes)
+    _, urows, ucols, _ = _unique_pairs(conn, num_nodes)
     lengths = np.bincount(urows, minlength=num_nodes).astype(np.int32)
     K = int(lengths.max()) if max_length is None else int(max_length)
     if lengths.max() > K:

@@ -12,7 +12,7 @@ Each cube cell is split into the 6 tetrahedra sharing the main diagonal
 the triangulation is conforming and shift-invariant (a fixed 15-point
 stencil in the interior).  The arithmetic is the reference's, so the
 coordinates, connectivity and flags are bit-identical to the JAX package's.
-``box_hex_mesh`` waits for the quad/hex cells (ROADMAP A5).
+``box_hex_mesh`` waits for the quad/hex cells (ROADMAP A3).
 """
 from __future__ import annotations
 

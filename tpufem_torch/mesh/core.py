@@ -97,3 +97,30 @@ class Mesh:
     def boundary_nodes(self) -> np.ndarray:
         """Indices of boundary-flagged nodes."""
         return np.nonzero(self.node_flags != 0)[0].astype(np.int32)
+
+    def interior_nodes(self) -> np.ndarray:
+        return np.nonzero(self.node_flags == 0)[0].astype(np.int32)
+
+    def print_mesh(self, file=None) -> None:
+        """Print nodes (index, coordinates, flag) and elements (node
+        indices), as the reference's parity helper does."""
+        import sys
+
+        out = file or sys.stdout
+        print(f"number of nodes = {self.num_nodes}", file=out)
+        for i in range(self.num_nodes):
+            xs = " ".join(repr(float(v)) for v in self.coords[i])
+            print(f"{i} {xs} {int(self.node_flags[i])}", file=out)
+        print(f"number of elements = {self.num_elements}", file=out)
+        for e in range(self.num_elements):
+            print(" ".join(str(int(n)) for n in self.conn[e]), file=out)
+
+    def neighbor_nodes_list(
+        self, max_length: Optional[int] = None
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Per-node sorted neighbour lists (self included), fixed width:
+        (lengths [NN] int32, indices [NN, max_length] int32), padding slots
+        holding the node's own index (mesh.adjacency.node_adjacency)."""
+        from tpufem_torch.mesh.adjacency import node_adjacency
+
+        return node_adjacency(self.conn, self.num_nodes, max_length)

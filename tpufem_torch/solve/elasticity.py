@@ -89,7 +89,7 @@ def solve_elasticity(mesh: Mesh, *, lam: float = 1.0, mu: float = 1.0,
     CG on ``BCSRMatrix.matvec`` (B12 banded where the bandwidth allows, its
     absolute-column mode otherwise).  ``precond``: None / "jacobi" is
     block-Jacobi; "amg" (solve/amg_block.py) is not ported yet (ROADMAP
-    A6) and raises.  ``interpret`` and ``aot`` (the TPU's interpret mode
+    A2) and raises.  ``interpret`` and ``aot`` (the TPU's interpret mode
     and executable cache) are not ported and raise when set.  Phase walls
     land in ``solution.walls``: host_pattern, element_matrices, assemble,
     band_plan, solve (each ending in a synchronize on the card).
@@ -101,7 +101,7 @@ def solve_elasticity(mesh: Mesh, *, lam: float = 1.0, mu: float = 1.0,
     if precond == "amg":
         raise NotImplementedError(
             'precond="amg" (the block smoothed-aggregation AMG of '
-            "solve/amg_block.py) is not ported yet (ROADMAP A6)")
+            "solve/amg_block.py) is not ported yet (ROADMAP A2)")
     if precond not in (None, "jacobi"):
         raise ValueError(f"unknown precond {precond!r}")
     if matvec not in ("gather", "pallas"):

@@ -182,7 +182,8 @@ def _uniform_cell_stiffness(domain, s: int, dim: int = 3) -> np.ndarray:
     lo, hi = domain
     h = (hi - lo) / s
     info1, coords_grid1, _ = _light_grid((lo, lo + h), 1, dim)
-    Ke = p1_stiffness_views(element_coord_views(coords_grid1, info1))
+    Ke = p1_stiffness_views(element_coord_views(coords_grid1, info1),
+                            "tetrahedron" if dim == 3 else "triangle")
     return Ke.reshape(Ke.shape[0], Ke.shape[1], Ke.shape[2])
 
 

@@ -118,7 +118,7 @@ def _setup(mesh: Mesh, f, dtype, device):
     if not is_affine_cell(mesh.cell_type):
         raise NotImplementedError(
             f"{mesh.cell_type} cells need the isoparametric weak-form path, "
-            "which the port does not have yet (ROADMAP A5)")
+            "which the port does not have yet (ROADMAP A3)")
     if f is None:
         f = model_problem_2d()[0] if mesh.dim == 2 else model_problem_3d()[0]
     space = FunctionSpace(mesh, degree=1)
@@ -168,14 +168,14 @@ def solve_poisson_ell(mesh: Mesh, f: Optional[Callable] = None, *,
 
     ``precond``: "jacobi" | "chebyshev" (degree-14 polynomial Jacobi,
     Gershgorin lmax); None falls back to the ``precondition`` bool
-    (Jacobi).  "amg" is not ported yet (ROADMAP A6).  With "chebyshev" or
+    (Jacobi).  "amg" is not ported yet (ROADMAP A2).  With "chebyshev" or
     "jacobi" the "pallas" path primes the banded plan explicitly (any
     bandwidth, honoring ``block_rows``).  Non-affine cells raise (the
-    weak-form path, ROADMAP A5).
+    weak-form path, ROADMAP A3).
     """
     if precond == "amg":
         raise NotImplementedError('precond="amg" (smoothed-aggregation AMG) '
-                                  "is not ported yet (ROADMAP A6)")
+                                  "is not ported yet (ROADMAP A2)")
     if precond not in (None, "jacobi", "chebyshev"):
         raise ValueError(f"unknown precond {precond!r}")
     if matvec not in ("gather", "pallas"):

@@ -64,9 +64,10 @@ def _host_system(plan, coords_grid, f_planes, rule, dtype, bc_mask, g_emb):
     into the stencil planes, then the Dirichlet elimination.  (A, b)."""
     Xv = element_coord_views(torch.as_tensor(coords_grid, dtype=dtype),
                              plan.info)
-    A = assemble_stencil_structured_bt(plan, p1_stiffness_views(Xv))
+    cell = "tetrahedron" if len(plan.info.node_grid) == 3 else "triangle"
+    A = assemble_stencil_structured_bt(plan, p1_stiffness_views(Xv, cell))
     b = assemble_vector_structured_bt(
-        plan, element_load_views(Xv, rule, f_planes))
+        plan, element_load_views(Xv, cell, rule, f_planes))
     return apply_dirichlet_stencil(A, b, bc_mask, g_emb)
 
 

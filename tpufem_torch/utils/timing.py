@@ -16,10 +16,22 @@ __all__ = ["PhaseTimer", "cuda_ms"]
 
 
 class PhaseTimer:
-    """Wall-clock phase timing: ``with timer("name"): ...``."""
+    """Wall-clock phase timing: ``with timer("name"): ...``, or
+    ``timer.start("name")`` ... ``timer.stop()``."""
 
     def __init__(self):
         self.phases: dict[str, float] = {}
+        self._t0 = None
+        self._name = None
+
+    def start(self, name: str):
+        self._name = name
+        self._t0 = time.perf_counter()
+        return self
+
+    def stop(self) -> float:
+        self.phases[self._name] = time.perf_counter() - self._t0
+        return self.phases[self._name]
 
     @contextlib.contextmanager
     def __call__(self, name: str):
