@@ -59,6 +59,13 @@
      examples/saxpy_pallas.py's n = 524,288 and at n = 1,000,003, bit for
      bit and within 1e-4 of the example's golden values (library call:
      torch.add(y, x, alpha=a)).
+   - Sharded build: B8 on every stripe of the n=96 box with its interior
+     nodes jittered by +-0.15 h (fp32 and fp64, 1, 4 and 8 shards) and of
+     the n=62 box (fp32, 4 shards), against its plain version on the same
+     extended stripe; the stripes of build_poisson_system_sharded, joined,
+     must equal K1's planes and RHS bit for bit; at n=96, 4 shards, one
+     26-plane stripe is timed, and the four-launch build beside K1 (no
+     library call builds it).
 4. The paths, each driven with every launch count set to 0 just before it
    and read just after (the per-iteration times are taken after that):
    - main, n=96 (912,673 DOFs): fused build, const MG-PCG (nu1 = nu2 = 1)
@@ -141,7 +148,23 @@
    - reduction: examples/reduction_bench.py (reduce_sum, B14 with block =
      n / 8, segment_reduce over 1000 segments) on 64 MB, each within 1e-5
      of the fp64 host sum; B14 must launch;
-   - saxpy: examples/saxpy_pallas.py, max |err| < 1e-4; B15 must launch.
+   - saxpy: examples/saxpy_pallas.py, max |err| < 1e-4; B15 must launch;
+   - dist_assembly, n=96 (912,673 DOFs), interior nodes jittered by +-0.15
+     h (default_rng(0), as scripts/dist_assembly_hw.py), fp32, 4 z-stripe
+     shards of 26 store planes on the one card: build_poisson_system_sharded
+     launches B8 exactly 4 times and K1 never, its stripes equal K1's
+     build bit for bit; solve_poisson_dist_general (Jacobi halo CG, tol
+     1e-6) converges to within 1e-4 of the single-card Jacobi cg on K1's
+     operator (tests/test_dist_assembly.py's gate), and its counts at 1
+     and 8 shards are printed; then n=62, 4 shards (250,047 DOFs, the TPU
+     record's size) converges within 167 iterations (the TPU's 152 + 10%);
+   - dist_mg: solve_poisson_dist at n=104 in 3D (1,157,625 DOFs), fp64, 8
+     shards on the card, the manufactured solution of
+     tests/test_dist_mg.py (seed 3), tol 1e-9: converged in fewer than 30
+     iterations, error below 1e-7, at least 2 distributed levels;
+   - dryrun: the port's dryrun_multichip(8) on the card (stages 1, 2, 3,
+     5, 6 of __graft_entry__.py with their asserts), stage 2 within one
+     iteration of MULTICHIP_r05.json's 13; B8 launched 8 times.
 
 The second-to-last line is the kernels' JSON record (launches summed over
 the paths), the last line {"ok": true, "device": {...}}.  Any failed check
@@ -165,6 +188,9 @@ N_JACOBI = 64      # with 2 levels the coarsest has 33^3 > 20,000 nodes
 N_2D = 1024
 N_SCALE = 384
 N_ROUTED = 64      # blocked kernels with the routing threshold at 0
+N_DIST_TPU = 62    # scripts/dist_assembly_hw.py: the TPU record's size
+DIST_TPU_MAXITER = 167   # its 152 iterations plus 10% (fp32 dot order)
+N_DIST_MG = 104    # tests/test_dist_mg.py: 105^3 = 1,157,625 DOFs
 DOMAIN = (-3.0, 3.0)
 FIELD_TOL = {"float32": 1e-5, "float64": 1e-12}   # x max|plain|
 DOT_TOL = 1e-4                                    # relative
@@ -225,6 +251,7 @@ def main() -> int:
     _check_bcsr(dev, records)
     _check_assembly(dev, records)
     _check_reduction_saxpy(dev, records)
+    _check_dist_assembly(dev, records)
     print(f"# check phase {time.perf_counter() - t0:.1f} s")
     _paths(dev, records)
     print(f"# all phases {time.perf_counter() - t0:.1f} s")
@@ -275,6 +302,9 @@ _KERNELS = {
             "tpufem_torch/csrc/reduction.cu", "tpufem/ops/reduction.py:49"),
     "B15": ("saxpy", "tpufem_torch/csrc/saxpy.cu",
             "examples/saxpy_pallas.py:23"),
+    "B8": ("fused_system_stripe (build_poisson_system_sharded's build of "
+           "one z-stripe shard)", "tpufem_torch/csrc/fused_system.cu",
+           "tpufem/dist/assembly.py:96"),
 }
 
 
@@ -305,7 +335,8 @@ def _counters():
             "B12g": (ell_cuda.bcsr_gather_matvec_cuda, "launches"),
             "B13": (assemble_cuda.assemble_stencil_cuda, "launches"),
             "B14": (reduction.block_reduce, "launches"),
-            "B15": (saxpy_cuda.saxpy, "launches")}
+            "B15": (saxpy_cuda.saxpy, "launches"),
+            "B8": (fused_system_cuda.build_poisson_stripe, "launches")}
 
 
 def _record(records, key):
@@ -1252,19 +1283,20 @@ def _run_path(name, counters, records, drive, must_launch):
         after()
 
 
-def _per_iteration(name, pcg10):
-    """Per MG-PCG iteration of a 10-iteration run: the time as issued (CUDA
-    events around the run; host launch overhead included), the device busy
-    time (the run's kernel durations summed, torch.profiler) and the kernel
-    launches.  Events with the stream queued ahead would overstate the
-    device time of a run with more launches than the launch queue holds."""
+def _per_iteration(name, pcg10, iters=10, reps=5):
+    """Per MG-PCG iteration of a 10-iteration run (``iters``: the run's
+    iterations): the time as issued (CUDA events around the run; host
+    launch overhead included), the device busy time (the run's kernel
+    durations summed, torch.profiler) and the kernel launches.  Events with
+    the stream queued ahead would overstate the device time of a run with
+    more launches than the launch queue holds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from tpufem_torch.utils.timing import cuda_ms
 
-    iter_ms = cuda_ms(pcg10, reps=5, queue_ahead=False) / 10
-    queued_ms = cuda_ms(pcg10, reps=5) / 10
+    iter_ms = cuda_ms(pcg10, reps=reps, queue_ahead=False) / iters
+    queued_ms = cuda_ms(pcg10, reps=reps) / iters
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         pcg10()
@@ -1273,8 +1305,8 @@ def _per_iteration(name, pcg10):
                       if e.device_type.name == "CUDA"),
                      key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in kernels)
-    busy_ms = busy_us / 1e3 / 10
-    launches = sum(e.count for e in kernels) / 10
+    busy_ms = busy_us / 1e3 / iters
+    launches = sum(e.count for e in kernels) / iters
     print(f"# {name} pcg: {iter_ms:.4f} ms/iteration as issued, "
           f"{busy_ms:.4f} ms/iteration device busy, device idle share "
           f"{1.0 - busy_ms / iter_ms:.3f}, {launches:.1f} kernel launches "
@@ -1283,8 +1315,8 @@ def _per_iteration(name, pcg10):
     # device time by kernel (the same profiled run), largest first
     for e in kernels:
         print(f"# {name} pcg kernel: {e.self_device_time_total / busy_us:6.1%}"
-              f" {e.self_device_time_total / 1e3 / 10:.4f} ms/iteration "
-              f"{e.count / 10:6.1f} launches/iteration  {e.key[:90]}")
+              f" {e.self_device_time_total / 1e3 / iters:.4f} ms/iteration "
+              f"{e.count / iters:6.1f} launches/iteration  {e.key[:90]}")
 
 
 def _rel_err(u, ue):
@@ -1526,6 +1558,11 @@ def _paths(dev, records):
               lambda: _drive_reduction(dev), ("B14",))
     _run_path("saxpy", counters, records, lambda: _drive_saxpy(dev),
               ("B15",))
+    _run_path("dist_assembly", counters, records,
+              lambda: _drive_dist_assembly(dev), ("B8", "K1", "K2"))
+    _run_path("dist_mg", counters, records, lambda: _drive_dist_mg(dev), ())
+    _run_path("dryrun", counters, records, lambda: _drive_dryrun(dev),
+              ("B8",))
 
 
 def _fp32_bf16_counts(name, levels, mv, mvd, b):
@@ -2618,6 +2655,292 @@ def _drive_saxpy(dev):
     err = float(np.abs(out.cpu().numpy() - expected).max())
     print(f"# saxpy n={N_SAXPY}: max |err| = {err}")
     check(err < 1e-4, f"saxpy: max |err| {err}")
+
+
+# -- the multi-device path (tpufem_torch.dist) --------------------------------
+
+def _perturbed_coords(n, dtype, dev, jitter=0.15):
+    """(plan, C_emb on the card) of the box with n cells a side, interior
+    nodes jittered uniformly by +-jitter h from default_rng(0), as
+    scripts/dist_assembly_hw.py makes them."""
+    import numpy as np
+    import torch
+
+    from tpufem_torch.ops.fused_system_cuda import \
+        node_coords_embedded_from_grid
+    from tpufem_torch.solve import multigrid as mg
+
+    info, coords, bc = mg._light_grid(DOMAIN, n)
+    plan = _plan(n)
+    h = (DOMAIN[1] - DOMAIN[0]) / n
+    pert = np.random.default_rng(0).uniform(-jitter * h, jitter * h,
+                                            size=coords.shape)
+    coords = coords + np.where(~np.broadcast_to(bc, coords.shape), pert, 0.0)
+    return plan, torch.as_tensor(node_coords_embedded_from_grid(
+        coords, plan, dtype), device=dev)
+
+
+def _extended_stripes(C, shards):
+    """[(C_ext, zbase)] of each z-stripe: its planes and one neighbour
+    plane on each side, zeros past the grid's ends (built here apart from
+    dist.assembly's ring exchange)."""
+    import torch
+
+    depth = C.shape[1] // shards
+    zero = torch.zeros_like(C[:, :1])
+    out = []
+    for i in range(shards):
+        z = i * depth
+        lo = C[:, z - 1:z] if i > 0 else zero
+        hi = C[:, z + depth:z + depth + 1] if i < shards - 1 else zero
+        out.append((torch.cat([lo, C[:, z:z + depth], hi], 1).contiguous(),
+                    z))
+    return out
+
+
+def _check_dist_assembly(dev, records):
+    """B8 at n=96 (fp32 and fp64; 1, 4 and 8 shards) and at n=62 (fp32, 4
+    shards): each stripe against its plain version on the same extended
+    stripe, and the stripes that build_poisson_system_sharded gives,
+    joined, against K1's planes and RHS bit for bit.  At the main shape
+    (n=96, 4 shards, one 26-plane stripe) B8, its plain version and the
+    four-launch build are timed beside K1; no library call builds it."""
+    import numpy as np
+    import torch
+
+    from tpufem_torch.dist.assembly import build_poisson_system_sharded
+    from tpufem_torch.dist.mesh import make_mesh, unshard
+    from tpufem_torch.fem.quadrature import tetrahedron_rule
+    from tpufem_torch.ops.fused_system_cuda import (
+        build_poisson_stripe, build_poisson_stripe_plain,
+        build_poisson_system)
+    from tpufem_torch.solve.poisson import model_problem_3d_planes
+    from tpufem_torch.utils.timing import cuda_ms
+
+    f, rule = model_problem_3d_planes(), tetrahedron_rule(2)
+    for n, dtype, shard_counts in ((N_MAIN, np.float32, (1, 4, 8)),
+                                   (N_MAIN, np.float64, (1, 4, 8)),
+                                   (N_DIST_TPU, np.float32, (4,))):
+        plan, C = _perturbed_coords(n, dtype, dev)
+        name = np.dtype(dtype).name
+        A, b = build_poisson_system(plan, C, f, rule)
+        for shards in shard_counts:
+            label = f"n={n} {name} {shards} shards"
+            mesh = make_mesh(shards, ("z",), device=dev)
+            data, rhs = build_poisson_system_sharded(plan, C, mesh, f, rule)
+            same = (torch.equal(unshard(data), A.data)
+                    and torch.equal(unshard(rhs), b))
+            print(f"# check B8 {label}: stripes joined equal K1's planes "
+                  f"and RHS bit for bit: {same}")
+            check(same, f"B8 {label}: the stripes differ from K1's build")
+            main = n == N_MAIN and dtype == np.float32 and shards == 4
+            for i, (Cx, z) in enumerate(_extended_stripes(C, shards)):
+                timed = main and i == 1
+                cells = plan.info.cell_grid
+                _compare(records, "B8", f"{label} stripe {i}",
+                         lambda: build_poisson_stripe(plan, Cx, z, f, rule),
+                         lambda: build_poisson_stripe_plain(plan, Cx, z, f,
+                                                            rule),
+                         timed=timed,
+                         work=([Cx], 6 * cells[1] * cells[2] * (
+                             Cx.shape[1] - 2) * _ELEMENT_FLOPS[3], name))
+                plain_same = all(torch.equal(o, r) for o, r in zip(
+                    build_poisson_stripe(plan, Cx, z, f, rule),
+                    build_poisson_stripe_plain(plan, Cx, z, f, rule)))
+                if i == 0 or timed:
+                    print(f"# check B8 {label} stripe {i}: bit for bit "
+                          f"against its plain version: {plain_same}")
+            if main:
+                build_ms = cuda_ms(lambda: build_poisson_system_sharded(
+                    plan, C, mesh, f, rule), reps=REPS)
+                k1_ms = cuda_ms(lambda: build_poisson_system(plan, C, f,
+                                                             rule), reps=REPS)
+                print(f"# B8 {label}: the four-launch build (halo planes, "
+                      f"4 stripes) {build_ms:.4f} ms, K1's whole build "
+                      f"{k1_ms:.4f} ms (device, queued ahead; K1 at n=96 "
+                      f"above: {records['K1']['ms']:.4f} ms)")
+            del data, rhs
+        del A, b, C
+        torch.cuda.empty_cache()
+
+
+def _drive_dist_assembly(dev):
+    """The slice's path at the main path's size: n=96 (912,673 DOFs),
+    interior nodes jittered by +-0.15 h, fp32, 4 z-stripe shards of 26
+    store planes on the card.  build_poisson_system_sharded launches B8
+    exactly 4 times and K1 never, and its stripes equal K1's build bit for
+    bit; solve_poisson_dist_general (Jacobi halo CG, tol 1e-6) converges
+    to within 1e-4 of the single-card Jacobi cg on K1's operator; the same
+    solve at 1 and 8 shards; then n=62, 4 shards (the TPU record's size,
+    250,047 DOFs) within DIST_TPU_MAXITER iterations."""
+    import numpy as np
+    import torch
+
+    from tpufem_torch.dist.assembly import (build_poisson_system_sharded,
+                                            solve_poisson_dist_general)
+    from tpufem_torch.dist.cg import stencil_cg_sharded
+    from tpufem_torch.dist.mesh import make_mesh, unshard
+    from tpufem_torch.fem.quadrature import tetrahedron_rule
+    from tpufem_torch.ops.fused_system_cuda import (build_poisson_stripe,
+                                                    build_poisson_system)
+    from tpufem_torch.ops.stencil_cuda import stencil_apply
+    from tpufem_torch.solve.cg import cg
+    from tpufem_torch.solve.poisson import model_problem_3d_planes
+    from tpufem_torch.utils.timing import PhaseTimer
+
+    f, rule = model_problem_3d_planes(), tetrahedron_rule(2)
+    timer = PhaseTimer()
+    with timer("host_coords"):
+        plan, C = _perturbed_coords(N_MAIN, np.float32, dev)
+        torch.cuda.synchronize()
+    mesh4 = make_mesh(4, ("z",))
+    check(all(d.type == "cuda" for d in mesh4.device_list), f"mesh: {mesh4}")
+    b8, k1 = build_poisson_stripe.launches, build_poisson_system.launches
+    with timer("sharded_build"):
+        data, rhs = build_poisson_system_sharded(plan, C, mesh4, f, rule)
+        torch.cuda.synchronize()
+    b8 = build_poisson_stripe.launches - b8
+    k1 = build_poisson_system.launches - k1
+    print(f"# dist_assembly build (n={N_MAIN}, 4 shards of "
+          f"{plan.store_grid[0] // 4} planes): B8 launches {b8}, K1 "
+          f"launches {k1}")
+    check(b8 == 4 and k1 == 0, f"dist_assembly: B8 {b8}, K1 {k1} launches")
+    A, b = build_poisson_system(plan, C, f, rule)
+    same = (torch.equal(unshard(data), A.data)
+            and torch.equal(unshard(rhs), b))
+    print(f"# dist_assembly stripes equal K1's planes and RHS bit for bit: "
+          f"{same}")
+    check(same, "dist_assembly: the stripes differ from K1's build")
+
+    counts = {}
+    for shards in (4, 1, 8):
+        with timer(f"solve_{shards}_shards"):
+            u, res = solve_poisson_dist_general(
+                plan, C, make_mesh(shards, ("z",)), f, rule, tol=1e-6,
+                maxiter=4000)
+            torch.cuda.synchronize()
+        counts[shards] = res.iterations
+        check(res.converged, f"dist_assembly {shards} shards: not converged "
+                             f"({res.iterations}, "
+                             f"{float(res.residual_norm):.3e})")
+        if shards == 4:
+            u4, res4 = u, res
+    d = A.data[plan.offsets.index(0)]
+    inv_d = torch.where(d != 0, 1.0 / d, 1.0)
+    with timer("single_card_cg"):
+        ref = cg(lambda v: stencil_apply(A.data, v, plan.offsets), b,
+                 tol=1e-6, maxiter=4000, M=lambda r: r * inv_d)
+        torch.cuda.synchronize()
+    u_ref = plan.extract_field(ref.x).double().cpu().numpy()
+    rel = float(np.linalg.norm(u4 - u_ref) / np.linalg.norm(u_ref))
+    print(f"# dist_assembly solve (n={N_MAIN}, fp32, Jacobi halo CG to "
+          f"1e-6): {counts[4]} iterations at 4 shards, relres "
+          f"{float(res4.residual_norm):.3e}; {counts[1]} at 1 shard, "
+          f"{counts[8]} at 8; the single-card cg on K1's operator "
+          f"{ref.iterations}; rel diff of u {rel:.3e}")
+    check(ref.converged and rel <= 1e-4,
+          f"dist_assembly: u differs from the single-card solve by {rel:.3e}")
+
+    plan62, C62 = _perturbed_coords(N_DIST_TPU, np.float32, dev)
+    with timer("solve_n62_4_shards"):
+        _, res62 = solve_poisson_dist_general(
+            plan62, C62, mesh4, f, rule, tol=1e-6, maxiter=4000)
+        torch.cuda.synchronize()
+    print(f"# dist_assembly n={N_DIST_TPU} "
+          f"({int(np.prod(plan62.info.node_grid)):,} DOFs), 4 shards: "
+          f"{res62.iterations} iterations, relres "
+          f"{float(res62.residual_norm):.3e} (TPU, one-device mesh: 152; "
+          f"gate {DIST_TPU_MAXITER})")
+    check(res62.converged and res62.iterations <= DIST_TPU_MAXITER,
+          f"dist_assembly n={N_DIST_TPU}: {res62.iterations} iterations, "
+          f"converged {res62.converged}")
+    print("# dist_assembly phases (s, wall clock ending in a synchronize): "
+          + json.dumps({k: round(v, 4) for k, v in timer.report().items()}))
+
+    def pcg10():
+        return stencil_cg_sharded(data, plan.offsets, rhs, mesh4,
+                                  axis_name="z", tol=0.0, maxiter=10)
+
+    return lambda: _per_iteration("dist_assembly", pcg10)
+
+
+def _drive_dist_mg(dev):
+    """The reference's million-DOF claim (README, tests/test_dist_mg.py):
+    solve_poisson_dist at n=104 in 3D (1,157,625 DOFs), fp64, 8 shards on
+    the card, a manufactured solution (seed 3), tol 1e-9, maxiter 60:
+    converged in fewer than 30 iterations, error below 1e-7, at least 2
+    distributed levels."""
+    import numpy as np
+    import torch
+
+    from tpufem_torch.dist import multigrid as dm
+    from tpufem_torch.dist.mesh import make_mesh
+    from tpufem_torch.utils.timing import PhaseTimer
+
+    n = N_DIST_MG
+    timer = PhaseTimer()
+    mesh8 = make_mesh(8, ("z",))
+    with timer("host_hierarchy"):
+        levels = dm.build_dist_hierarchy(DOMAIN, n, 3, 8, dtype=np.float64)
+    n_dist = sum(lv.distributed for lv in levels)
+    fine = levels[0]
+    ng = fine.node_grid
+    zp = fine.data.shape[1]
+    xt = np.random.default_rng(3).standard_normal(ng)
+    xt = np.where(fine.bc_mask[:ng[0]], 0.0, xt)
+    xt_p = np.pad(xt, [(0, zp - ng[0]), (0, 0), (0, 0)])
+    with timer("manufactured_rhs"):
+        b = dm.grid_stencil_matvec(
+            torch.as_tensor(fine.data, device=dev),
+            torch.as_tensor(xt_p, device=dev), fine.offsets_grid,
+            None)[:ng[0]].cpu().numpy()
+    with timer("solve"):
+        u, res = dm.solve_poisson_dist(DOMAIN, n, 3, mesh8, b.reshape(-1),
+                                       dtype=np.float64, tol=1e-9,
+                                       maxiter=60)
+        torch.cuda.synchronize()
+    err = float(np.linalg.norm(u - xt.reshape(-1)) / np.linalg.norm(xt))
+    print(f"# dist_mg (n={n}, {int(np.prod(ng)):,} DOFs, fp64, 8 shards, "
+          f"{len(levels)} levels, {n_dist} distributed): "
+          f"{res.iterations} iterations, relres "
+          f"{float(res.residual_norm):.3e}, error {err:.3e}; phases "
+          + json.dumps({k: round(v, 4) for k, v in timer.report().items()}))
+    check(n_dist >= 2, f"dist_mg: {n_dist} distributed levels")
+    check(res.converged and res.iterations < 30,
+          f"dist_mg: {res.iterations} iterations, converged "
+          f"{res.converged}")
+    check(err < 1e-7, f"dist_mg: error {err:.3e} >= 1e-7")
+
+    def after():
+        arrs = dm.put_hierarchy(levels, mesh8)
+        b_p = np.pad(b, [(0, zp - ng[0]), (0, 0), (0, 0)])
+        _per_iteration("dist_mg", lambda: dm.mgpcg_dist(
+            levels, arrs, b_p, mesh8, tol=0.0, maxiter=3), iters=3, reps=2)
+
+    return after
+
+
+def _drive_dryrun(dev):
+    """The port's dryrun_multichip(8) on the card: stages 1, 2, 3, 5 and 6
+    with the reference's asserts; stage 2 (fp64) within one iteration of
+    MULTICHIP_r05's 13; stage 3 launches B8 once per shard."""
+    from tpufem_torch.dist.dryrun import dryrun_multichip
+    from tpufem_torch.ops.fused_system_cuda import build_poisson_stripe
+
+    b8 = build_poisson_stripe.launches
+    out = dryrun_multichip(8)
+    b8 = build_poisson_stripe.launches - b8
+    reference = {"stencil_cg": 40, "dist_mg": 13, "dist_assembly": 31,
+                 "dist_bcsr": 72}
+    print("# dryrun iterations (MULTICHIP_r05.json, 8 virtual CPU devices, "
+          "in brackets): " + ", ".join(
+              f"{k} {out[k]['iterations']} ({v})"
+              for k, v in reference.items())
+          + f"; energy drift {out['dist_dynamics']['drift']:.3e}; B8 "
+          f"launches {b8}")
+    check(abs(out["dist_mg"]["iterations"] - 13) <= 1,
+          f"dryrun: stage 2 took {out['dist_mg']['iterations']} iterations")
+    check(b8 == 8, f"dryrun: B8 launched {b8} times, not 8")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""CUDA kernels K1-K4, B3-B5, B5b, B7, the ELL kernels B9-B11, the BCSR
-kernel B12, the fused assembly B13, the block sum B14 and SAXPY B15
+"""CUDA kernels K1-K4, B3-B5, B5b, B7, B8, the ELL kernels B9-B11, the
+BCSR kernel B12, the fused assembly B13, the block sum B14 and SAXPY B15
 against their plain PyTorch versions on the card.
 
 Every test here needs an NVIDIA GPU with nvcc (sm_90a) and skips without
@@ -768,3 +768,79 @@ def test_assemble_slice_on_the_card(dev):
     assert card.converged and card.iterations == cpu.iterations
     x, x_ref = card.x.cpu().numpy(), cpu.x.numpy()
     assert np.abs(x - x_ref).max() <= 1e-10 * np.abs(x_ref).max()
+
+
+def _perturbed_noncubic(dtype, dev):
+    """The non-cubic plan (store z 16) with its interior nodes jittered by
+    up to 0.15 of the smallest spacing (default_rng(0))."""
+    plan, coords = _noncubic_plan()
+    interior = np.zeros(plan.info.node_grid, bool)
+    interior[1:-1, 1:-1, 1:-1] = True
+    pert = np.random.default_rng(0).uniform(-0.075, 0.075, coords.shape)
+    coords = coords + np.where(interior, pert, 0.0)
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    return plan, torch.as_tensor(node_coords_embedded_from_grid(
+        coords, plan, np_dt), device=dev)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("rhs_mode", ["quadrature", "interp"])
+@pytest.mark.parametrize("shards", [1, 2, 4, 8])
+def test_stripe_kernel_equals_k1_and_matches_plain(dev, dtype, rhs_mode,
+                                                   shards):
+    """B8: the sharded build's stripes, joined, equal K1's planes and RHS
+    bit for bit (the same kernel body and order); each stripe is within a
+    few ulps of its plain version (FMA contraction, as K1's)."""
+    from tpufem_torch.dist.assembly import build_poisson_system_sharded
+    from tpufem_torch.dist.mesh import make_mesh, unshard
+
+    plan, C = _perturbed_noncubic(dtype, dev)
+    f, rule = model_problem_3d_planes(), tetrahedron_rule(2)
+    A, b = build_poisson_system(plan, C, f, rule, rhs_mode=rhs_mode)
+    before = fused_system_cuda.build_poisson_stripe.launches
+    data, rhs = build_poisson_system_sharded(
+        plan, C, make_mesh(shards, ("z",), device=dev), f, rule,
+        rhs_mode=rhs_mode)
+    assert fused_system_cuda.build_poisson_stripe.launches == before + shards
+    assert torch.equal(unshard(data), A.data)
+    assert torch.equal(unshard(rhs), b)
+    depth = plan.store_grid[0] // shards
+    zero = torch.zeros_like(C[:, :1])
+    for i in range(shards):
+        z = i * depth
+        Cx = torch.cat([C[:, z - 1:z] if i else zero, C[:, z:z + depth],
+                        C[:, z + depth:z + depth + 1] if i < shards - 1
+                        else zero], 1).contiguous()
+        d, r = fused_system_cuda.build_poisson_stripe_plain(
+            plan, Cx, z, f, rule, rhs_mode=rhs_mode)
+        # with several cards, shard i lies on card i % count
+        _close(data.shards[i].to(d.device), d, dtype)
+        _close(rhs.shards[i].to(r.device), r, dtype)
+
+
+def test_dist_pipeline_on_the_card_matches_cpu(dev):
+    """solve_poisson_dist_general and the distributed MG on a 4-shard mesh
+    on the card take the host mesh's iteration counts (fp64)."""
+    from tpufem_torch.dist.assembly import solve_poisson_dist_general
+    from tpufem_torch.dist.mesh import make_mesh
+    from tpufem_torch.dist.multigrid import solve_poisson_dist
+
+    mesh = make_mesh(4, ("z",))
+    assert all(d.type == "cuda" for d in mesh.device_list)
+    runs = []
+    for m, device in ((mesh, dev), (make_mesh(4, ("z",), device="cpu"),
+                                     torch.device("cpu"))):
+        plan, C = _perturbed_noncubic(torch.float64, device)
+        u, res = solve_poisson_dist_general(
+            plan, C, m, model_problem_3d_planes(), tetrahedron_rule(2),
+            tol=1e-10, maxiter=500)
+        b = np.random.default_rng(1).standard_normal(17 ** 3)
+        u_mg, res_mg = solve_poisson_dist((-3.0, 3.0), 16, 3, m, b,
+                                          dtype=np.float64, tol=1e-10,
+                                          maxiter=60)
+        runs.append((u, res, u_mg, res_mg))
+    (u, res, u_mg, res_mg), (u_c, res_c, u_mg_c, res_mg_c) = runs
+    assert res.converged and res.iterations == res_c.iterations
+    assert np.abs(u - u_c).max() <= 1e-10 * np.abs(u_c).max()
+    assert res_mg.converged and res_mg.iterations == res_mg_c.iterations
+    assert np.abs(u_mg - u_mg_c).max() <= 1e-10 * np.abs(u_mg_c).max()

@@ -1,7 +1,7 @@
 """Port hygiene: tpufem_torch never imports JAX or the JAX package, its
 root exports what the JAX package's does (as far as ported) without
 building a kernel, the ported members keep the reference's signatures, and
-on CPU tensors no wrapper launches a kernel (K1-K4, B4, B5, B9-B15)."""
+on CPU tensors no wrapper launches a kernel (K1-K4, B4, B5, B8-B15)."""
 import inspect
 import subprocess
 import sys
@@ -54,6 +54,12 @@ _PORT_MODULES = [
     "tpufem_torch.solve.elasticity", "tpufem_torch.assemble.stencil",
     "tpufem_torch.ops.assemble_cuda", "tpufem_torch.ops.reduction",
     "tpufem_torch.ops.saxpy_cuda",
+    "tpufem_torch.dist", "tpufem_torch.dist.mesh",
+    "tpufem_torch.dist.partition", "tpufem_torch.dist.stencil",
+    "tpufem_torch.dist.cg", "tpufem_torch.dist.assembly",
+    "tpufem_torch.dist.multigrid", "tpufem_torch.dist.ell",
+    "tpufem_torch.dist.dynamics", "tpufem_torch.dist.stencil2d",
+    "tpufem_torch.dist.dryrun",
     "chip_smoke",
 ]
 
@@ -70,7 +76,7 @@ _EXPORTS = [
 _NOT_PORTED = {
     "rectangle_quad_mesh": "A3", "box_hex_mesh": "A3",
     "greedy_element_coloring": "A3", "build_amg": "A2",
-    "build_block_amg": "A2", "build_dist_amg": "A6",
+    "build_block_amg": "A2", "build_dist_amg": "A2",
     "newton_krylov": "A4", "smallest_eigenpairs": "A4",
     "leapfrog_wave": "A4", "solve_stokes": "A4", "minres": "A4"}
 
@@ -291,3 +297,69 @@ def test_cpu_assembly_reduction_saxpy_launch_no_kernel():
     reduction.block_reduce(torch.ones(10))
     saxpy_cuda.saxpy(torch.ones(1), torch.ones(3), torch.ones(3))
     assert [fn.launches for fn in counters] == before
+
+
+# the reference's dist/* names the port keeps, by module; ``interpret`` is
+# the TPU's (Pallas interpret mode) and is not ported
+_DIST_NAMES = {
+    "partition": ("padded_size", "pad_rows"),
+    "stencil": ("halo_exchange", "sharded_stencil_matvec"),
+    "cg": ("stencil_cg_sharded", "distributed_stencil_solve"),
+    "assembly": ("build_poisson_system_sharded",
+                 "solve_poisson_dist_general"),
+    "multigrid": ("build_dist_hierarchy", "shard_specs", "put_hierarchy",
+                  "grid_stencil_matvec", "mgpcg_dist", "solve_poisson_dist"),
+    "ell": ("pad_identity_rows", "sharded_pcg_loop", "ell_partition",
+            "sharded_ell_matvec", "ell_cg_sharded", "distributed_ell_solve",
+            "bcsr_partition", "sharded_bcsr_matvec", "bcsr_cg_sharded",
+            "distributed_bcsr_solve"),
+    "dynamics": ("leapfrog_wave_sharded",),
+    "stencil2d": ("halo_exchange_grid", "grid_stencil_matvec_2d",
+                  "grid_cg_sharded_2d", "solve_grid_cg_2d"),
+}
+
+
+def test_dist_names_keep_the_reference_signatures():
+    import importlib
+
+    def shape(fn):
+        return [(p.name, p.kind, p.default)
+                for p in inspect.signature(fn).parameters.values()
+                if p.name != "interpret"]
+
+    for module, names in _DIST_NAMES.items():
+        port = importlib.import_module(f"tpufem_torch.dist.{module}")
+        ref = importlib.import_module(f"tpufem.dist.{module}")
+        for name in names:
+            assert shape(getattr(port, name)) == shape(getattr(ref, name)), \
+                f"{module}.{name}"
+    for module, cls in (("multigrid", "DistMGLevel"),
+                        ("ell", "ELLPartition"), ("ell", "BCSRPartition")):
+        port = getattr(importlib.import_module(f"tpufem_torch.dist.{module}"),
+                       cls)
+        ref = getattr(importlib.import_module(f"tpufem.dist.{module}"), cls)
+        assert shape(port) == shape(ref), cls
+
+
+def test_cpu_dist_path_launches_no_kernel():
+    """The sharded build on a host mesh runs B8's plain version: B8's and
+    K1's counters stay at their values; the mesh runs on the card unless
+    asked for the CPU."""
+    from tpufem_torch.assemble.structured import structured_plan
+    from tpufem_torch.dist.assembly import build_poisson_system_sharded
+    from tpufem_torch.dist.mesh import make_mesh
+    from tpufem_torch.fem.quadrature import tetrahedron_rule
+    from tpufem_torch.solve.multigrid import _light_grid
+
+    counters = (fused_system_cuda.build_poisson_stripe,
+                fused_system_cuda.build_poisson_system)
+    before = [fn.launches for fn in counters]
+    info, coords, _ = _light_grid((-1.0, 1.0), 6, 3)
+    plan = structured_plan(info, embed=True)
+    C = fused_system_cuda.node_coords_embedded_from_grid(coords, plan)
+    data, _ = build_poisson_system_sharded(
+        plan, C, make_mesh(4, ("z",), device="cpu"),
+        model_problem_3d_planes(), tetrahedron_rule(2))
+    assert all(s.device.type == "cpu" for s in data.shards)
+    assert [fn.launches for fn in counters] == before
+    assert inspect.signature(make_mesh).parameters["device"].default is None

@@ -17,8 +17,11 @@ Jacobi / Chebyshev PCG on the banded ELL kernel;
 (``forms.language``, ``forms.weakform``: volume forms on affine cells,
 dense, ELL and stencil assembly), unstructured linear elasticity (vector P1
 spaces, BCSR assembly, block-Jacobi PCG on the banded block kernel;
-``solve.elasticity.solve_elasticity``) and the reduction and SAXPY kernels
-(``ops.reduction``, ``ops.saxpy_cuda``).
+``solve.elasticity.solve_elasticity``), the reduction and SAXPY kernels
+(``ops.reduction``, ``ops.saxpy_cuda``) and the multi-device path
+(``dist``: a single-controller device mesh, the sharded halo CGs, the
+sharded fused build on kernel B8, the distributed multigrid; all of the
+JAX package's ``dist`` but its AMG).
 
 The package root exports the meshes, spaces, rules, ``cg`` and the matrix
 classes, and resolves the heavier entry points lazily, as the JAX
@@ -56,7 +59,7 @@ _LAZY = {
 _NOT_PORTED = {
     "rectangle_quad_mesh": "A3", "box_hex_mesh": "A3",
     "greedy_element_coloring": "A3", "build_amg": "A2",
-    "build_block_amg": "A2", "build_dist_amg": "A6",
+    "build_block_amg": "A2", "build_dist_amg": "A2",
     "newton_krylov": "A4", "smallest_eigenpairs": "A4",
     "leapfrog_wave": "A4", "solve_stokes": "A4", "minres": "A4",
 }

@@ -21,7 +21,11 @@ feeds both packages the same operator and the same MG hierarchy:
     ``bcsr_band_plan`` (its plan and data_t);
   * ``stencil_pattern_from_numpy``: a ``StencilPattern`` (the index-based
     stencil assembly plan; slot tables may be None, as the structured
-    pattern leaves them).
+    pattern leaves them);
+  * ``dist_levels_from_numpy``, ``ell_partition_from_numpy``,
+    ``bcsr_partition_from_numpy``: the multi-device state — a
+    ``DistMGLevel`` list, an ``ELLPartition``, a ``BCSRPartition`` (their
+    arrays as numpy, as the JAX package keeps them on the host).
 
 The port rebuilds each structured plan from its StructuredInfo and checks
 it against the given store grid and offsets; a banded ELL plan is checked
@@ -33,6 +37,8 @@ import numpy as np
 import torch
 
 from tpufem_torch.assemble.structured import structured_plan
+from tpufem_torch.dist.ell import BCSRPartition, ELLPartition
+from tpufem_torch.dist.multigrid import DistMGLevel
 from tpufem_torch.mesh.core import StructuredInfo
 from tpufem_torch.solve.multigrid import ConstMGLevel, MGLevel
 from tpufem_torch.sparse.bcsr import BCSRMatrix
@@ -44,7 +50,8 @@ __all__ = ["system_from_numpy", "const_level_from_numpy",
            "const_hierarchy_from_numpy", "level_from_numpy",
            "hierarchy_from_numpy", "ell_from_numpy", "band_plan_from_numpy",
            "bcsr_from_numpy", "bcsr_band_plan_from_numpy",
-           "stencil_pattern_from_numpy"]
+           "stencil_pattern_from_numpy", "dist_levels_from_numpy",
+           "ell_partition_from_numpy", "bcsr_partition_from_numpy"]
 
 
 def system_from_numpy(data, b, offsets, *, dtype=torch.float64,
@@ -247,3 +254,36 @@ def stencil_pattern_from_numpy(*, offsets, slots, perm, sorted_slots,
     return StencilPattern(offsets=offsets, slots=arr(slots), perm=arr(perm),
                           sorted_slots=arr(sorted_slots), diag_k=int(diag_k),
                           num_rows=int(num_rows))
+
+
+def dist_levels_from_numpy(levels) -> list:
+    """The port's ``DistMGLevel`` list from the JAX package's (its
+    ``build_dist_hierarchy``): the same global numpy arrays and metadata,
+    for ``dist.multigrid.put_hierarchy``."""
+    return [DistMGLevel(
+        data=np.array(lv.data), inv_diag=np.array(lv.inv_diag),
+        bc_mask=np.array(lv.bc_mask),
+        offsets_grid=tuple(tuple(int(v) for v in o)
+                           for o in lv.offsets_grid),
+        node_grid=tuple(int(v) for v in lv.node_grid),
+        local_planes=int(lv.local_planes), distributed=bool(lv.distributed),
+        coarse_inverse=(None if lv.coarse_inverse is None
+                        else np.array(lv.coarse_inverse)))
+        for lv in levels]
+
+
+def ell_partition_from_numpy(part) -> ELLPartition:
+    """The port's ``ELLPartition`` from the JAX package's."""
+    return ELLPartition(
+        data=np.array(part.data), rel=np.array(part.rel, dtype=np.int32),
+        inv_diag=np.array(part.inv_diag), halo=int(part.halo), n=int(part.n),
+        local_rows=int(part.local_rows), num_shards=int(part.num_shards))
+
+
+def bcsr_partition_from_numpy(part) -> BCSRPartition:
+    """The port's ``BCSRPartition`` from the JAX package's."""
+    return BCSRPartition(
+        data=np.array(part.data), rel=np.array(part.rel, dtype=np.int32),
+        inv_diag=np.array(part.inv_diag), halo=int(part.halo), n=int(part.n),
+        local_rows=int(part.local_rows), num_shards=int(part.num_shards),
+        block_size=int(part.block_size))

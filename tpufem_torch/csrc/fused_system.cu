@@ -20,6 +20,23 @@
 // (tpufem_fused_tables.h), as they were trace-time constants of the Pallas
 // kernel; every slot index is then a literal and the K accumulators stay in
 // registers.  Boundary masks come from the node indices.
+//
+// B8, the same build on one z-stripe of a sharded store grid, replaces
+// tpufem/dist/assembly.py::kern (the pallas_call of
+// build_poisson_system_sharded).  Input the stripe's coordinates extended
+// by one store plane on each side, C_ext [3, L + 2, S1, S2] (the halo
+// planes come from the ring neighbours; the global ends hold zeros);
+// outputs the stripe's data [K, L, S1, S2] and rhs [L, S1, S2].  The
+// stripe starts at global store plane zbase, so its row sz is node z =
+// zbase + sz - 1, and every mask (cell validity, the box boundary) is
+// taken on global indices; a cell below the first or above the last
+// plane is never valid, so the zero halo of an end shard is never read.
+// One plane of halo is all a row needs (its cells reach one plane either
+// way), against the TPU kernel's one z-block.  B8 is K1's kernel
+// instantiated with kStripe: the same tet_row and the same order, so P
+// stripes, concatenated, equal K1's planes bit for bit.  Bound as K1's:
+// bytes, the stripe's 3 extended coordinate planes in and K + 1 planes
+// out.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -103,20 +120,27 @@ __device__ __forceinline__ void tet_row(const T (&X)[4][3],
   racc += facc * adet;
 }
 
-template <typename T>
+// kStripe = false: K1 over the whole store grid (S0 planes, zbase 0).
+// kStripe = true: B8 over one stripe of S0 planes starting at global store
+// plane zbase, reading the extended stripe C [3, S0 + 2, S1, S2].
+template <typename T, bool kStripe>
 __global__ void __launch_bounds__(tpufem::kBlock)
 fused_system_kernel(const T* __restrict__ C, T* __restrict__ data,
                     T* __restrict__ rhs, int S0, int S1, int S2, int m0,
-                    int m1, int m2, int rhs_mode, int apply_bc) {
+                    int m1, int m2, int rhs_mode, int apply_bc, int zbase) {
   const long long ns = static_cast<long long>(S0) * S1 * S2;
+  // coordinate plane stride, and the extended index of global store
+  // plane 0 (the stripe's first plane sits at extended plane 1)
+  const long long nc = kStripe ? ns + 2LL * S1 * S2 : ns;
+  const long long c0 = kStripe ? (1LL - zbase) * S1 * S2 : 0;
   const long long idx = blockIdx.x * static_cast<long long>(blockDim.x) +
                         threadIdx.x;
   if (idx >= ns) return;
   const int sx = static_cast<int>(idx % S2);
   const int sy = static_cast<int>((idx / S2) % S1);
   const int sz = static_cast<int>(idx / (static_cast<long long>(S1) * S2));
-  // node indices of this row (cells run 0 <= c < m per axis)
-  const int nz = sz - 1, ny = sy - 1, nx = sx - 1;
+  // global node indices of this row (cells run 0 <= c < m per axis)
+  const int nz = (kStripe ? zbase : 0) + sz - 1, ny = sy - 1, nx = sx - 1;
 
   T acc[TPUFEM_K];
 #pragma unroll
@@ -128,8 +152,8 @@ fused_system_kernel(const T* __restrict__ C, T* __restrict__ data,
     const long long v = cell + (static_cast<long long>(z) * S1 + (y)) * S2 + \
                         (x);                                                \
     X[m][0] = C[v];                                                         \
-    X[m][1] = C[ns + v];                                                    \
-    X[m][2] = C[2 * ns + v];                                                \
+    X[m][1] = C[nc + v];                                                    \
+    X[m][2] = C[2 * nc + v];                                                \
   }
 #define TPUFEM_TA_TERM(t, a, za, ya, xa, z0, y0, x0, z1, y1, x1, z2, y2,    \
                        x2, z3, y3, x3, k0, k1, k2, k3)                      \
@@ -137,6 +161,7 @@ fused_system_kernel(const T* __restrict__ C, T* __restrict__ data,
     const int cz = nz - (za), cy = ny - (ya), cx = nx - (xa);               \
     if (cz >= 0 && cz < m0 && cy >= 0 && cy < m1 && cx >= 0 && cx < m2) {   \
       const long long cell =                                                \
+          c0 +                                                              \
           (static_cast<long long>(cz + 1) * S1 + (cy + 1)) * S2 + (cx + 1); \
       T X[4][3];                                                            \
       TPUFEM_VERTEX(0, z0, y0, x0)                                          \
@@ -175,13 +200,14 @@ fused_system_kernel(const T* __restrict__ C, T* __restrict__ data,
   rhs[idx] = racc;
 }
 
-template <typename T>
+template <typename T, bool kStripe>
 int launch(const T* C, T* data, T* rhs, int S0, int S1, int S2, int m0,
-           int m1, int m2, int rhs_mode, int apply_bc, void* stream) {
+           int m1, int m2, int rhs_mode, int apply_bc, int zbase,
+           void* stream) {
   const long long ns = static_cast<long long>(S0) * S1 * S2;
-  fused_system_kernel<T><<<tpufem::num_blocks(ns), tpufem::kBlock, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      C, data, rhs, S0, S1, S2, m0, m1, m2, rhs_mode, apply_bc);
+  fused_system_kernel<T, kStripe><<<tpufem::num_blocks(ns), tpufem::kBlock,
+                                    0, static_cast<cudaStream_t>(stream)>>>(
+      C, data, rhs, S0, S1, S2, m0, m1, m2, rhs_mode, apply_bc, zbase);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -194,15 +220,34 @@ extern "C" {
 int tpufem_fused_system_f32(const float* C, float* data, float* rhs, int S0,
                             int S1, int S2, int m0, int m1, int m2,
                             int rhs_mode, int apply_bc, void* stream) {
-  return launch<float>(C, data, rhs, S0, S1, S2, m0, m1, m2, rhs_mode,
-                       apply_bc, stream);
+  return launch<float, false>(C, data, rhs, S0, S1, S2, m0, m1, m2,
+                              rhs_mode, apply_bc, 0, stream);
 }
 
 int tpufem_fused_system_f64(const double* C, double* data, double* rhs,
                             int S0, int S1, int S2, int m0, int m1, int m2,
                             int rhs_mode, int apply_bc, void* stream) {
-  return launch<double>(C, data, rhs, S0, S1, S2, m0, m1, m2, rhs_mode,
-                        apply_bc, stream);
+  return launch<double, false>(C, data, rhs, S0, S1, S2, m0, m1, m2,
+                               rhs_mode, apply_bc, 0, stream);
+}
+
+// B8: C_ext [3, L + 2, S1, S2], data [K, L, S1, S2], rhs [L, S1, S2]; the
+// stripe's first plane is global store plane zbase; m0, m1, m2 are the
+// global cell counts.
+int tpufem_fused_system_stripe_f32(const float* C_ext, float* data,
+                                   float* rhs, int L, int S1, int S2,
+                                   int m0, int m1, int m2, int rhs_mode,
+                                   int apply_bc, int zbase, void* stream) {
+  return launch<float, true>(C_ext, data, rhs, L, S1, S2, m0, m1, m2,
+                             rhs_mode, apply_bc, zbase, stream);
+}
+
+int tpufem_fused_system_stripe_f64(const double* C_ext, double* data,
+                                   double* rhs, int L, int S1, int S2,
+                                   int m0, int m1, int m2, int rhs_mode,
+                                   int apply_bc, int zbase, void* stream) {
+  return launch<double, true>(C_ext, data, rhs, L, S1, S2, m0, m1, m2,
+                              rhs_mode, apply_bc, zbase, stream);
 }
 
 }  // extern "C"

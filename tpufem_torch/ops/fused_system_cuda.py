@@ -1,6 +1,7 @@
 """One-pass Poisson system builds: kernel K1 (3D P1 tetrahedra,
-csrc/fused_system.cu) and kernel B7 (2D P1 triangles,
-csrc/fused_system_2d.cu).
+csrc/fused_system.cu), kernel B7 (2D P1 triangles,
+csrc/fused_system_2d.cu) and kernel B8 (K1 on one z-stripe of a sharded
+store grid, csrc/fused_system.cu).
 
 K1 replaces tpufem/ops/fused_system_pallas.py::_kernel and B7 replaces
 ::_kernel_2d, the two paths of ``build_poisson_system_pallas``.  From the
@@ -8,7 +9,11 @@ embedded node coordinates each emits the stiffness stencil planes, the RHS
 load vector and the zero-Dirichlet elimination on the box boundary in one
 pass.  ``build_poisson_system`` takes either plan, as the reference's entry
 does, and counts K1's launches in ``build_poisson_system.launches`` and
-B7's in ``build_poisson_system.launches_2d``.
+B7's in ``build_poisson_system.launches_2d``.  B8 replaces
+tpufem/dist/assembly.py::kern: ``build_poisson_stripe`` builds the rows of
+one z-stripe from the stripe's coordinates extended by one plane on each
+side and its global first plane ``zbase``, and counts its launches in
+``build_poisson_stripe.launches`` (``dist.assembly`` calls it per shard).
 
 The Pallas kernels traced the Python RHS callable into their bodies.  A
 CUDA kernel cannot call Python, so the RHS function must carry a C
@@ -33,7 +38,8 @@ from tpufem_torch.ops._build import check_launch, load_library, stream_handle
 from tpufem_torch.sparse.stencil import StencilMatrix
 
 __all__ = ["node_coords_embedded_from_grid", "build_poisson_system",
-           "build_poisson_system_plain"]
+           "build_poisson_system_plain", "build_poisson_stripe",
+           "build_poisson_stripe_plain"]
 
 _RHS_MODES = {"quadrature": 0, "interp": 1}
 _P = ctypes.c_void_p
@@ -50,6 +56,11 @@ _MASS_DENOM = {3: 120.0, 2: 24.0}
 _SIGNATURES = {
     d: {_ENTRY[d] + sfx: (_P, _P, _P) + (_I,) * (2 * d + 2) + (_P,)
         for sfx in _SUFFIX.values()} for d in (2, 3)}
+# B8: C_ext, data, rhs, L, S1, S2, m0, m1, m2, rhs_mode, apply_bc, zbase,
+# stream
+_STRIPE_ENTRY = "tpufem_fused_system_stripe"
+_SIGNATURES[3].update({_STRIPE_ENTRY + sfx: (_P, _P, _P) + (_I,) * 9 + (_P,)
+                       for sfx in _SUFFIX.values()})
 
 
 def node_coords_embedded_from_grid(coords_grid: np.ndarray,
@@ -128,20 +139,25 @@ def _lib(plan, rule, c_expr):
                          tables_header(plan, rule, c_expr)})
 
 
-def _launch(plan, C_emb, f_planes, rule, apply_bc, rhs_mode):
-    """Launch K1 or B7 (by the plan's dimension) on C_emb's card."""
-    dim = _check_plan(plan)
+def _launch_lib(plan, C_emb, f_planes, rule, rhs_mode):
+    """The built library of the plan's kernel, after the launch checks."""
     if rhs_mode not in _RHS_MODES:
         raise ValueError(f"rhs_mode {rhs_mode!r}: quadrature | interp")
     c_expr = getattr(f_planes, "c_expr", None)
     if c_expr is None:
         raise ValueError("the CUDA system build needs an RHS function with "
                          "a C expression (solve.poisson.RhsFunction)")
-    sg = tuple(plan.store_grid)
     if C_emb.dtype not in _SUFFIX or not C_emb.is_contiguous():
         raise ValueError(f"fused build: C_emb {C_emb.dtype}, expected "
                          "contiguous float32/64")
-    lib = _lib(plan, rule, c_expr)
+    return _lib(plan, rule, c_expr)
+
+
+def _launch(plan, C_emb, f_planes, rule, apply_bc, rhs_mode):
+    """Launch K1 or B7 (by the plan's dimension) on C_emb's card."""
+    dim = _check_plan(plan)
+    sg = tuple(plan.store_grid)
+    lib = _launch_lib(plan, C_emb, f_planes, rule, rhs_mode)
     m = plan.info.cell_grid
     with torch.cuda.device(C_emb.device):
         data = torch.empty((plan.width,) + sg, dtype=C_emb.dtype,
@@ -193,25 +209,43 @@ def build_poisson_system_plain(plan: StructuredPlan, C_emb: torch.Tensor,
                                rhs_mode: str = "quadrature"):
     """Plain PyTorch version of K1 and B7: per-type element planes on the
     cell grid, slice-added into the stencil planes, then the elimination."""
+    _check_plan(plan)
+    data, rhs = _plain_rows(plan, C_emb, 0, 0, plan.store_grid[0], f_planes,
+                            rule, apply_bc, rhs_mode)
+    return StencilMatrix(data, plan.offsets), rhs
+
+
+def _plain_rows(plan, C, c_first, z0, depth, f_planes, rule, apply_bc,
+                rhs_mode):
+    """(data [K, depth * rest], rhs) of store planes [z0, z0 + depth) of
+    the leading axis, from coordinates C whose plane 0 is global store
+    plane ``c_first``.  Each element's values are those of the whole-grid
+    build and reach a row in the same (type, a, b) order, so any stripe
+    equals the same rows of the whole build bit for bit."""
     dim = _check_plan(plan)
     if rhs_mode not in _RHS_MODES:
         raise ValueError(f"rhs_mode {rhs_mode!r}: quadrature | interp")
     info = plan.info
-    sg = tuple(plan.store_grid)
+    sg = (depth,) + tuple(plan.store_grid[1:])
     m = info.cell_grid
     npe = dim + 1
-    dt, dev = C_emb.dtype, C_emb.device
+    dt, dev = C.dtype, C.device
     data = torch.zeros((plan.width,) + sg, dtype=dt, device=dev)
     rhs = torch.zeros(sg, dtype=dt, device=dev)
     phi = _ELEMENT[dim]().shape_values(rule.points)
     offs = info.type_node_offsets
+    # the cells whose rows (store plane c + 1 + o, o in {0, 1}) can fall in
+    # [z0, z0 + depth): their vertices lie in planes [z0 - 1, z0 + depth]
+    lo, hi = max(0, z0 - 2), min(m[0], z0 + depth - 1)
 
     def sl(o):
-        return tuple(slice(1 + int(o[d]), 1 + int(o[d]) + m[d])
-                     for d in range(dim))
+        return ((slice(lo + 1 + int(o[0]) - c_first,
+                       hi + 1 + int(o[0]) - c_first),)
+                + tuple(slice(1 + int(o[d]), 1 + int(o[d]) + m[d])
+                        for d in range(1, dim)))
 
-    for t in range(info.num_types):
-        Xt = [[C_emb[d][sl(offs[t, n])] for d in range(dim)]
+    for t in range(info.num_types if hi > lo else 0):
+        Xt = [[C[d][sl(offs[t, n])] for d in range(dim)]
               for n in range(npe)]
         G, det = p1_gradients(Xt)
         adet = det.abs()
@@ -229,17 +263,27 @@ def build_poisson_system_plain(plan: StructuredPlan, C_emb: torch.Tensor,
                 for a in range(npe):
                     facc[a] = facc[a] + fq * (float(w) * float(phi[q, a]))
         for a in range(npe):
-            rows = sl(offs[t, a])
+            # cells c in [lo, hi) land on local plane c + 1 + o - z0: keep
+            # those inside [0, depth)
+            first = lo + 1 + int(offs[t, a, 0]) - z0
+            c_lo, c_hi = max(0, -first), min(hi - lo, depth - first)
+            if c_hi <= c_lo:
+                continue
+            rows = ((slice(first + c_lo, first + c_hi),)
+                    + tuple(slice(1 + int(offs[t, a, d]),
+                                  1 + int(offs[t, a, d]) + m[d])
+                            for d in range(1, dim)))
             for b in range(npe):
                 k = int(plan.entry_k[t, a, b])
-                data[k][rows] += sum(G[a][d] * G[b][d]
-                                     for d in range(dim)) * vol
-            rhs[rows] += facc[a] * adet
+                data[k][rows] += (sum(G[a][d] * G[b][d] for d in range(dim))
+                                  * vol)[c_lo:c_hi]
+            rhs[rows] += (facc[a] * adet)[c_lo:c_hi]
 
     if apply_bc:
-        # node index of every store position, broadcast along its axis
-        node = [(torch.arange(sg[d], device=dev) - 1).view(
-            [-1 if ax == d else 1 for ax in range(dim)]) for d in range(dim)]
+        # global node index of every store position, broadcast along its axis
+        node = [(torch.arange(sg[d], device=dev) - 1 + (z0 if d == 0 else 0)
+                 ).view([-1 if ax == d else 1 for ax in range(dim)])
+                for d in range(dim)]
 
         def bc_of(idx):
             inside = torch.ones((), dtype=torch.bool, device=dev)
@@ -256,5 +300,61 @@ def build_poisson_system_plain(plan: StructuredPlan, C_emb: torch.Tensor,
             if not any(off):
                 data[k] = torch.where(bc_row, 1.0, data[k])
         rhs = torch.where(bc_row, 0.0, rhs)
-    return (StencilMatrix(data.reshape(plan.width, -1), plan.offsets),
-            rhs.reshape(-1))
+    return data.reshape(plan.width, -1), rhs.reshape(-1)
+
+
+def _check_stripe(plan, C_ext, zbase):
+    if _check_plan(plan) != 3:
+        raise NotImplementedError("the sharded fused build is 3D")
+    sg = tuple(plan.store_grid)
+    if C_ext.dim() != 4 or C_ext.shape[0] != 3 \
+            or tuple(C_ext.shape[2:]) != sg[1:] or C_ext.shape[1] < 3:
+        raise ValueError(f"stripe build: C_ext {tuple(C_ext.shape)}, "
+                         f"expected [3, L + 2, {sg[1]}, {sg[2]}]")
+    depth = C_ext.shape[1] - 2
+    if not 0 <= zbase <= sg[0] - depth:
+        raise ValueError(f"stripe build: planes [{zbase}, {zbase + depth}) "
+                         f"outside the store grid's {sg[0]}")
+    return depth
+
+
+def build_poisson_stripe(plan: StructuredPlan, C_ext: torch.Tensor,
+                         zbase: int, f_planes, rule: QuadratureRule, *,
+                         rhs_mode: str = "quadrature"):
+    """B8: (data [K, L * S1 * S2], rhs [L * S1 * S2]) of the eliminated
+    system's store planes [zbase, zbase + L), from C_ext [3, L + 2, S1,
+    S2], the coordinates of store planes [zbase - 1, zbase + L] (zeros
+    where those fall outside the grid).  On a CPU tensor the plain version
+    runs; on a CUDA tensor the kernel launches."""
+    depth = _check_stripe(plan, C_ext, int(zbase))
+    if C_ext.device.type == "cpu":
+        return build_poisson_stripe_plain(plan, C_ext, zbase, f_planes, rule,
+                                          rhs_mode=rhs_mode)
+    lib = _launch_lib(plan, C_ext, f_planes, rule, rhs_mode)
+    sg = tuple(plan.store_grid)
+    m = plan.info.cell_grid
+    with torch.cuda.device(C_ext.device):
+        data = torch.empty((plan.width, depth) + sg[1:], dtype=C_ext.dtype,
+                           device=C_ext.device)
+        rhs = torch.empty((depth,) + sg[1:], dtype=C_ext.dtype,
+                          device=C_ext.device)
+        status = getattr(lib, _STRIPE_ENTRY + _SUFFIX[C_ext.dtype])(
+            C_ext.data_ptr(), data.data_ptr(), rhs.data_ptr(), depth,
+            *sg[1:], *m, _RHS_MODES[rhs_mode], 1, int(zbase),
+            stream_handle())
+    check_launch(status, "fused_system_stripe")
+    build_poisson_stripe.launches += 1
+    return data.reshape(plan.width, -1), rhs.reshape(-1)
+
+
+build_poisson_stripe.launches = 0       # B8
+
+
+def build_poisson_stripe_plain(plan: StructuredPlan, C_ext: torch.Tensor,
+                               zbase: int, f_planes, rule: QuadratureRule,
+                               *, rhs_mode: str = "quadrature"):
+    """Plain PyTorch version of B8: K1's plain build on the extended stripe,
+    at the stripe's global offset."""
+    depth = _check_stripe(plan, C_ext, int(zbase))
+    return _plain_rows(plan, C_ext, int(zbase) - 1, int(zbase), depth,
+                       f_planes, rule, True, rhs_mode)
