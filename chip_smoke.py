@@ -41,10 +41,10 @@
      a seeded generator): B12 on 491,401 block rows (b = 2, K = 8, half
      bandwidth 701) in fp32 and fp64 with int16 (R = 1024, and its
      per_block route) and int32 (R = 11008) window indices, on 68,921 block
-     rows (b = 3, K = 16, R = 4096), and its absolute-column mode on
-     randomly numbered patterns of both shapes, fp32 and fp64 (the 3D
-     one is the BC correction's and the box6 gather's b = 3 build); every
-     output must equal the plain
+     rows (b = 3, K = 16, R = 4096), and B12g, the gather form's own
+     kernel, on randomly numbered patterns of both shapes, fp32 and fp64,
+     each timed beside BSR (the 3D one is the BC correction's and the
+     box6 gather's b = 3 build); every output must equal the plain
      version's bit for bit (no fused multiply-add, the reference's order),
      which the field tolerance above contains; the library call is torch's
      BSR product (its CSR expansion where BSR @ x does not run).
@@ -57,8 +57,9 @@
      block multiple, bit for bit against its plain version and within
      1e-5 of the fp64 host sum (library call: torch.sum); B15 at
      examples/saxpy_pallas.py's n = 524,288 and at n = 1,000,003, bit for
-     bit and within 1e-4 of the example's golden values (library call:
-     torch.add(y, x, alpha=a)).
+     bit and within 1e-4 of the example's golden values, and at the
+     bandwidth-sized n = 2^26 (805.3 MB moved) on random data, bit for
+     bit, timed (library call: torch.add(y, x, alpha=a)).
    - Sharded build: B8 on every stripe of the n=96 box with its interior
      nodes jittered by +-0.15 h (fp32 and fp64, 1, 4 and 8 shards) and of
      the n=62 box (fp32, 4 shards), against its plain version on the same
@@ -120,8 +121,9 @@
      true relative residual <= 1e-5, the fp32 solution within 1e-4 of
      the fp64 one and its own true relative residual within the drift
      limit (see _elasticity_pair; _drift_witness prints what it rests
-     on); then matvec="gather" on the random numbering (B12's
-     absolute-column mode) converges; B12 and its absolute mode must
+     on); then matvec="gather" on the random numbering (B12g, the gather
+     form's kernel) converges, and its 10-iteration block-Jacobi PCG is
+     timed per iteration like the banded one's; B12 and B12g must
      launch;
    - elasticity_3d: the same on the n = 40 box (206,763 DOFs, b = 3,
      block_rows 4096);
@@ -293,9 +295,9 @@ _KERNELS = {
     "B12": ("bcsr_spmv (with its per_block route, "
             "tpufem/sparse/ell_pallas.py:582)", "tpufem_torch/csrc/bcsr.cu",
             "tpufem/sparse/ell_pallas.py:548"),
-    "B12g": ("bcsr_spmv absolute-column mode (the gather form of BCSRMatrix "
-             "and the Dirichlet correction)", "tpufem_torch/csrc/bcsr.cu",
-             "tpufem/sparse/ell_pallas.py:548"),
+    "B12g": ("bcsr_gather_spmv (the gather form of BCSRMatrix and the "
+             "Dirichlet correction; redesigned with staged tiles)",
+             "tpufem_torch/csrc/bcsr.cu", "tpufem/sparse/ell_pallas.py:548"),
     "B13": ("assemble_stencil", "tpufem_torch/csrc/assemble.cu",
             "tpufem/ops/assemble_pallas.py:88"),
     "B14": ("block_reduce (pallas_block_reduce)",
@@ -1247,8 +1249,7 @@ def _check_bcsr(dev, records):
                      lambda: ec.bcsr_gather_matvec_plain(data, rcols, xn),
                      timed=True,
                      work=([data, rcols, xn], 2 * k * b * b * n, dt),
-                     library=(_library_bcsr(data, rcols, xn, False)
-                              if dtype == torch.float32 else None))
+                     library=_library_bcsr(data, rcols, xn, False))
             del rcols
             del data, x
         del data32, cols, x32, plans
@@ -2172,9 +2173,28 @@ def _drive_elasticity(dev):
           + f", wall {wall:.2f} s; ||u_gather - u_pallas|| / ||u_pallas|| "
           f"{du:.4e}")
     check(solg.cg.converged, "elasticity gather: not converged")
-    del solg
+    after = _after_elasticity("elasticity", sol, mesh, 1024, dev)
 
-    return _after_elasticity("elasticity", sol, mesh, 1024, dev)
+    def after_both():
+        after()
+        _gather_per_iteration("elasticity gather", solg.A, dev)
+
+    return after_both
+
+
+def _gather_per_iteration(name, A, dev):
+    """The per-iteration numbers of the gather form: 10 fixed iterations of
+    block-Jacobi PCG on the node-major operator (B12g once per iteration),
+    a random rhs."""
+    import torch
+
+    from tpufem_torch.solve.cg import cg_fixed
+    from tpufem_torch.solve.precond import block_jacobi
+
+    M = block_jacobi(A.diagonal_blocks())
+    gen = torch.Generator(device=dev).manual_seed(9)
+    b = torch.randn(A.shape[0], generator=gen, device=dev, dtype=A.dtype)
+    _per_iteration(name, lambda: cg_fixed(A.matvec, b, 10, M=M))
 
 
 def _after_elasticity(name, sol, mesh, block_rows, dev):
@@ -2334,6 +2354,7 @@ def _drive_weakform(dev):
 _ASSEMBLE_FLOPS = 171
 N_REDUCE = 64 * 1024 * 1024 // 4     # examples/reduction_bench.py: 64 MB
 N_SAXPY = 32 * 128 * 128             # examples/saxpy_pallas.py
+N_SAXPY_BIG = 1 << 26                 # B15 at a bandwidth-sized n
 
 
 def _embedded_coords(n_or_dims, dev):
@@ -2428,6 +2449,7 @@ def _check_reduction_saxpy(dev, records):
 
     for label, n in (("n = 524,288 fp32", N_SAXPY),
                      ("n = 1,000,003 fp32", 1_000_003)):
+        # the example's data: x = arange, y = 2 x, a = 5.1
         a = torch.tensor([5.1], dtype=torch.float32, device=dev)
         x = torch.arange(n, dtype=torch.float32, device=dev)
         y = x * 2.0
@@ -2445,7 +2467,19 @@ def _check_reduction_saxpy(dev, records):
               f"example's golden {err}")
         check(same and err < 1e-4, f"B15 {label}: bit for bit {same}, "
                                    f"golden error {err}")
-    del x32
+    # bandwidth-sized: random data (arange is not exact in fp32 past 2^24)
+    n = N_SAXPY_BIG
+    a = torch.tensor([5.1], dtype=torch.float32, device=dev)
+    x, y = (torch.rand(n, generator=gen, device=dev) for _ in range(2))
+    alpha = a.item()
+    _compare(records, "B15", "n = 2^26 fp32 (805.3 MB moved)",
+             lambda: saxpy(a, x, y), lambda: saxpy_plain(a, x, y),
+             timed=True, work=([a, x, y], 2 * n, "float32"),
+             library=lambda: (lambda: torch.add(y, x, alpha=alpha)))
+    same = torch.equal(saxpy(a, x, y), saxpy_plain(a, x, y))
+    print(f"# check B15 n = 2^26 fp32: bit for bit {same}")
+    check(same, "B15 n = 2^26: differs from its plain version")
+    del x, y, x32
     torch.cuda.empty_cache()
 
 

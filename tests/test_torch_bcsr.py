@@ -260,3 +260,79 @@ def test_bcsr_from_numpy_carries_the_jax_matrix():
     with pytest.raises(ValueError, match="does not fit"):
         bcsr_from_numpy(data[:300], cols[:300] % 300,
                         band=bcsr_band_plan_from_numpy(ref_plan, ref_dt))
+
+
+def _order_case(seed, nr, k, b):
+    """fp32 blocks and x spread over eight decades with random signs, so
+    that each product's rounding and each sum's order show in the bits."""
+    rng = np.random.default_rng(seed)
+    spread = lambda shape: (rng.choice([-1.0, 1.0], shape)
+                            * 10.0 ** rng.uniform(-4, 4, shape))
+    data = spread((nr, k, b, b)).astype(np.float32)
+    cols = rng.integers(0, nr, (nr, k)).astype(np.int32)
+    x = spread(nr * b).astype(np.float32)
+    return data, cols, x
+
+
+@pytest.mark.parametrize("b, k", [(2, 8), (3, 16)])
+def test_gather_plain_sums_slot_then_component(b, k):
+    """B12g's plain version sums y[i, c] slot k outer, then source component
+    d, each product and each sum rounded to fp32 on its own: a numpy loop
+    in that order gives the same bits, and the inputs are such that the
+    other order (d outer) and a pairwise sum do not."""
+    nr = 500
+    data, cols, x = _order_case(11 + k, nr, k, b)
+    xb = x.reshape(nr, b)
+    ref = np.zeros((nr, b), np.float32)
+    for kk in range(k):
+        g = xb[cols[:, kk]]
+        for d in range(b):
+            ref = ref + data[:, kk, :, d] * g[:, d, None]
+    y = ell_cuda.bcsr_gather_matvec_plain(torch.as_tensor(data),
+                                          torch.as_tensor(cols),
+                                          torch.as_tensor(x))
+    assert y.dtype == torch.float32
+    np.testing.assert_array_equal(y.numpy(), ref.reshape(-1))
+    other = np.zeros((nr, b), np.float32)
+    for d in range(b):
+        for kk in range(k):
+            other = other + data[:, kk, :, d] * xb[cols[:, kk], d][:, None]
+    assert (other != ref).any()
+    pairwise = (data * xb[cols][:, :, None, :]).sum((1, 3), dtype=np.float32)
+    assert (pairwise != ref).any()
+
+
+@pytest.mark.parametrize("k", [1, 3, 7, 8, 16, 24, 32, 64, 160])
+@pytest.mark.parametrize("itemsize, b", [(4, 2), (4, 3), (8, 2), (8, 3)],
+                         ids=["f32b2", "f32b3", "f64b2", "f64b3"])
+def test_gather_tiling_fits_two_stages_in_shared_memory(itemsize, b, k):
+    """Every B12g tiling the port picks holds its ring of two buffers
+    within a block's 227 KB, leaves room for a second block on the SM, and
+    stays within the kernel's 384 threads; each span's region holds its
+    bytes at any 16-byte phase, padding included; the tile is the largest
+    whose stage fits 24 KB where one does."""
+    rows, smem = ell_cuda.bcsr_gather_tiling(itemsize, b, k)
+    assert rows in (128, 64, 32, 16, 8, 4) and rows * b <= 384
+    assert smem <= 232448 and 2 * (smem + 1024) <= 233472
+
+    def stage(r):
+        return (ell_cuda._span_region(r * k * b * b * itemsize)
+                + ell_cuda._span_region(r * k * 4))
+
+    assert smem == 2 * stage(rows)
+    if stage(rows) <= 24 * 1024 and rows < 128 and 2 * rows * b <= 384:
+        assert stage(2 * rows) > 24 * 1024
+    vals = rows * k * b * b * itemsize
+    region = ell_cuda._span_region(vals)
+    # the last byte of a span that starts 15 bytes into a chunk
+    last = 15 + vals - 1
+    assert (last // 16) * 16 + (last // 128) * 16 + last % 16 < region
+    assert region % 16 == 0
+
+
+def test_gather_tiling_matches_the_measured_tiles():
+    """The tiles at the paths' shapes: 128 rows (2D fp32), 64 (2D fp64),
+    32 (3D fp32) and 16 (3D fp64)."""
+    assert [ell_cuda.bcsr_gather_tiling(i, b, k)[0]
+            for i, b, k in ((4, 2, 8), (8, 2, 8), (4, 3, 16), (8, 3, 16))
+            ] == [128, 64, 32, 16]

@@ -602,6 +602,86 @@ def test_bcsr_gather_kernel_matches_plain(dev, dtype, b):
     assert torch.equal(y, ell_cuda.bcsr_gather_matvec_plain(data, cols, xf))
 
 
+def _gather_rows(dtype, b, k, case):
+    """The row counts of the B12g cases: none, one, a tile less or more one
+    (B12g's tiling of this shape), the 2D elasticity path's 491,401."""
+    from tpufem_torch.sparse import ell_cuda
+
+    tile = ell_cuda.bcsr_gather_tiling(
+        torch.empty((), dtype=dtype).element_size(), b, k)[0]
+    return {"none": 0, "one": 1, "tile-1": tile - 1, "tile+1": tile + 1,
+            "491401": 491401}[case]
+
+
+def _gather_case(dev, dtype, b, k, nr, numbering, seed):
+    """Random data [nr, k, b, b], int32 cols [nr, k] (anywhere, or within
+    300 rows of the diagonal) and node-major x [nr b], on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if numbering == "random":
+        cols = torch.randint(0, max(nr, 1), (nr, k), generator=g, device=dev)
+    else:
+        cols = (torch.arange(nr, device=dev)[:, None] + torch.randint(
+            -300, 301, (nr, k), generator=g, device=dev)).clamp_(0, nr - 1)
+    data = torch.randn((nr, k, b, b), generator=g, device=dev, dtype=dtype)
+    x = torch.randn(nr * b, generator=g, device=dev, dtype=dtype)
+    return data, cols.to(torch.int32), x
+
+
+@pytest.mark.parametrize("numbering", ["random", "banded"])
+@pytest.mark.parametrize("rows", ["none", "one", "tile-1", "tile+1",
+                                  "491401"])
+@pytest.mark.parametrize("k", [8, 16])
+@pytest.mark.parametrize("b", [2, 3])
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_bcsr_gather_kernel_bit_equal_over_tiles(dev, dtype, b, k, rows,
+                                                 numbering):
+    """B12g equals its plain version bit for bit at every row count that
+    fills, misses or overruns its tiles, on both numberings."""
+    from tpufem_torch.sparse import ell_cuda
+
+    nr = _gather_rows(dtype, b, k, rows)
+    data, cols, x = _gather_case(dev, dtype, b, k, nr, numbering, nr + k)
+    before = ell_cuda.bcsr_gather_matvec_cuda.launches
+    y = ell_cuda.bcsr_gather_matvec_cuda(data, cols, x)
+    torch.cuda.synchronize()
+    assert ell_cuda.bcsr_gather_matvec_cuda.launches == before + 1
+    assert y.shape == (nr * b,)
+    assert torch.equal(y, ell_cuda.bcsr_gather_matvec_plain(data, cols, x))
+
+
+@pytest.mark.parametrize("k", [7, 16])
+@pytest.mark.parametrize("b", [2, 3])
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("off", ["data", "cols", "x", "all"])
+def test_bcsr_gather_kernel_on_views_off_16_bytes(dev, off, dtype, b, k):
+    """B12g on contiguous views that start off a 16-byte boundary (the
+    staged spans' scalar head and tail, x gathered element by element)
+    equals its plain version bit for bit; 7 slots leave rows whose bytes
+    are no 16-byte multiple and a slot loop remainder."""
+    from tpufem_torch.sparse import ell_cuda
+
+    nr = 3 * ell_cuda.bcsr_gather_tiling(
+        torch.empty((), dtype=dtype).element_size(), b, k)[0] + 5
+    data, cols, x = _gather_case(dev, dtype, b, k, nr, "random", 3)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        assert v.data_ptr() % 16 != 0
+        return v
+
+    if off in ("data", "all"):
+        data = shifted(data)
+    if off in ("cols", "all"):
+        cols = shifted(cols)
+    if off in ("x", "all"):
+        x = shifted(x)
+    y = ell_cuda.bcsr_gather_matvec_cuda(data, cols, x)
+    torch.cuda.synchronize()
+    assert torch.equal(y, ell_cuda.bcsr_gather_matvec_plain(data, cols, x))
+
+
 @pytest.mark.parametrize("kw", [dict(matvec="pallas"), dict()],
                          ids=["pallas", "gather"])
 @pytest.mark.parametrize("dim", [2, 3])
@@ -715,7 +795,7 @@ def test_reduction_kernel_matches_plain(dev, dtype, n, block):
 
 
 @pytest.mark.parametrize("dtype", _DTYPES)
-@pytest.mark.parametrize("n", [32 * 128 * 128, 1001])
+@pytest.mark.parametrize("n", [32 * 128 * 128, 1001, 0, 1, 3, 5, 1000003])
 def test_saxpy_kernel_matches_plain(dev, dtype, n):
     from tpufem_torch.ops.saxpy_cuda import saxpy, saxpy_plain
 
@@ -729,7 +809,26 @@ def test_saxpy_kernel_matches_plain(dev, dtype, n):
     np_dt = np.float32 if dtype == torch.float32 else np.float64
     expected = 5.1 * np.arange(n, dtype=np_dt) + 2.0 * np.arange(n,
                                                                 dtype=np_dt)
-    assert float(np.abs(out.cpu().numpy() - expected).max()) < 1e-4
+    assert float(np.abs(out.cpu().numpy() - expected).max(initial=0.0)) < 1e-4
+
+
+@pytest.mark.parametrize("n", [1001, 32 * 128 * 128])
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("xs, ys", [(1, 1), (3, 3), (1, 0), (0, 3), (1, 3)],
+                         ids=["x1y1", "x3y3", "x1", "y3", "x1y3"])
+def test_saxpy_kernel_on_views(dev, xs, ys, dtype, n):
+    """B15 on the views x[xs:], y[ys:] (a scalar head before x's first
+    16-byte boundary; y as vectors where it shares x's phase, element by
+    element where not) equals its plain version bit for bit."""
+    from tpufem_torch.ops.saxpy_cuda import saxpy, saxpy_plain
+
+    a = torch.tensor([5.1], dtype=dtype, device=dev)
+    x = (torch.arange(n + xs, dtype=dtype, device=dev) * 0.7)[xs:]
+    y = (torch.arange(n + ys, dtype=dtype, device=dev) * 2.0)[ys:]
+    out = saxpy(a, x, y)
+    torch.cuda.synchronize()
+    assert out.data_ptr() % 16 == x.data_ptr() % 16
+    assert torch.equal(out, saxpy_plain(a, x, y))
 
 
 def test_assemble_slice_on_the_card(dev):

@@ -115,3 +115,18 @@ def test_saxpy_plain_matches_the_examples_golden():
     with pytest.raises(ValueError, match="one type"):
         saxpy(a.double(), x, y)
 
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shift", [0, 1, 3])
+def test_saxpy_output_starts_at_the_inputs_16_byte_phase(dtype, shift):
+    """B15's wrapper allocates out at x's offset within 16 bytes, so that
+    the kernel moves x and out as aligned 16-byte vectors past one scalar
+    head; out is contiguous and shaped like x."""
+    from tpufem_torch.ops.saxpy_cuda import _empty_at_phase
+
+    x = torch.arange(1001 + shift, dtype=dtype)[shift:]
+    out = _empty_at_phase(x)
+    assert out.shape == x.shape and out.dtype == dtype
+    assert out.is_contiguous()
+    assert out.data_ptr() % 16 == x.data_ptr() % 16

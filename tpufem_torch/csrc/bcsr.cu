@@ -1,8 +1,9 @@
-// BCSR (block-ELL) sparse matrix-vector product: kernel B12, one template
-// on the value type T (float, double), the index type Idx (int16, int32)
-// and the block size B (2 in 2D, 3 in 3D elasticity).
+// BCSR (block-ELL) sparse matrix-vector product: kernel B12 on the banded
+// plan, and B12g, its absolute-column (gather) form.  Both are templates on
+// the value type T (float, double) and the block size B (2 in 2D, 3 in 3D
+// elasticity); B12 also on the window index type Idx (int16, int32).
 //
-// Replaces tpufem/sparse/ell_pallas.py::_block_kernel (B12) and its
+// B12 replaces tpufem/sparse/ell_pallas.py::_block_kernel and its
 // per-block delta-table twin ::_block_kernel_pb.  The banded plan of
 // bcsr_band_plan stores the matrix block-plane major, data_t[K, B, B, NP],
 // beside the node pattern's window-relative columns rel[K, NP] (B9's plan):
@@ -17,11 +18,7 @@
 // any column directly, so one launch serves both, and the per_block option
 // only selects the schedule the TPU needed.
 //
-// The same template with absolute columns (block_rows 0) serves the gather
-// form of BCSRMatrix: row-major data[NR, K, B, B], int32 cols[NR, K] and
-// node-major x / y [NR * B], summed in the same order.
-//
-// Bound on the card: bytes.  Per block row it reads K B^2 values and K
+// B12 bound on the card: bytes.  Per block row it reads K B^2 values and K
 // indices and writes B outputs; x is gathered within the RCM band (a window
 // of 3R nodes per block, and x fits the 50 MB L2), so it costs about one
 // read.  2D (B = 2) at 491,401 block rows, K = 8, R = 1024, fp32 with int16
@@ -34,11 +31,41 @@
 // gathers; no shared memory.  Only the n real rows are computed: their
 // columns lie in [0, n), and the padding rows up to NP are never read.
 //
+// B12g replaces the gather form of the reference's BCSRMatrix
+// (tpufem/sparse/bcsr.py:152-154, XLA's gather and reduce; the Pallas
+// kernel above is its banded counterpart).  It has no plan: row-major
+// data[NR, K, B, B], int32 cols[NR, K], node-major x / y [NR * B], the
+// columns anywhere.  Bound on the card: bytes, K B^2 values and K columns
+// per row, x and y once: 86.4 MB (2D, 491,401 rows, b = 2, K = 8, fp32),
+// 25.8 us at 3.35 TB/s; 45.7 MB (3D, 68,921 rows, b = 3, K = 16), 13.7 us.
+// A thread that owns a row and reads its K B^2 contiguous values on its
+// own (the earlier design) puts a warp's lanes a row apart: each load
+// touches 32 lines and uses 4 bytes of each sector, and the lines are
+// evicted from L1 before the row's later slots reuse them.  Design: a
+// persistent grid (blocks per SM as shared memory allows, at least two)
+// walks tiles of tile_rows consecutive rows.  A tile's values and its
+// columns are each one contiguous span; the whole block copies both into
+// shared memory with 16-byte cp.async (neighbouring threads on neighbouring
+// addresses; a span that does not start or end on 16 bytes copies its
+// partial first and last chunks element by element: the scalar head and
+// tail), in a ring of two buffers, so the next tile's copy is in flight
+// while one is reduced.  A tile holds about 24 KB, so four blocks share an
+// SM.  In shared memory 16 bytes of padding follow every 128, so rows a
+// 128-byte multiple apart do not share a bank.  Each thread then owns one
+// output y[row, c] (B threads a row, consecutive threads on consecutive
+// outputs, so y is written coalesced), gathers each slot's B source values
+// from L2 (one 8- or 16-byte access for B = 2), four slots ahead of their
+// use, and sums them in the plain version's order.  With a random
+// numbering each slot's gather is a 32-byte L2 sector of its own (3.9M at
+// the 2D shape), and those gathers, not the staged stream, take most of
+// the time above the bound: see PERF.md.
+//
 // Rounding: each product and each sum is rounded on its own (no fused
 // multiply-add), in the order above, so y equals the plain PyTorch
 // versions' bit for bit.
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 #include "common.cuh"
@@ -49,16 +76,14 @@ using tpufem::add_rn;
 using tpufem::mul_rn;
 using tpufem::window_base;
 
-// Element strides of one launch.  Banded: data (row 1, slot B*B*NP,
-// component NP), index (row 1, slot NP), block_rows R, x / y [B, n].
-// Absolute: data (row K*B*B, slot B*B, component 1), index (row K, slot 1),
-// block_rows 0, x / y node-major (component 1, node B).
+// Element strides of one launch: data (row 1, slot B*B*NP, component NP),
+// index (row 1, slot NP), block_rows R, x / y [B, n].
 struct BcsrLayout {
   long long rows;                    // block rows computed (n)
   int k;                             // slots per block row
   long long d_row, d_slot, d_comp;   // data: row, slot, component c*B+d
   long long i_row, i_slot;           // index: row, slot
-  long long block_rows;              // R of the banded plan; 0: absolute
+  long long block_rows;              // R of the banded plan
   long long x_comp, x_node;          // x: component, node
   long long y_comp, y_node;          // y: component, node
 };
@@ -93,7 +118,7 @@ bcsr_spmv(const T* __restrict__ data, const Idx* __restrict__ idx,
 template <typename T, typename Idx, int B>
 int launch(const void* data, const void* idx, const void* x, void* y,
            const BcsrLayout& l, void* stream) {
-  if (l.rows < 0 || l.k < 1 || l.block_rows < 0)
+  if (l.rows < 0 || l.k < 1 || l.block_rows < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (l.rows == 0) return static_cast<int>(cudaSuccess);
   bcsr_spmv<T, Idx, B>
@@ -104,13 +129,266 @@ int launch(const void* data, const void* idx, const void* x, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+// -- B12g: the gather form -------------------------------------------------
+
+constexpr int kGatherMaxThreads = 384;  // tile_rows * B
+constexpr int kGatherAhead = 4;         // slots gathered ahead of their use
+constexpr int kSmemPerBlock = 232448;   // 227 KB of dynamic shared memory
+constexpr int kSmemPerSM = 233472;      // 228 KB, 1 KB of it kept per block
+constexpr int kMaxDevices = 64;
+
+// Streaming multiprocessors of the current device, queried once per
+// device; 0 if the query fails.
+int multiprocessors() {
+  static int count[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return 0;
+  if (count[dev] == 0 &&
+      cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    count[dev] = 0;
+  return count[dev];
+}
+
+// Where byte o of a staged span's 16-byte window lies in shared memory: 16
+// bytes of padding after every 128.
+__host__ __device__ __forceinline__ int padded(int o) {
+  return o + ((o >> 7) << 4);
+}
+
+// Shared memory of a staged span of `bytes` bytes that may start anywhere
+// in a 16-byte chunk: its window of whole chunks, padded.  The wrapper's
+// bcsr_gather_tiling computes the same.
+__host__ __device__ __forceinline__ long long span_region(long long bytes) {
+  const long long window = (bytes + 30) / 16 * 16;
+  return window + (((window - 16) >> 7) << 4);
+}
+
+__device__ __forceinline__ unsigned smem_address(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes, L2 asked to fetch the whole 128-byte line (the span streams on)
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16;\n" ::"r"(
+                   smem_address(dst)),
+               "l"(src)
+               : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_small(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   smem_address(dst)),
+               "l"(src), "n"(N)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The whole block copies `bytes` bytes at src (E-byte elements) to dst in
+// the padded layout: byte o of src's 16-byte window to dst + padded(o).
+// Neighbouring threads take neighbouring chunks; a whole chunk is one
+// 16-byte copy, the partial first and last ones (a span off a 16-byte
+// boundary) go element by element: the scalar head and tail.
+template <int E>
+__device__ __forceinline__ void stage_span(char* dst, const char* src,
+                                           int bytes) {
+  const int head = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+  const char* window = src - head;
+  const int end = head + bytes;
+  for (int q = threadIdx.x; q < (end + 15) >> 4; q += blockDim.x) {
+    const int lo = q == 0 ? head : 0;
+    const int hi = min(16, end - (q << 4));
+    char* d = dst + padded(q << 4);
+    const char* s = window + (q << 4);
+    if (lo == 0 && hi == 16) {
+      cp_async_16(d, s);
+    } else {
+      for (int o = lo; o < hi; o += E) cp_async_small<E>(d + o, s + o);
+    }
+  }
+}
+
+template <typename T>
+struct Pair;
+template <>
+struct Pair<float> {
+  using type = float2;
+};
+template <>
+struct Pair<double> {
+  using type = double2;
+};
+
+// x[col * B + d] for d < B: one 8- or 16-byte access for B = 2 when x is
+// aligned to a pair.
+template <typename T, int B>
+__device__ __forceinline__ void gather_x(const T* __restrict__ x, int col,
+                                         bool pairs, T (&xv)[B]) {
+  if constexpr (B == 2) {
+    if (pairs) {
+      const auto v =
+          __ldg(reinterpret_cast<const typename Pair<T>::type*>(x) + col);
+      xv[0] = v.x;
+      xv[1] = v.y;
+      return;
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < B; ++d)
+    xv[d] = __ldg(x + static_cast<long long>(col) * B + d);
+}
+
+// One staged slot j of this thread's output: acc += v[j, c, d] x[col_j, d]
+// for d in order.  v0: the byte of v[row, 0, c, 0] in the value window.
+template <typename T, int B>
+__device__ __forceinline__ T add_slot(T acc, const char* vals, int v0, int j,
+                                      const T (&xv)[B]) {
+#pragma unroll
+  for (int d = 0; d < B; ++d) {
+    const T v = *reinterpret_cast<const T*>(
+        vals + padded(v0 + (j * B * B + d) * static_cast<int>(sizeof(T))));
+    acc = add_rn(acc, mul_rn(v, xv[d]));
+  }
+  return acc;
+}
+
+// A persistent block walks the tiles blockIdx.x, + gridDim.x, ... over a
+// ring of two buffers: each turn starts the copy of the next tile into the
+// buffer the last turn freed, waits for its own tile's copy, and reduces
+// it: thread (r, c) sums y[row r, c] over the slots, kGatherAhead slots'
+// x values gathered before they are used.
+template <typename T, int B>
+__global__ void __launch_bounds__(kGatherMaxThreads)
+bcsr_gather_spmv(const T* __restrict__ data, const int* __restrict__ cols,
+                 const T* __restrict__ x, T* __restrict__ y, long long nr,
+                 int k, int tile_rows, int vals_region, int stage_bytes) {
+  extern __shared__ __align__(16) char smem[];
+  constexpr int E = static_cast<int>(sizeof(T));
+  const long long tiles = (nr + tile_rows - 1) / tile_rows;
+  const int row_vals = k * B * B;
+  const bool pairs =
+      B == 2 && reinterpret_cast<uintptr_t>(x) % (2 * sizeof(T)) == 0;
+  const auto head = [](const void* p) {
+    return static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15);
+  };
+  const auto stage = [&](long long t, int buf) {
+    if (t < tiles) {
+      const long long r0 = t * tile_rows;
+      const int rows =
+          static_cast<int>(min(static_cast<long long>(tile_rows), nr - r0));
+      char* dst = smem + buf * stage_bytes;
+      stage_span<E>(dst, reinterpret_cast<const char*>(data + r0 * row_vals),
+                    rows * row_vals * E);
+      stage_span<4>(dst + vals_region,
+                    reinterpret_cast<const char*>(cols + r0 * k),
+                    rows * k * 4);
+    }
+    cp_async_commit();  // empty past the last tile: the count stays fixed
+  };
+
+  stage(blockIdx.x, 0);
+  const int r = threadIdx.x / B;
+  const int c = threadIdx.x - r * B;
+  int buf = 0;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    stage(t + gridDim.x, buf ^ 1);
+    cp_async_wait<1>();
+    __syncthreads();
+    const long long r0 = t * tile_rows;
+    if (r0 + r < nr) {
+      const char* vals = smem + buf * stage_bytes;
+      const char* idx = vals + vals_region;
+      const int v0 = head(data + r0 * row_vals) + (r * row_vals + c * B) * E;
+      const int c0 = head(cols + r0 * k) + r * k * 4;
+      T acc = T(0);
+      int j = 0;
+      for (; j + kGatherAhead <= k; j += kGatherAhead) {
+        int col[kGatherAhead];
+        T xv[kGatherAhead][B];
+#pragma unroll
+        for (int u = 0; u < kGatherAhead; ++u)
+          col[u] = *reinterpret_cast<const int*>(idx +
+                                                 padded(c0 + 4 * (j + u)));
+#pragma unroll
+        for (int u = 0; u < kGatherAhead; ++u)
+          gather_x<T, B>(x, col[u], pairs, xv[u]);
+#pragma unroll
+        for (int u = 0; u < kGatherAhead; ++u)
+          acc = add_slot<T, B>(acc, vals, v0, j + u, xv[u]);
+      }
+      for (; j < k; ++j) {
+        T xv[B];
+        const int col =
+            *reinterpret_cast<const int*>(idx + padded(c0 + 4 * j));
+        gather_x<T, B>(x, col, pairs, xv);
+        acc = add_slot<T, B>(acc, vals, v0, j, xv);
+      }
+      y[(r0 + r) * B + c] = acc;
+    }
+    __syncthreads();  // the buffer is refilled next turn
+    buf ^= 1;
+  }
+  cp_async_wait<0>();
+}
+
+template <typename T, int B>
+int launch_gather(const void* data, const void* cols, const void* x, void* y,
+                  long long nr, int k, int tile_rows, void* stream) {
+  if (nr < 0 || k < 1 || tile_rows < 1 || tile_rows * B > kGatherMaxThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nr == 0) return static_cast<int>(cudaSuccess);
+  const long long slots = static_cast<long long>(tile_rows) * k;
+  const long long vals_region = span_region(slots * B * B * sizeof(T));
+  const long long stage_bytes = vals_region + span_region(slots * 4);
+  if (2 * stage_bytes > kSmemPerBlock)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = bcsr_gather_spmv<T, B>;
+  const int smem = static_cast<int>(2 * stage_bytes);
+  const int threads = tile_rows * B;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  // dynamic shared memory above 48 KB needs the opt-in, once per device
+  static bool opted[kMaxDevices] = {};
+  if (!opted[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemPerBlock);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted[dev] = true;
+  }
+  const int sms = multiprocessors();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int per_sm =
+      std::max(1, std::min(kSmemPerSM / (smem + 1024), 2048 / threads));
+  const long long tiles = (nr + tile_rows - 1) / tile_rows;
+  const unsigned grid = static_cast<unsigned>(
+      std::min(tiles, static_cast<long long>(per_sm) * sms));
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(data), static_cast<const int*>(cols),
+      static_cast<const T*>(x), static_cast<T*>(y), nr, k, tile_rows,
+      static_cast<int>(vals_region), static_cast<int>(stage_bytes));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// y = A x for a BCSR matrix of B x B blocks: block_rows > 0, the banded
-// plan (data_t [K, B, B, NP], rel [K, NP]); block_rows == 0, absolute
-// columns (data [NR, K, B, B], cols [NR, K]).  Strides in elements.
+// B12: y = A x for a BCSR matrix of B x B blocks on the banded plan
+// (block_rows > 0: data_t [K, B, B, NP], rel [K, NP]).  Strides in
+// elements.
 #define TPUFEM_BCSR_ENTRY(NAME, T, IDX, B)                                   \
   int NAME(const void* data, const void* idx, const void* x, void* y,        \
            long long rows, int k, long long d_row, long long d_slot,         \
@@ -133,5 +411,22 @@ TPUFEM_BCSR_ENTRY(tpufem_bcsr_spmv_f64_i16_b3, double, int16_t, 3)
 TPUFEM_BCSR_ENTRY(tpufem_bcsr_spmv_f64_i32_b3, double, int32_t, 3)
 
 #undef TPUFEM_BCSR_ENTRY
+
+// B12g: y = A x on row-major data [nr, k, B, B], int32 cols [nr, k] and
+// node-major x, y [nr * B] (contiguous), in tiles of tile_rows rows over a
+// ring of two buffers; returns cudaErrorInvalidValue where the ring would
+// not fit 227 KB.
+#define TPUFEM_BCSR_GATHER_ENTRY(NAME, T, B)                                 \
+  int NAME(const void* data, const void* cols, const void* x, void* y,       \
+           long long nr, int k, int tile_rows, void* stream) {               \
+    return launch_gather<T, B>(data, cols, x, y, nr, k, tile_rows, stream);  \
+  }
+
+TPUFEM_BCSR_GATHER_ENTRY(tpufem_bcsr_gather_f32_b2, float, 2)
+TPUFEM_BCSR_GATHER_ENTRY(tpufem_bcsr_gather_f64_b2, double, 2)
+TPUFEM_BCSR_GATHER_ENTRY(tpufem_bcsr_gather_f32_b3, float, 3)
+TPUFEM_BCSR_GATHER_ENTRY(tpufem_bcsr_gather_f64_b3, double, 3)
+
+#undef TPUFEM_BCSR_GATHER_ENTRY
 
 }  // extern "C"

@@ -2,7 +2,8 @@
 examples/saxpy_pallas.py (the runtime-compiled "author a kernel, launch
 it" check).  ``saxpy`` counts its launches in ``saxpy.launches``;
 ``saxpy_plain`` is its plain version, which it equals bit for bit.  Any n
-is taken: the reference's reshape to (32, 8, n/256) is TPU tiling.
+and any contiguous views are taken (the kernel moves 16-byte vectors past
+a scalar head): the reference's reshape to (32, 8, n/256) is TPU tiling.
 """
 from __future__ import annotations
 
@@ -40,6 +41,16 @@ def saxpy_plain(a: torch.Tensor, x: torch.Tensor, y: torch.Tensor
     return a.reshape(()) * x + y
 
 
+def _empty_at_phase(x: torch.Tensor) -> torch.Tensor:
+    """An uninitialised tensor like contiguous x whose data starts at x's
+    offset within 16 bytes, so the kernel moves both as aligned vectors."""
+    shift = x.data_ptr() % 16 // x.element_size()
+    if not shift:
+        return torch.empty_like(x)
+    return torch.empty(x.numel() + shift, dtype=x.dtype,
+                       device=x.device)[shift:].view(x.shape)
+
+
 def saxpy(a: torch.Tensor, x: torch.Tensor, y: torch.Tensor
           ) -> torch.Tensor:
     """a (one element) * x + y: B15 on CUDA tensors, the plain version on
@@ -52,7 +63,7 @@ def saxpy(a: torch.Tensor, x: torch.Tensor, y: torch.Tensor
         raise ValueError(f"B15: {x.dtype}, expected contiguous float32/64")
     lib = _lib()
     with torch.cuda.device(x.device):
-        out = torch.empty_like(x)
+        out = _empty_at_phase(x)
         status = getattr(lib, "tpufem_saxpy" + _SUFFIX[x.dtype])(
             a.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(),
             x.numel(), stream_handle())

@@ -20,9 +20,10 @@ CUDA kernel gathers each column directly, so ``segmented`` and
   * ``bcsr_matvec_cuda`` (B12, both TPU variants): y = A x for a BCSR
     matrix of b x b blocks (b = 2, 3) on the node pattern's banded plan
     (``bcsr_band_plan``), x and y component-major [b, n];
-    ``bcsr_gather_matvec_cuda``: the same kernel in absolute-column mode on
-    row-major data [NR, K, b, b] / cols [NR, K] and node-major x (the
-    gather form of ``BCSRMatrix``).
+    ``bcsr_gather_matvec_cuda`` (B12g, its own kernel in csrc/bcsr.cu):
+    the same product on row-major data [NR, K, b, b] / cols [NR, K] and
+    node-major x (the gather form of ``BCSRMatrix``), staged through
+    shared memory in tiles of consecutive rows (``bcsr_gather_tiling``).
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 PyTorch version (the ``*_plain`` functions) for a CPU tensor, and counts
@@ -31,6 +32,7 @@ its launches.  What bounds the kernels is noted in the CUDA source.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -44,7 +46,8 @@ __all__ = ["ELLBandPlan", "ell_band_plan", "auto_block_rows",
            "ell_band_matvec_plain", "ell_band_matvec_multi_plain",
            "ell_gather_matvec_plain", "ell_gather_matvec_multi_plain",
            "bcsr_band_plan", "bcsr_matvec_cuda", "bcsr_gather_matvec_cuda",
-           "bcsr_band_matvec_plain", "bcsr_gather_matvec_plain"]
+           "bcsr_band_matvec_plain", "bcsr_gather_matvec_plain",
+           "bcsr_gather_tiling"]
 
 
 class ELLBandPlan(NamedTuple):
@@ -452,7 +455,7 @@ def bcsr_gather_matvec_plain(data, cols, x):
     """The gather form y = A x: data [NR, K, b, b], cols [NR, K], x
     node-major [NR * b] -> y [NR * b].  The reference's
     ``(data * x[cols][:, :, None, :]).sum((1, 3))`` with its sum written
-    out in B12's order (k, then d), so the kernel's absolute-column mode
+    out in B12's order (k, then d), so B12g (``bcsr_gather_matvec_cuda``)
     equals it bit for bit."""
     nr, K, b, _ = data.shape
     xb = x.reshape(nr, b)
@@ -470,19 +473,26 @@ _BCSR_ENTRY = {(t, i, b): f"tpufem_bcsr_spmv_{tn}_{iname}_b{b}"
                for t, tn in ((torch.float32, "f32"), (torch.float64, "f64"))
                for i, iname in ((torch.int16, "i16"), (torch.int32, "i32"))
                for b in (2, 3)}
+# data, cols, x, y, nr, k, tile_rows, stream
+_GATHER_ARGS = (_P, _P, _P, _P, _LL, _I, _I, _P)
+_GATHER_ENTRY = {(t, b): f"tpufem_bcsr_gather_{tn}_b{b}"
+                 for t, tn in ((torch.float32, "f32"), (torch.float64, "f64"))
+                 for b in (2, 3)}
 
 
 def _bcsr_lib():
-    return load_library("bcsr.cu", {e: _BCSR_ARGS
-                                    for e in _BCSR_ENTRY.values()})
+    return load_library("bcsr.cu", {
+        **{e: _BCSR_ARGS for e in _BCSR_ENTRY.values()},
+        **{e: _GATHER_ARGS for e in _GATHER_ENTRY.values()}})
 
 
 def _bcsr_launch(what, data, idx, x, y, rows, k, d_strides, i_strides,
                  block_rows):
-    """One launch of csrc/bcsr.cu: ``rows`` block rows of ``k`` slots;
-    d_strides (row, slot, component) of data, i_strides (row, slot) of the
-    indices; x and y 2-D [b, rows-or-more] views (component, node)."""
-    b = data.shape[1] if block_rows else data.shape[-1]
+    """One launch of B12 on the banded plan: ``rows`` block rows of ``k``
+    slots; d_strides (row, slot, component) of data, i_strides (row, slot)
+    of the indices; x and y 2-D [b, rows-or-more] views (component,
+    node)."""
+    b = data.shape[1]
     entry = _BCSR_ENTRY.get((data.dtype, idx.dtype, b))
     if entry is None:
         raise TypeError(f"{what}: takes fp32/fp64 values, int16/int32 "
@@ -542,10 +552,51 @@ bcsr_matvec_cuda.launches = 0
 bcsr_matvec_cuda.launches_per_block = 0
 
 
+# Shared memory a block of B12g (csrc/bcsr.cu) may take: 227 KB
+_SMEM_PER_BLOCK = 232448
+_GATHER_MAX_THREADS = 384
+# bytes of one staged tile: two buffers of about this size leave room for
+# four blocks on an SM, which measured fastest at the paths' shapes
+_GATHER_STAGE = 24 * 1024
+
+
+def _span_region(nbytes: int) -> int:
+    """Shared memory of one staged span of ``nbytes`` at any 16-byte phase:
+    its window of whole 16-byte chunks with 16 bytes of padding after every
+    128 (csrc/bcsr.cu's span_region)."""
+    window = (nbytes + 30) // 16 * 16
+    return window + ((window - 16) >> 7) * 16
+
+
+@functools.lru_cache(maxsize=None)
+def bcsr_gather_tiling(itemsize: int, b: int, k: int):
+    """B12g's tile for b x b blocks of ``itemsize``-byte values and ``k``
+    slots: (tile_rows, shared memory bytes of its ring of two buffers).
+
+    The most rows (128 down to 4, b threads a row) whose staged values and
+    columns fit ``_GATHER_STAGE``; past that size, the fewest rows, while
+    the two buffers fit a block's 227 KB.  Raises ValueError where they do
+    not (k beyond several hundred)."""
+    rows = 4
+    for r in (128, 64, 32, 16, 8, 4):
+        stage = (_span_region(r * k * b * b * itemsize)
+                 + _span_region(r * k * 4))
+        if r * b <= _GATHER_MAX_THREADS and stage <= _GATHER_STAGE:
+            rows = r
+            break
+    smem = 2 * (_span_region(rows * k * b * b * itemsize)
+                + _span_region(rows * k * 4))
+    if smem > _SMEM_PER_BLOCK:
+        raise ValueError(f"B12g: no tile of {k} slots of {b} x {b} blocks "
+                         f"of {itemsize}-byte values fits shared memory")
+    return rows, smem
+
+
 def bcsr_gather_matvec_cuda(data, cols, x):
     """y = A x on row-major data [NR, K, b, b] / int32 cols [NR, K]
-    (absolute columns) for node-major x [NR * b]: the B12 kernel in
-    absolute-column mode.  No host sync."""
+    (absolute columns) for node-major x [NR * b]: kernel B12g, which
+    stages tiles of rows through shared memory (``bcsr_gather_tiling``).
+    Any contiguous views are taken.  No host sync."""
     if x.device.type == "cpu":
         return bcsr_gather_matvec_plain(data, cols, x)
     what = "bcsr_gather_matvec"
@@ -556,9 +607,17 @@ def bcsr_gather_matvec_cuda(data, cols, x):
     _expect(what + " data", data, x.dtype, (nr, K, b, b), x.device)
     _expect(what + " cols", cols, torch.int32, (nr, K), x.device)
     _expect(what + " x", x, x.dtype, (nr * b,), x.device)
+    entry = _GATHER_ENTRY.get((x.dtype, b))
+    if entry is None:
+        raise TypeError(f"{what}: takes fp32/fp64 values and b in (2, 3), "
+                        f"got {x.dtype}, b={b}")
+    rows, _ = bcsr_gather_tiling(x.element_size(), b, K)
     y = torch.empty_like(x)
-    _bcsr_launch(what, data, cols, x.view(nr, b).T, y.view(nr, b).T, nr, K,
-                 (K * b * b, b * b, 1), (K, 1), 0)
+    with torch.cuda.device(x.device):
+        status = getattr(_bcsr_lib(), entry)(
+            data.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(), nr,
+            K, rows, stream_handle())
+    check_launch(status, what)
     bcsr_gather_matvec_cuda.launches += 1
     return y
 
