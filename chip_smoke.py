@@ -27,7 +27,8 @@
      sweep+dot) and B5b (matvec, residual, sweep, sweep+dot) on the finest
      level of the general and const hierarchies (fp32 and bf16 data / code
      under fp32 vectors), each also against the flat kernel (K2/B4, B5)
-     on the same inputs; B4 and B5 on level 192; K3/K4 on 384->192->96.
+     on the same inputs; B4 and B5 on level 192; K3/K4 on 384->192->96,
+     timed there too (beyond L2: the shape that decides their design).
    - Routed: B3 and B5b at n=64 with the routing threshold set to 0,
      through the routed wrappers, in fp32, bf16-under-fp32 and fp64, also
      against the flat kernels.
@@ -270,9 +271,11 @@ _KERNELS = {
            "tpufem/ops/fused_system_pallas.py:126"),
     "K2": ("stencil_matvec", "tpufem_torch/csrc/stencil.cu",
            "tpufem/ops/stencil_pallas.py:86"),
-    "K3": ("residual_restrict", "tpufem_torch/csrc/mg_transfer.cu",
+    "K3": ("residual_restrict (redesigned with staged tiles)",
+           "tpufem_torch/csrc/mg_transfer.cu",
            "tpufem/ops/mg_transfer_pallas.py:113"),
-    "K4": ("prolong_add_smooth", "tpufem_torch/csrc/mg_transfer.cu",
+    "K4": ("prolong_add_smooth (redesigned with staged tiles)",
+           "tpufem_torch/csrc/mg_transfer.cu",
            "tpufem/ops/mg_transfer_pallas.py:217"),
     "B4": ("stencil_residual_smooth", "tpufem_torch/csrc/stencil.cu",
            "tpufem/ops/stencil_pallas.py:92"),
@@ -930,7 +933,8 @@ def _check_scale(dev, records):
     """Every kernel at the n=384 shapes of the scale path: K1 against its
     plain version; B3 and B5b (all epilogues) on the finest level of the
     general and const hierarchies, fp32 and bf16 data, also against the
-    flat kernels; B4 and B5 on level 192; K3 and K4 on 384->192->96."""
+    flat kernels; B4 and B5 on level 192; K3 and K4 on 384->192->96,
+    timed."""
     import numpy as np
     import torch
 
@@ -982,7 +986,7 @@ def _check_scale(dev, records):
     torch.cuda.empty_cache()
     _check_general_levels(records, general[1:2], N_SCALE, False)
     _check_const_levels(records, con[1:2], N_SCALE, False)
-    _check_transfers(records, gen, con[:3], False)
+    _check_transfers(records, gen, con[:3], True)
     del A, general, con, bc_mask
     torch.cuda.empty_cache()
 

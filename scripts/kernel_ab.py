@@ -1,6 +1,7 @@
-"""Time kernels B12g (the BCSR gather-form SpMV) and B15 (SAXPY) of
-tpufem_torch from two checkouts of this repository on one NVIDIA GPU, in
-turns A, B, B, A.
+"""Time kernels B12g (the BCSR gather-form SpMV), B15 (SAXPY) and the
+multigrid transfers K3 (residual + restrict) and K4 (prolong + add +
+smooth) of tpufem_torch from two checkouts of this repository on one
+NVIDIA GPU, in turns A, B, B, A.
 
     python scripts/kernel_ab.py <checkout A> <checkout B>
     python scripts/kernel_ab.py --tiles <checkout>
@@ -17,7 +18,11 @@ stream queued ahead):
     hit L2 lines the neighbouring rows share: the difference is what the
     random gathers cost;
   * B15, ``saxpy``, fp32, at examples/saxpy_pallas.py's n = 524,288 and at
-    n = 2^26 (805.3 MB moved), beside ``torch.add(y, x, alpha=a)``.
+    n = 2^26 (805.3 MB moved), beside ``torch.add(y, x, alpha=a)``;
+  * K3 and K4 (without and with the dot) on the finest level pair of the
+    const hierarchy: 96 -> 48 in fp32 and fp64 (the main path's) and
+    384 -> 192 in fp32 (the scale path's, 315 MB a fine vector, beyond
+    L2), each beside its bound (the bytes it must move at 3.35 TB/s).
 
 The inputs come from seeded generators on the card, the same in both
 checkouts, and each output is hashed, so the checkouts' outputs are held
@@ -27,9 +32,12 @@ over its two turns per checkout, the ratio B / A and whether all four
 outputs agree.
 
 ``--tiles`` times B12g in one checkout (one whose ``bcsr_gather_tiling``
-returns (tile rows, shared memory), from PR 8 on) at the same shapes and
-random numbering for every tile of 128 down to 4 rows that fits, the
-tile the wrapper picks marked.
+returns (tile rows, shared memory)) at the same shapes and random
+numbering for every tile of 128 down to 4 rows that fits, and K3 and K4
+(one whose ``transfer_tiling`` returns (rows, planes, shared memory,
+grid) and whose ``TILE_ROWS`` lists the rows it has kernels for) at the
+three transfer shapes for every such tile, each tile the wrapper picks
+marked.
 """
 from __future__ import annotations
 
@@ -65,6 +73,47 @@ def gather_case(nr, k, b, dtype, banded=False):
 
 
 SHAPES = (("2D", 491401, 8, 2), ("3D", 68921, 16, 3))
+TRANSFERS = ((96, torch.float32), (96, torch.float64), (384, torch.float32))
+
+
+def transfer_case(n, dtype):
+    # the const hierarchy's level pair n -> n/2 and random r, e and ec
+    # (zero on padding rows), from a seeded generator on the card
+    from tpufem_torch.solve.multigrid import build_poisson_multigrid
+
+    lf, lc = build_poisson_multigrid((-3.0, 3.0), n, operator="const",
+                                     dtype=dtype, device=dev, levels=2)[:2]
+    g = torch.Generator(device=dev).manual_seed(n)
+
+    def rand(code):
+        v = torch.randn(code.shape, generator=g, device=dev, dtype=dtype)
+        return torch.where(code != 0, v, 0.0)
+
+    return lf, lc, rand(lf.code), rand(lf.code), rand(lc.code)
+
+
+def transfer_calls(lf, lc, r, e, ec):
+    # {case: (call, bytes it must move)} of K3 and K4 (no dot, dot) on one
+    # level pair
+    from tpufem_torch.ops import mg_transfer_cuda as mt
+
+    fine, coarse = r.numel() * r.element_size(), ec.numel() * r.element_size()
+    a4 = (lf.weights, lf.code, ec, r, e, lf.plan, lc.plan)
+    return {
+        "K3": (lambda: mt.const_residual_restrict_embedded(
+            lf.weights, lf.code, lc.code, r, e, lf.plan, lc.plan),
+            3 * fine + 2 * coarse),
+        "K4": (lambda: mt.const_prolong_add_smooth_embedded(*a4),
+               4 * fine + coarse),
+        "K4 +dot": (lambda: mt.const_prolong_add_smooth_embedded(
+            *a4, with_dot=True), 4 * fine + coarse)}
+
+
+def transfer_out(res):
+    # (sha256 of the field, the dot or None)
+    if isinstance(res, tuple):
+        return digest(res[0]), res[1].item()
+    return digest(res), None
 """
 
 
@@ -92,6 +141,15 @@ for n in (524288, 1 << 26):
         "torch_add_ms": cuda_ms(lambda: torch.add(y, x, alpha=alpha),
                                 reps=50)}
     del x, y
+for n, dtype in TRANSFERS:
+    case = transfer_case(n, dtype)
+    for kind, (fn, nbytes) in transfer_calls(*case).items():
+        sha, dot = transfer_out(fn())
+        out[f"{kind} {n}->{n // 2} {str(dtype)[6:]}"] = {
+            "ms": cuda_ms(fn, reps=50), "sha256": sha, "dot": dot,
+            "bound_ms": nbytes / 3.35e12 * 1e3}
+    del case
+    torch.cuda.empty_cache()
 print(json.dumps(out))
 """
 
@@ -121,6 +179,45 @@ for (label, nr, k, b), dtype in [(s, d) for s in SHAPES
               f"{ms:.4f} ms, equal to the picked tile's output {same}"
               + (" (picked)" if rows == rows0 else ""))
     del data, cols, x
+
+from tpufem_torch.ops import mg_transfer_cuda as mt
+
+chosen = mt.transfer_tiling
+TILES = {k: [(ty, tz) for ty in mt.TILE_ROWS[k]
+             for tz in ((4, 8, 16, 32) if k == "K4" else (2, 4, 8, 16))]
+         for k in ("K4", "K3")}
+for n, dtype in TRANSFERS:
+    case = transfer_case(n, dtype)
+    lf, lc, r = case[0], case[1], case[2]
+    calls = transfer_calls(*case)
+    for kind in ("K4", "K3"):
+        fn, nbytes = calls[kind]
+        ref = fn()
+        pick = chosen(kind, r.element_size(), tuple(lf.plan.store_grid),
+                      tuple(lc.plan.store_grid),
+                      tuple(lc.plan.info.node_grid))[:2]
+        sg = lf.plan.store_grid if kind == "K4" else lc.plan.store_grid
+        cols = 128 if kind == "K4" else 64
+        for ty, tz in TILES[kind]:
+            smem = mt.transfer_smem(kind, r.element_size(), ty)
+            if smem > 232448:
+                continue
+            mt.transfer_tiling = lambda k, *a, ty=ty, tz=tz, smem=smem: (
+                (ty, tz, smem, (sg[2] // cols, -(-sg[1] // ty),
+                                -(-sg[0] // tz)))
+                if k == kind else chosen(k, *a))
+            try:
+                same = torch.equal(fn(), ref)
+                ms = cuda_ms(fn, reps=50)
+            finally:
+                mt.transfer_tiling = chosen
+            print(f"# {kind} {n}->{n // 2} {str(dtype)[6:]}, tile {ty} rows "
+                  f"x {tz} planes ({smem} B): {ms:.4f} ms "
+                  f"(bound {nbytes / 3.35e12 * 1e3:.4f} ms), equal to the "
+                  f"picked tile's output {same}"
+                  + (" (picked)" if (ty, tz) == pick else ""))
+    del case, calls, ref
+    torch.cuda.empty_cache()
 """
 
 
@@ -148,6 +245,10 @@ def main() -> int:
         for case, r in rec.items():
             extra = (f", torch.add {r['torch_add_ms']:.4f} ms"
                      if "torch_add_ms" in r else "")
+            if "bound_ms" in r:
+                extra += f", bound {r['bound_ms']:.4f} ms"
+            if r.get("dot") is not None:
+                extra += f", dot {r['dot']!r}"
             print(f"# {key} ({dirs[key]}): {case} {r['ms']:.4f} ms{extra}, "
                   f"output sha256 {r['sha256']}")
         runs[key].append(rec)
@@ -164,6 +265,14 @@ def main() -> int:
             summary[case]["torch_add_ms"] = sum(
                 r[case]["torch_add_ms"] for v in runs.values()
                 for r in v) / 4
+        if "bound_ms" in runs["B"][0][case]:
+            summary[case]["bound_ms"] = runs["B"][0][case]["bound_ms"]
+        dots = {k: v[0][case].get("dot") for k, v in runs.items()}
+        if dots["B"] is not None:
+            summary[case].update(
+                dot_A=dots["A"], dot_B=dots["B"],
+                dot_reproducible=len({r[case]["dot"] for r in runs["B"]})
+                == 1)
     print(json.dumps(summary))
     return 0
 

@@ -1,6 +1,7 @@
-"""CUDA kernels K1-K4, B3-B5, B5b, B7, B8, the ELL kernels B9-B11, the
-BCSR kernel B12, the fused assembly B13, the block sum B14 and SAXPY B15
-against their plain PyTorch versions on the card.
+"""CUDA kernels K1-K4 (the tiled K3 and K4 over every level pair and
+tile shape), B3-B5, B5b, B7, B8, the ELL kernels B9-B11, the BCSR kernel
+B12, the fused assembly B13, the block sum B14 and SAXPY B15 against their
+plain PyTorch versions on the card.
 
 Every test here needs an NVIDIA GPU with nvcc (sm_90a) and skips without
 one.  This file imports neither JAX nor the JAX package, so it runs on a
@@ -9,6 +10,8 @@ machine without them:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -149,6 +152,176 @@ def test_transfer_kernels_match_plain(dev, n, dtype, with_dot):
         assert abs(d.item() - d_ref.item()) <= 1e-4 * max(abs(d_ref.item()),
                                                           1.0)
     _close(out, ref, dtype)
+
+
+def _transfer_pair(dev, n, dtype, seed, pair=0):
+    """Level pair ``pair`` of the const hierarchy of n and random r, e (fine)
+    and ec (coarse), zero where the code is 0, on the card."""
+    lv = build_poisson_multigrid((-3.0, 3.0), n, dtype=dtype, coarse_max=4,
+                                 operator="const", device=dev)
+    lf, lc = lv[pair], lv[pair + 1]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def rand(level):
+        v = torch.randn(level.plan.num_store_rows, generator=g, dtype=dtype)
+        return torch.where(level.code.cpu() != 0, v, 0.0).to(dev)
+
+    return lf, lc, rand(lf), rand(lf), rand(lc)
+
+
+def _transfers(lf, lc, r, e, ec):
+    """K3's rc and K4's y, and K4's (y, dot), on one level pair."""
+    rc = const_residual_restrict_embedded(lf.weights, lf.code, lc.code, r, e,
+                                          lf.plan, lc.plan)
+    a4 = (lf.weights, lf.code, ec, r, e, lf.plan, lc.plan)
+    y = const_prolong_add_smooth_embedded(*a4)
+    yd = const_prolong_add_smooth_embedded(*a4, with_dot=True)
+    torch.cuda.synchronize()
+    return rc, y, yd
+
+
+@pytest.mark.parametrize("n", [8, 12, 16, 24, 64, 96])
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_tiled_transfers_match_plain_on_every_level_pair(dev, n, dtype):
+    """K3 and K4 (with and without the dot) against their plain versions
+    on every level pair of the const hierarchy of n."""
+    pairs = len(build_poisson_multigrid((-3.0, 3.0), n, dtype=dtype,
+                                        coarse_max=4, operator="const",
+                                        device=dev)) - 1
+    for pair in range(pairs):
+        lf, lc, r, e, ec = _transfer_pair(dev, n, dtype, n + pair, pair)
+        rc, y, (yd, d) = _transfers(lf, lc, r, e, ec)
+        _close(rc, const_residual_restrict_plain(
+            lf.weights, lf.code, lc.code, r, e, lf.plan, lc.plan), dtype)
+        a4 = (lf.weights, lf.code, ec, r, e, lf.plan, lc.plan)
+        ref, d_ref = const_prolong_add_smooth_plain(*a4, with_dot=True)
+        _close(y, ref, dtype)
+        assert torch.equal(y, yd)
+        assert abs(d.item() - d_ref.item()) <= 1e-4 * max(abs(d_ref.item()),
+                                                          1.0)
+
+
+def _forced_tiling(kernel, ty, tz):
+    """transfer_tiling with (ty, tz) for ``kernel`` and the planner's pick
+    for the other one."""
+    picked = mg_transfer_cuda.transfer_tiling
+
+    def tiling(k, itemsize, fine_sg, coarse_sg, coarse_ng):
+        if k != kernel:
+            return picked(k, itemsize, fine_sg, coarse_sg, coarse_ng)
+        sg, cols = (fine_sg, 128) if k == "K4" else (coarse_sg, 64)
+        return (ty, tz, mg_transfer_cuda.transfer_smem(k, itemsize, ty),
+                (sg[2] // cols, -(-sg[1] // ty), -(-sg[0] // tz)))
+
+    return tiling
+
+
+@pytest.mark.parametrize("kernel,ty,tz", [
+    ("K4", 6, 5), ("K4", 4, 7), ("K4", 8, 1), ("K4", 4, 200),
+    ("K3", 3, 5), ("K3", 4, 3), ("K3", 2, 1), ("K3", 2, 100)])
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_tiled_transfers_bit_equal_over_tiles(dev, monkeypatch, dtype,
+                                              kernel, ty, tz):
+    """At 96 -> 48 (fine store 104 x 104 x 128, coarse 56 x 56 x 128) a
+    tile whose rows or planes do not divide the store grid (K4 6 rows, K3
+    3), one plane per block or one range for the whole grid gives the
+    picked tile's fields bit for bit, and the dot within 1e-4."""
+    lf, lc, r, e, ec = _transfer_pair(dev, 96, dtype, 7)
+    ref = _transfers(lf, lc, r, e, ec)
+    monkeypatch.setattr(mg_transfer_cuda, "transfer_tiling",
+                        _forced_tiling(kernel, ty, tz))
+    rc, y, (yd, d) = _transfers(lf, lc, r, e, ec)
+    assert torch.equal(rc, ref[0])
+    assert torch.equal(y, ref[1]) and torch.equal(yd, ref[2][0])
+    assert abs(d.item() - ref[2][1].item()) <= 1e-4 * abs(ref[2][1].item())
+
+
+@pytest.mark.parametrize("off", ["code", "r", "e", "ec", "all"])
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_tiled_transfers_on_views_off_16_bytes(dev, dtype, off):
+    """K3 and K4 on contiguous views that start off a 16-byte boundary (the
+    planes then staged element by element) give the aligned call's fields
+    bit for bit, and the dot within 1e-4."""
+    lf, lc, r, e, ec = _transfer_pair(dev, 24, dtype, 11)
+    ref = _transfers(lf, lc, r, e, ec)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        v = buf[1:]
+        v.copy_(t)
+        assert v.data_ptr() % 16 != 0
+        return v
+
+    code = lf.code
+    if off in ("code", "all"):
+        lf = dataclasses.replace(lf, code=shifted(lf.code))
+    if off in ("r", "all"):
+        r = shifted(r)
+    if off in ("e", "all"):
+        e = shifted(e)
+    if off in ("ec", "all"):
+        ec = shifted(ec)
+    rc, y, (yd, d) = _transfers(lf, lc, r, e, ec)
+    assert torch.equal(lf.code, code)
+    assert torch.equal(rc, ref[0]) and torch.equal(y, ref[1])
+    assert torch.equal(yd, ref[2][0])
+    assert abs(d.item() - ref[2][1].item()) <= 1e-4 * abs(ref[2][1].item())
+
+
+@pytest.mark.parametrize("kernel,ty", [("K3", 5), ("K4", 3)])
+def test_tiled_transfer_refused_tile_raises(dev, monkeypatch, kernel, ty):
+    """A tile whose rows the launcher has no kernel for is refused at
+    launch and raises."""
+    lf, lc, r, e, ec = _transfer_pair(dev, 24, torch.float64, 1)
+    assert ty not in mg_transfer_cuda.TILE_ROWS[kernel]
+    monkeypatch.setattr(mg_transfer_cuda, "transfer_tiling",
+                        _forced_tiling(kernel, ty, 2))
+    with pytest.raises(RuntimeError, match="residual_restrict"
+                       if kernel == "K3" else "prolong_add_smooth"):
+        _transfers(lf, lc, r, e, ec)
+
+
+@pytest.mark.parametrize("n", [12, 96])
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_residual_restrict_writes_every_coarse_row(dev, monkeypatch, n,
+                                                   dtype):
+    """K3 writes 0 on every coarse padding and Dirichlet row, also where
+    its output's memory held NaN before the call."""
+    lf, lc, r, e, ec = _transfer_pair(dev, n, dtype, 3)
+    monkeypatch.setattr(mg_transfer_cuda, "_new_output",
+                        lambda size, **kw: torch.full((size,), float("nan"),
+                                                      **kw))
+    rc = const_residual_restrict_embedded(lf.weights, lf.code, lc.code, r, e,
+                                          lf.plan, lc.plan)
+    torch.cuda.synchronize()
+    assert not rc.isnan().any()
+    assert (rc[lc.code != 1] == 0).all()
+    _close(rc, const_residual_restrict_plain(
+        lf.weights, lf.code, lc.code, r, e, lf.plan, lc.plan), dtype)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_tiled_transfers_repeat_bit_identical(dev, dtype):
+    """Two launches of K3 and K4 on the same inputs give the same rc, y and
+    dot bit for bit (the dot's per-block partials sum in a fixed order)."""
+    lf, lc, r, e, ec = _transfer_pair(dev, 96, dtype, 5)
+    first, second = (_transfers(lf, lc, r, e, ec) for _ in range(2))
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(first[2][0], second[2][0])
+    assert torch.equal(first[2][1], second[2][1])
+
+
+def test_transfer_smem_matches_the_launcher(dev):
+    """The planner's shared memory per block is the launcher's, for every
+    kernel, item size and tile rows from 1 to 16."""
+    lib = mg_transfer_cuda._lib()
+    for kernel in ("K3", "K4"):
+        for itemsize in (4, 8):
+            for ty in range(1, 17):
+                assert lib.tpufem_mg_transfer_smem(
+                    int(kernel[1]), itemsize, ty) == \
+                    mg_transfer_cuda.transfer_smem(kernel, itemsize, ty)
 
 
 def test_solve_poisson_fast_cuda_matches_cpu(dev):
