@@ -27,8 +27,9 @@
      sweep+dot) and B5b (matvec, residual, sweep, sweep+dot) on the finest
      level of the general and const hierarchies (fp32 and bf16 data / code
      under fp32 vectors), each also against the flat kernel (K2/B4, B5)
-     on the same inputs; B4 and B5 on level 192; K3/K4 on 384->192->96,
-     timed there too (beyond L2: the shape that decides their design).
+     on the same inputs (B5b runs B5's kernel: bit for bit); B4 and B5 on
+     level 192, B5 timed there; K3/K4 on 384->192->96, timed there too
+     (beyond L2: the shape that decides their design).
    - Routed: B3 and B5b at n=64 with the routing threshold set to 0,
      through the routed wrappers, in fp32, bf16-under-fp32 and fp64, also
      against the flat kernels.
@@ -279,13 +280,16 @@ _KERNELS = {
            "tpufem/ops/mg_transfer_pallas.py:217"),
     "B4": ("stencil_residual_smooth", "tpufem_torch/csrc/stencil.cu",
            "tpufem/ops/stencil_pallas.py:92"),
-    "B5": ("const_stencil", "tpufem_torch/csrc/const_stencil.cu",
+    "B5": ("const_stencil (redesigned with staged tiles)",
+           "tpufem_torch/csrc/const_stencil.cu",
            "tpufem/ops/stencil_pallas.py:530"),
     "B7": ("fused_system_2d", "tpufem_torch/csrc/fused_system_2d.cu",
            "tpufem/ops/fused_system_pallas.py:277"),
     "B3": ("stencil_blocked", "tpufem_torch/csrc/stencil_blocked.cu",
            "tpufem/ops/stencil_pallas.py:333"),
-    "B5b": ("const_stencil_blocked", "tpufem_torch/csrc/stencil_blocked.cu",
+    "B5b": ("const_stencil_blocked (redesigned with staged tiles: B5's "
+            "kernel on the blocked route)",
+            "tpufem_torch/csrc/const_stencil.cu",
             "tpufem/ops/stencil_pallas.py:651"),
     "B9": ("ell_spmv (with its B11 per_block route, "
            "tpufem/sparse/ell_pallas.py:288)", "tpufem_torch/csrc/ell.cu",
@@ -434,12 +438,13 @@ def _bound(inputs, outputs, flops, dtype_name):
 
 
 def _compare(records, key, label, kernel, plain, *, timed=False, work=None,
-             flat=None, library=None):
+             flat=None, flat_equal=False, library=None):
     """Run kernel and plain on the same inputs, check, optionally time.
 
     ``work``: (input tensors, operations, arithmetic type) for the bound;
     ``flat``: the flat kernel on the same inputs (the blocked kernels are
-    held to it too); ``library``: one PyTorch call that computes the same
+    held to it too; with ``flat_equal`` bit for bit, dots included);
+    ``library``: one PyTorch call that computes the same
     function (timed beside the kernel, used nowhere in the port).  The
     first timed shape of a kernel is its main one, recorded in the JSON.
     """
@@ -469,6 +474,9 @@ def _compare(records, key, label, kernel, plain, *, timed=False, work=None,
         fl = flat()
         fl = fl if isinstance(fl, tuple) else (fl,)
         torch.cuda.synchronize()
+        check(not flat_equal or all(torch.equal(o, f)
+                                    for o, f in zip(outs, fl)),
+              f"{key} {label}: not bit-identical to the flat route")
         for o, f in zip(outs, fl):
             if o.dim() == 0:
                 rel = abs(o.item() - f.item()) / max(abs(f.item()), 1e-30)
@@ -625,9 +633,10 @@ def _check_general_levels(records, levels, n, timed, *, dims=""):
                              ep, k, kw.get("with_dot", False)), "float32"))
 
 
-def _check_const_levels(records, levels, n, timed, *, dims=""):
-    """B5 (all four epilogues) on every const level; a bf16 code plane
-    must leave the sweep bit-identical."""
+def _check_const_levels(records, levels, n, timed, *, dims="", at=None):
+    """B5 (all four epilogues) on every const level, timed (with
+    ``timed``) on level ``at`` (default n); a bf16 code plane must leave
+    the sweep bit-identical."""
     import torch
 
     from tpufem_torch.ops.stencil_cuda import (const_stencil_apply,
@@ -651,7 +660,7 @@ def _check_const_levels(records, levels, n, timed, *, dims=""):
                                     f"(K={k})",
                      lambda: const_stencil_apply(*args, **kw),
                      lambda: const_stencil_apply_plain(*args, **kw),
-                     timed=timed and nl == n,
+                     timed=timed and nl == (at or n),
                      work=(ins, rows * _stencil_flops(
                          ep, k, kw.get("with_dot", False)), dt))
         if xs.dtype != torch.float32:
@@ -925,7 +934,7 @@ def _blocked_cases(records, label, gen_level, con_level, x, b, timed,
                          *args, con.plan.store_grid, **kw),
                      lambda: sc.const_stencil_apply_plain(*args, **kw),
                      flat=lambda: sc.const_stencil_apply(*args, **kw),
-                     timed=timed,
+                     flat_equal=True, timed=timed,
                      work=(ins, rows * _stencil_flops(ep, 15, wd), arith))
 
 
@@ -985,7 +994,7 @@ def _check_scale(dev, records):
     del x, b
     torch.cuda.empty_cache()
     _check_general_levels(records, general[1:2], N_SCALE, False)
-    _check_const_levels(records, con[1:2], N_SCALE, False)
+    _check_const_levels(records, con[1:2], N_SCALE, True, at=N_SCALE // 2)
     _check_transfers(records, gen, con[:3], True)
     del A, general, con, bc_mask
     torch.cuda.empty_cache()

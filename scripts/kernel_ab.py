@@ -1,7 +1,8 @@
-"""Time kernels B12g (the BCSR gather-form SpMV), B15 (SAXPY) and the
+"""Time kernels B12g (the BCSR gather-form SpMV), B15 (SAXPY), the
 multigrid transfers K3 (residual + restrict) and K4 (prolong + add +
-smooth) of tpufem_torch from two checkouts of this repository on one
-NVIDIA GPU, in turns A, B, B, A.
+smooth) and the const stencil B5 and its blocked route B5b of tpufem_torch
+from two checkouts of this repository on one NVIDIA GPU, in turns A, B,
+B, A.
 
     python scripts/kernel_ab.py <checkout A> <checkout B>
     python scripts/kernel_ab.py --tiles <checkout>
@@ -22,7 +23,13 @@ stream queued ahead):
   * K3 and K4 (without and with the dot) on the finest level pair of the
     const hierarchy: 96 -> 48 in fp32 and fp64 (the main path's) and
     384 -> 192 in fp32 (the scale path's, 315 MB a fine vector, beyond
-    L2), each beside its bound (the bytes it must move at 3.35 TB/s).
+    L2), each beside its bound (the bytes it must move at 3.35 TB/s);
+  * B5, ``const_stencil_apply``, on the paths' const levels: 3D level 96
+    in fp32 and fp64 with all four epilogues (matvec, residual, smooth,
+    smooth + dot), 3D level 192 (the scale path's) fp32 smooth, 2D level
+    1024 fp32 smooth and matvec; and B5b, ``const_stencil_blocked_apply``,
+    at n=384 (the scale path's finest level, 315 MB a vector) in fp32 and
+    with a bf16 code plane, all four epilogues; each beside its bound.
 
 The inputs come from seeded generators on the card, the same in both
 checkouts, and each output is hashed, so the checkouts' outputs are held
@@ -37,7 +44,10 @@ numbering for every tile of 128 down to 4 rows that fits, and K3 and K4
 (one whose ``transfer_tiling`` returns (rows, planes, shared memory,
 grid) and whose ``TILE_ROWS`` lists the rows it has kernels for) at the
 three transfer shapes for every such tile, each tile the wrapper picks
-marked.
+marked; and B5 / B5b (one whose ``const_tiling`` returns (rows, planes,
+shared memory, grid) and whose ``CONST_TILE_ROWS`` lists the rows it has
+kernels for) at 3D level 96 (fp32, fp64), 3D level 192, 2D level 1024 (2D
+planes are bands of rows) and n=384, the sweep, for every such tile.
 """
 from __future__ import annotations
 
@@ -109,6 +119,53 @@ def transfer_calls(lf, lc, r, e, ec):
             *a4, with_dot=True), 4 * fine + coarse)}
 
 
+CONSTS = (("B5 3D 96", 3, 96, torch.float32, None),
+          ("B5 3D 96", 3, 96, torch.float64, None),
+          ("B5 3D 192", 3, 192, torch.float32, ("smooth",)),
+          ("B5 2D 1024", 2, 1024, torch.float32, ("smooth", "matvec")),
+          ("B5b 384", 3, 384, torch.float32, None),
+          ("B5b 384", 3, 384, torch.bfloat16, None))
+EPILOGUES = {"matvec": ("matvec", False), "residual": ("residual", False),
+             "smooth": ("smooth", False), "smooth+dot": ("smooth", True)}
+
+
+def const_case(dim, n, code_dtype):
+    # the finest const level of n and random x, b (zero on padding rows)
+    # from a seeded generator on the card; fp32 vectors under a bf16 code
+    from tpufem_torch.solve.multigrid import build_poisson_multigrid
+
+    vec = torch.float32 if code_dtype == torch.bfloat16 else code_dtype
+    lv = build_poisson_multigrid((-3.0, 3.0), n, dim, operator="const",
+                                 dtype=vec, device=dev, levels=1)[0]
+    g = torch.Generator(device=dev).manual_seed(n + dim)
+
+    def rand():
+        v = torch.randn(lv.code.shape, generator=g, device=dev, dtype=vec)
+        return torch.where(lv.code != 0, v, 0.0)
+
+    return lv, lv.code.to(code_dtype), rand(), rand()
+
+
+def const_calls(label, lv, code, x, b, which):
+    # {case: (call, bytes it must move)} of B5 (or B5b's route) on a level
+    from tpufem_torch.ops import stencil_cuda as sc
+
+    blocked = label.startswith("B5b")
+    rows = x.numel()
+    out = {}
+    for name in which or EPILOGUES:
+        ep, wd = EPILOGUES[name]
+        kw = dict(b=None if ep == "matvec" else b, with_dot=wd)
+        args = (ep, lv.weights, code, x, lv.plan.offsets)
+        fn = ((lambda args=args, kw=kw: sc.const_stencil_blocked_apply(
+            *args, lv.plan.store_grid, **kw)) if blocked else
+              (lambda args=args, kw=kw: sc.const_stencil_apply(*args, **kw)))
+        nbytes = rows * (code.element_size()
+                         + x.element_size() * (2 + (ep != "matvec")))
+        out[name] = (fn, nbytes)
+    return out
+
+
 def transfer_out(res):
     # (sha256 of the field, the dot or None)
     if isinstance(res, tuple):
@@ -149,6 +206,16 @@ for n, dtype in TRANSFERS:
             "ms": cuda_ms(fn, reps=50), "sha256": sha, "dot": dot,
             "bound_ms": nbytes / 3.35e12 * 1e3}
     del case
+    torch.cuda.empty_cache()
+for label, dim, n, cdt, which in CONSTS:
+    lv, code, x, b = const_case(dim, n, cdt)
+    for name, (fn, nbytes) in const_calls(label, lv, code, x, b,
+                                          which).items():
+        sha, dot = transfer_out(fn())
+        out[f"{label} {str(cdt)[6:]} {name}"] = {
+            "ms": cuda_ms(fn, reps=50), "sha256": sha, "dot": dot,
+            "bound_ms": nbytes / 3.35e12 * 1e3}
+    del lv, code, x, b
     torch.cuda.empty_cache()
 print(json.dumps(out))
 """
@@ -217,6 +284,34 @@ for n, dtype in TRANSFERS:
                   f"picked tile's output {same}"
                   + (" (picked)" if (ty, tz) == pick else ""))
     del case, calls, ref
+    torch.cuda.empty_cache()
+
+from tpufem_torch.ops import stencil_cuda as sc
+
+picked_const = sc.const_tiling
+for label, dim, n, cdt, _ in CONSTS[:-1]:
+    lv, code, x, b = const_case(dim, n, cdt)
+    fn, nbytes = const_calls(label, lv, code, x, b, ("smooth",))["smooth"]
+    ref = fn()
+    k, sg = len(lv.plan.offsets), tuple(lv.plan.store_grid)
+    pick = picked_const(k, x.element_size(), sg, code.element_size())[:2]
+    for ty in sc.CONST_TILE_ROWS:
+        smem = sc.const_smem(k, x.element_size(), ty, code.element_size())
+        for tz in sorted({1, 2, 3, 4, 6, 8, 12, 16, 24, 32, pick[1]}):
+            grid = sc._const_grid(k, sg, ty, tz)
+            sc.const_tiling = lambda *a, t=(ty, tz, smem, grid): t
+            try:
+                same = torch.equal(fn(), ref)
+                ms = cuda_ms(fn, reps=50)
+            finally:
+                sc.const_tiling = picked_const
+            blocks = grid[0] * grid[1] * grid[2]
+            print(f"# {label} {str(cdt)[6:]} smooth, tile {ty} rows x {tz} "
+                  f"planes ({smem} B, {blocks} blocks): {ms:.4f} ms (bound "
+                  f"{nbytes / 3.35e12 * 1e3:.4f} ms), equal to the picked "
+                  f"tile's output {same}"
+                  + (" (picked)" if (ty, tz) == pick else ""))
+    del lv, code, x, b, ref
     torch.cuda.empty_cache()
 """
 

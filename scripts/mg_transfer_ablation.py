@@ -34,7 +34,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 _WAIT = ("    cp_async_wait_all();\n    __syncthreads();\n    stage(i);",
          "    __syncthreads();\n    stage(i);")
 _STAGE = ("    stage(i);\n", "    cp_async_commit();\n")
-_TAPS = ("taps<T, RW>(below, mid, above, j, op)", "mid[j]")
+_TAPS = ("tpufem::taps<kOffsets, RW>(below, mid, above, j, op)", "mid[j]")
 _PROLONG = ("  const bool ok_lo = az.ok_lo && ay.ok_lo && ax.ok_lo;",
             "  if (g.n0 >= 0) return T(0);\n"
             "  const bool ok_lo = az.ok_lo && ay.ok_lo && ax.ok_lo;")

@@ -1,5 +1,6 @@
 """CUDA kernels K1-K4 (the tiled K3 and K4 over every level pair and
-tile shape), B3-B5, B5b, B7, B8, the ELL kernels B9-B11, the BCSR kernel
+tile shape), B3-B5 (the staged B5 over every level, tile shape and type
+pair), B5b, B7, B8, the ELL kernels B9-B11, the BCSR kernel
 B12, the fused assembly B13, the block sum B14 and SAXPY B15 against their
 plain PyTorch versions on the card.
 
@@ -582,6 +583,8 @@ def test_blocked_const_stencil_matches_plain_and_flat(dev, code_dt, vec_dt,
                                                           1.0)
     _close(out, ref, vec_dt)
     _close(out, flat, vec_dt)
+    # the route launches B5's kernel on the same store grid
+    assert torch.equal(out, flat)
 
 
 def test_routed_wrappers_launch_the_blocked_kernels(dev, monkeypatch):
@@ -600,6 +603,205 @@ def test_routed_wrappers_launch_the_blocked_kernels(dev, monkeypatch):
                                            con.plan)
     torch.cuda.synchronize()
     assert [c.launches - n for c, n in zip(counters, before)] == [2, 1, 0, 0]
+
+
+# -- the tenth slice: B5 (and B5b's route) as one staged kernel -------------
+
+# (code type, vector type) pairs of the const kernel
+_CODE_VEC = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+             (torch.float64, torch.float64)]
+_CONST_EPILOGUES = [("matvec", False), ("residual", False),
+                    ("smooth", False), ("smooth", True)]
+
+
+def _const_vectors(lv, vec_dt, seed):
+    """Random x, b on a const level (zero where the code is 0)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return tuple(torch.where(lv.code.cpu() != 0, torch.randn(
+        lv.plan.num_store_rows, generator=g, dtype=vec_dt), 0.0).to(
+        lv.code.device) for _ in range(2))
+
+
+def _const_case(dev, dim, n, vec_dt, seed):
+    """The finest level of the const hierarchy of n (3D or 2D) and random
+    x, b on the card."""
+    lv = build_poisson_multigrid((-3.0, 3.0), n, dim, dtype=vec_dt,
+                                 operator="const", device=dev)[0]
+    return (lv, *_const_vectors(lv, vec_dt, seed))
+
+
+def _const_calls(lv, code, x, b):
+    """B5's four epilogues on one level: [y, y, y, (y, dot)]."""
+    out = []
+    for ep, wd in _CONST_EPILOGUES:
+        out.append(const_stencil_apply(
+            ep, lv.weights, code, x, lv.plan.offsets,
+            b=None if ep == "matvec" else b, with_dot=wd))
+    torch.cuda.synchronize()
+    return out
+
+
+def _same_outputs(got, want, dot_exact=True):
+    for g, w in zip(got, want):
+        if isinstance(w, tuple):
+            assert torch.equal(g[0], w[0])
+            if dot_exact:
+                assert torch.equal(g[1], w[1])
+            else:
+                _dot_close(g[1], w[1])
+        else:
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dim,n", [(3, 8), (3, 12), (3, 16), (3, 24),
+                                   (3, 64), (3, 96), (2, 64), (2, 128),
+                                   (2, 256), (2, 512), (2, 1024)])
+@pytest.mark.parametrize("code_vec", _CODE_VEC, ids=str)
+def test_tiled_const_stencil_matches_plain_on_every_level(dev, dim, n,
+                                                         code_vec):
+    """The staged B5 against its plain version on every level of the const
+    hierarchy of n, all four epilogues, each launch counted."""
+    ct, vt = code_vec
+    levels = build_poisson_multigrid((-3.0, 3.0), n, dim, dtype=vt,
+                                     operator="const", device=dev)
+    for i, lv in enumerate(levels):
+        x, b = _const_vectors(lv, vt, n + i)
+        code = lv.code.to(ct)
+        before = const_stencil_apply.launches
+        got = _const_calls(lv, code, x, b)
+        assert const_stencil_apply.launches == before + 4
+        for (ep, wd), out in zip(_CONST_EPILOGUES, got):
+            ref = const_stencil_apply_plain(
+                ep, lv.weights, code, x, lv.plan.offsets,
+                b=None if ep == "matvec" else b, with_dot=wd)
+            if wd:
+                (out, d), (ref, d_ref) = out, ref
+                _dot_close(d, d_ref)
+            _close(out, ref, vt)
+
+
+def _forced_const_tiling(ty, tz):
+    """const_tiling with the tile (ty, tz)."""
+    def tiling(k, itemsize, store_grid, code_itemsize=None):
+        return (ty, tz, stencil_cuda.const_smem(k, itemsize, ty,
+                                                code_itemsize),
+                stencil_cuda._const_grid(k, store_grid, ty, tz))
+
+    return tiling
+
+
+@pytest.mark.parametrize("dim,n,ty,tz", [
+    (3, 96, 6, 5), (3, 96, 4, 7), (3, 96, 8, 1), (3, 96, 8, 200),
+    (2, 1024, 6, 5), (2, 1024, 8, 1), (2, 1024, 4, 2000), (2, 1024, 4, 7)])
+@pytest.mark.parametrize("code_vec", _CODE_VEC, ids=str)
+def test_tiled_const_stencil_bit_equal_over_tiles(dev, monkeypatch, dim, n,
+                                                  ty, tz, code_vec):
+    """A tile whose rows (6 of 104; 2D bands of 6 of 1032) or planes (5, 7;
+    2D bands) do not divide the store grid, one plane or band per block or
+    one range for the whole grid gives the picked tile's outputs bit for
+    bit, and the dot within 1e-4."""
+    ct, vt = code_vec
+    lv, x, b = _const_case(dev, dim, n, vt, 17)
+    code = lv.code.to(ct)
+    ref = _const_calls(lv, code, x, b)
+    monkeypatch.setattr(stencil_cuda, "const_tiling",
+                        _forced_const_tiling(ty, tz))
+    _same_outputs(_const_calls(lv, code, x, b), ref, dot_exact=False)
+
+
+@pytest.mark.parametrize("dim,n", [(3, 12), (3, 96), (2, 64)])
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_tiled_const_stencil_writes_every_row(dev, monkeypatch, dim, n,
+                                              dtype):
+    """Every row is written (padding 0, Dirichlet x), also where the
+    output's memory held NaN before the call."""
+    lv, x, b = _const_case(dev, dim, n, dtype, 3)
+    monkeypatch.setattr(stencil_cuda, "_new_output",
+                        lambda size, **kw: torch.full((size,), float("nan"),
+                                                      **kw))
+    for (ep, wd), out in zip(_CONST_EPILOGUES,
+                             _const_calls(lv, lv.code, x, b)):
+        out = out[0] if wd else out
+        assert not out.isnan().any()
+        assert (out[lv.code == 0] == 0).all()    # x and b are 0 there
+        ref = const_stencil_apply_plain(ep, lv.weights, lv.code, x,
+                                        lv.plan.offsets,
+                                        b=None if ep == "matvec" else b)
+        _close(out, ref, dtype)
+    matvec = _const_calls(lv, lv.code, x, b)[0]
+    assert torch.equal(matvec[lv.code == 2], x[lv.code == 2])
+
+
+@pytest.mark.parametrize("dim,n", [(3, 96), (2, 1024)])
+@pytest.mark.parametrize("code_vec", _CODE_VEC, ids=str)
+def test_tiled_const_stencil_repeats_bit_identical(dev, dim, n, code_vec):
+    """Two launches on the same inputs give the same outputs bit for bit,
+    the dot included (per-block partials summed in a fixed order)."""
+    ct, vt = code_vec
+    lv, x, b = _const_case(dev, dim, n, vt, 5)
+    code = lv.code.to(ct)
+    first, second = (_const_calls(lv, code, x, b) for _ in range(2))
+    _same_outputs(second, first)
+
+
+@pytest.mark.parametrize("off", ["code", "x", "b", "all"])
+@pytest.mark.parametrize("dim,n", [(3, 24), (2, 64)])
+@pytest.mark.parametrize("code_vec", _CODE_VEC, ids=str)
+def test_tiled_const_stencil_on_views_off_16_bytes(dev, dim, n, code_vec,
+                                                   off):
+    """Contiguous views that start off a 16-byte boundary (their planes
+    then staged element by element; a bf16 code plane two bytes at a time)
+    give the aligned call's outputs bit for bit, and the dot within
+    1e-4."""
+    ct, vt = code_vec
+    lv, x, b = _const_case(dev, dim, n, vt, 11)
+    code = lv.code.to(ct)
+    ref = _const_calls(lv, code, x, b)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        v = buf[1:]
+        v.copy_(t)
+        assert v.data_ptr() % 16 != 0
+        return v
+
+    if off in ("code", "all"):
+        code = shifted(code)
+    if off in ("x", "all"):
+        x = shifted(x)
+    if off in ("b", "all"):
+        b = shifted(b)
+    _same_outputs(_const_calls(lv, code, x, b), ref, dot_exact=False)
+
+
+@pytest.mark.parametrize("dim,ty", [(3, 5), (3, 2), (2, 1), (2, 7)])
+def test_tiled_const_refused_tile_or_grid_raises(dev, monkeypatch, dim, ty):
+    """A tile whose rows the launcher has no kernel for is refused at
+    launch and raises; so is a store grid that is not the offsets'."""
+    lv, x, b = _const_case(dev, dim, 24, torch.float32, 1)
+    assert ty not in stencil_cuda.CONST_TILE_ROWS
+    sg = tuple(lv.plan.store_grid)
+    with pytest.raises(ValueError, match="store grid"):
+        const_stencil_apply("matvec", lv.weights, lv.code, x,
+                            lv.plan.offsets,
+                            store_grid=(sg[0] * 2, sg[1] // 2) + sg[2:])
+    monkeypatch.setattr(stencil_cuda, "const_tiling",
+                        _forced_const_tiling(ty, 2))
+    with pytest.raises(RuntimeError, match="const_smooth"):
+        const_stencil_apply("smooth", lv.weights, lv.code, x,
+                            lv.plan.offsets, b=b)
+
+
+def test_const_smem_matches_the_launcher(dev):
+    """The planner's shared memory per block is the launcher's, for both
+    stencils, the three type pairs and tile rows from 1 to 16."""
+    lib = stencil_cuda._const_lib()
+    for k in (15, 7):
+        for itemsize, code_itemsize in ((4, 4), (4, 2), (8, 8)):
+            for ty in range(1, 17):
+                assert lib.tpufem_const_smem(k, itemsize, code_itemsize,
+                                             ty) == stencil_cuda.const_smem(
+                    k, itemsize, ty, code_itemsize)
 
 
 def _ell_case(dev, dtype, n=3000, k=8, band=300):

@@ -74,30 +74,29 @@
 // barriers), not bytes: scripts/mg_transfer_ablation.py, PERF.md.
 #include <cuda_runtime.h>
 
-#include <cstdint>
-#include <initializer_list>
-
 #include "common.cuh"
 
 namespace {
+
+using tpufem::aligned16;
+using tpufem::allow_smem;
+using tpufem::Box;
+using tpufem::ceil_div;
+using tpufem::chunk;
+using tpufem::cp_async_commit;
+using tpufem::cp_async_wait_all;
 
 constexpr int kOffsets = 15;
 constexpr int kThreads = tpufem::kBlock;
 constexpr int kTileX = 128;               // fine store columns of a tile
 constexpr int kCoarseX = kTileX / 2;      // K3: coarse columns of a tile
-constexpr int kMaxDevices = 64;
 
-// The 3D Kuhn stencil's grid steps (dz, dy, dx) in the embedded plan's
-// offset order (flat offsets ascending, i.e. lexicographic steps).  The
-// taps' shared-memory offsets are compile-time constants; the launcher
-// checks the level's steps against this table.
-__host__ __device__ constexpr int kuhn_step(int k, int axis) {
-  constexpr int steps[kOffsets][3] = {
-      {-1, -1, -1}, {-1, -1, 0}, {-1, 0, -1}, {-1, 0, 0}, {0, -1, -1},
-      {0, -1, 0},   {0, 0, -1},  {0, 0, 0},   {0, 0, 1},  {0, 1, 0},
-      {0, 1, 1},    {1, 0, 0},   {1, 0, 1},   {1, 1, 0},  {1, 1, 1}};
-  return steps[k][axis];
-}
+// The shared helpers (common.cuh) at this file's stencil and block size:
+// the Kuhn split's 15 taps, the staged planes of a 256-thread block.
+template <typename T>
+using ConstOp = tpufem::ConstOp<kOffsets, T>;
+template <typename T, int W, int ROWS>
+using Stage = tpufem::Stage<T, W, ROWS, kThreads>;
 
 // Kuhn-split adjacency (tpufem/ops/mg_transfer_pallas.py
 // _adjacency_offsets_3d), in the order the reference sums it.
@@ -109,31 +108,11 @@ __host__ __device__ constexpr int kuhn_adj(int j, int axis) {
   return adj[j][axis];
 }
 
-// The level's weights, 1 / w0 and omega in the vector type (rounded on
-// the host as the device would round them), passed by value.
-template <typename T>
-struct ConstOp {
-  T w[kOffsets];
-  T inv_w0;
-  T omega;
-};
-
 struct Dims {
   int f0, f1, f2;  // fine store grid
   int c0, c1, c2;  // coarse store grid
   int n0, n1, n2;  // coarse node grid
 };
-
-// A block stages positions [0, hi) on each axis; 0 outside.
-struct Box {
-  int z1, y1, x1;
-};
-
-// Values a 16-byte chunk holds.
-template <typename T>
-__host__ __device__ constexpr int chunk() {
-  return 16 / static_cast<int>(sizeof(T));
-}
 
 // Raw and masked plane rows: K4 stages its 128 columns and one 16-byte
 // chunk either side (for the halo column); K3 the fine columns
@@ -164,122 +143,6 @@ size_t rr_smem(int ty) {
           4 * qr * kResRow) *
              sizeof(T) +
          flags;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// cp.async of BYTES (4, 8 or 16) into shared memory; src_bytes 0 fills
-// zeros and reads nothing.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         int src_bytes) {
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(src_bytes)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "n"(BYTES), "r"(src_bytes)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Copy rows [y_lo, y_lo + rows) x columns [x_lo, x_lo + W) of store
-// plane z into dst (row stride W) element by element, 0 outside the box:
-// the staging of a tile whose source is not 16-byte aligned.
-template <typename T, int W>
-__device__ __forceinline__ void stage_elements(T* dst,
-                                               const T* __restrict__ src,
-                                               int z, int y_lo, int rows,
-                                               int x_lo, const Box& box,
-                                               int f1, int f2) {
-  const bool zok = z >= 0 && z < box.z1;
-  for (int i = threadIdx.x; i < rows * W; i += kThreads) {
-    const int row = i / W, col = i - row * W;
-    const int y = y_lo + row, x = x_lo + col;
-    const bool ok = zok && y >= 0 && y < box.y1 && x >= 0 && x < box.x1;
-    const T* s = ok ? src + (static_cast<long long>(z) * f1 + y) * f2 + x
-                    : src;
-    cp_async<sizeof(T)>(dst + i, s, ok ? static_cast<int>(sizeof(T)) : 0);
-  }
-}
-
-// A thread's share of a tile staged plane after plane (ROWS rows of W
-// values from row y_lo, column x_lo; x_lo and W whole 16-byte chunks):
-// each chunk's offset in the tile and in a store plane, and whether it
-// lies in the box's rows and columns.  Planned once per block, so that a
-// plane's copy costs each thread a few instructions per chunk.
-template <typename T, int W, int ROWS>
-struct Stage {
-  static constexpr int kChunks = ROWS * (W / chunk<T>());
-  static constexpr int kN = (kChunks + kThreads - 1) / kThreads;
-  int tile[kN];   // -1: no chunk
-  int plane[kN];
-  bool ok[kN];
-
-  __device__ __forceinline__ Stage(int y_lo, int x_lo, const Box& box,
-                                   int f2) {
-    constexpr int H = chunk<T>(), NC = W / H;
-#pragma unroll
-    for (int n = 0; n < kN; ++n) {
-      const int i = threadIdx.x + n * kThreads;
-      const int row = i / NC, ch = i - row * NC;
-      const int y = y_lo + row, x = x_lo + ch * H;
-      tile[n] = i < kChunks ? row * W + ch * H : -1;
-      ok[n] = y >= 0 && y < box.y1 && x >= 0 && x < box.x1;
-      plane[n] = ok[n] ? y * f2 + x : 0;
-    }
-  }
-
-  // Copy store plane z of src into dst, 0 outside the box; a chunk that
-  // starts inside the box is copied whole (the store rows are whole
-  // chunks).  Element by element where a pointer is not 16-byte aligned
-  // (vec false).
-  __device__ __forceinline__ void issue(T* dst, const T* __restrict__ src,
-                                        int z, const Box& box, int f1,
-                                        int f2, int y_lo, int x_lo,
-                                        bool vec) const {
-    if (!vec) {
-      stage_elements<T, W>(dst, src, z, y_lo, ROWS, x_lo, box, f1, f2);
-      return;
-    }
-    const bool zok = z >= 0 && z < box.z1;
-    const T* base = zok ? src + static_cast<long long>(z) * f1 * f2 : src;
-#pragma unroll
-    for (int n = 0; n < kN; ++n) {
-      if (tile[n] < 0) continue;
-      const bool in = zok && ok[n];
-      cp_async<16>(dst + tile[n], in ? base + plane[n] : src, in ? 16 : 0);
-    }
-  }
-};
-
-// A_const's interior row from a ring of three masked planes (the row's
-// plane and its neighbours below and above), the taps in offset order.
-template <typename T, int W>
-__device__ __forceinline__ T taps(const T* below, const T* mid,
-                                  const T* above, int j,
-                                  const ConstOp<T>& op) {
-  T acc = T(0);
-#pragma unroll
-  for (int k = 0; k < kOffsets; ++k) {
-    const int dz = kuhn_step(k, 0);
-    const T* pl = dz < 0 ? below : (dz > 0 ? above : mid);
-    acc += op.w[k] * pl[j + kuhn_step(k, 1) * W + kuhn_step(k, 2)];
-  }
-  return acc;
 }
 
 // Rows of a K3 / K4 tile the launchers instantiate (the tile rows are a
@@ -424,7 +287,8 @@ residual_restrict_kernel(const T* __restrict__ code_f,
         if (row < QR) {
           const int yy = 2 * Y0 - 2 + row;
           const int j = (row + 1) * RW + col + 2, jq = row * kResRow + col;
-          const T t = taps<T, RW>(below, mid, above, j, op);
+          const T t =
+              tpufem::taps<kOffsets, RW>(below, mid, above, j, op);
           const T ax = f[jq] ? t : q[jq];
           v[k] = xin && yy >= 0 && yy <= 2 * g.n1 ? rr[row * RW + col + 2] - ax
                                                  : T(0);
@@ -435,7 +299,7 @@ residual_restrict_kernel(const T* __restrict__ code_f,
         const int row = threadIdx.x, yy = 2 * Y0 - 2 + row;
         const int j = (row + 1) * RW + kTileX + 2;
         const int jq = row * kResRow + kTileX;
-        const T t = taps<T, RW>(below, mid, above, j, op);
+        const T t = tpufem::taps<kOffsets, RW>(below, mid, above, j, op);
         const T ax = f[jq] ? t : q[jq];
         if (xlast && yy >= 0 && yy <= 2 * g.n1)
           vl = rr[row * RW + kTileX + 2] - ax;
@@ -623,7 +487,7 @@ prolong_add_smooth_kernel(const T* __restrict__ code_f,
       const int row = rg + 2 * k, yy = y0 + row;
       const int j = (row + 1) * RW + col + H, jc = row * kTileX + col;
       const T c = cc[j], v = ep[jc], rv = rr[jc];
-      const T t = taps<T, RW>(below, mid, above, j, op);
+      const T t = tpufem::taps<kOffsets, RW>(below, mid, above, j, op);
       const T ax = c == T(1) ? t : (c == T(2) ? v : T(0));
       const T invd = c == T(1) ? op.inv_w0 : T(1);
       const T out = v + op.omega * invd * (rv - ax);
@@ -641,15 +505,6 @@ prolong_add_smooth_kernel(const T* __restrict__ code_f,
   }
 }
 
-template <typename T>
-ConstOp<T> make_op(const double* weights, double inv_w0, double omega) {
-  ConstOp<T> op;
-  for (int i = 0; i < kOffsets; ++i) op.w[i] = static_cast<T>(weights[i]);
-  op.inv_w0 = static_cast<T>(inv_w0);
-  op.omega = static_cast<T>(omega);
-  return op;
-}
-
 Dims make_dims(const int* fine_sg, const int* coarse_sg,
                const int* coarse_ng) {
   return Dims{fine_sg[0],   fine_sg[1],   fine_sg[2],
@@ -661,43 +516,10 @@ Dims make_dims(const int* fine_sg, const int* coarse_sg,
 // stencil's steps in the plan's order; tiles of at least one row and
 // plane.
 bool valid(const Dims& g, const int* grid_offsets, int ty, int tz) {
-  for (int k = 0; k < kOffsets; ++k)
-    for (int a = 0; a < 3; ++a)
-      if (grid_offsets[3 * k + a] != kuhn_step(k, a)) return false;
-  return ty >= 1 && tz >= 1 && g.f2 % kTileX == 0 && g.c2 % kCoarseX == 0 &&
+  return tpufem::is_tap_table<kOffsets>(grid_offsets, kOffsets) &&
+         ty >= 1 && tz >= 1 && g.f2 % kTileX == 0 && g.c2 % kCoarseX == 0 &&
          2 * g.n0 + 1 < g.f0 && 2 * g.n1 + 1 < g.f1 && 2 * g.n2 + 1 < g.f2 &&
          g.n0 < g.c0 && g.n1 < g.c1 && g.n2 < g.c2;
-}
-
-bool aligned16(std::initializer_list<const void*> ptrs) {
-  uintptr_t bits = 0;
-  for (const void* p : ptrs) bits |= reinterpret_cast<uintptr_t>(p);
-  return (bits & 15u) == 0;
-}
-
-// Raise a kernel's dynamic shared memory limit to `bytes` (once per
-// kernel, device and size); 0 or the CUDA error.
-template <auto Kernel>
-int allow_smem(size_t bytes) {
-  static size_t allowed[kMaxDevices] = {};
-  if (bytes <= 48 * 1024) return 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev < kMaxDevices && allowed[dev] >= bytes) return 0;
-  err = cudaFuncSetAttribute(Kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // reported here, not by the next launch
-    return static_cast<int>(err);
-  }
-  if (dev < kMaxDevices) allowed[dev] = bytes;
-  return 0;
-}
-
-unsigned int ceil_div(int a, int b) {
-  return static_cast<unsigned int>((a + b - 1) / b);
 }
 
 template <typename T>
@@ -708,7 +530,7 @@ int launch_rr(const T* code_f, const T* code_c, const T* r, const T* e, T* rc,
   const Dims g = make_dims(fine_sg, coarse_sg, coarse_ng);
   if (k != kOffsets || !valid(g, grid_offsets, ty, tz))
     return static_cast<int>(cudaErrorInvalidValue);
-  const ConstOp<T> op = make_op<T>(weights, 0.0, 0.0);
+  const ConstOp<T> op = tpufem::make_const_op<kOffsets, T>(weights, 0.0, 0.0);
   const size_t smem = rr_smem<T>(ty);
   const dim3 grid(g.c2 / kCoarseX, ceil_div(g.c1, ty), ceil_div(g.c0, tz));
   const bool vec = aligned16({code_f, code_c, r, e});
@@ -737,7 +559,8 @@ int launch_pas(const T* code_f, const T* ec, const T* r, const T* e, T* y,
   const Dims g = make_dims(fine_sg, coarse_sg, coarse_ng);
   if (k != kOffsets || !valid(g, grid_offsets, ty, tz))
     return static_cast<int>(cudaErrorInvalidValue);
-  const ConstOp<T> op = make_op<T>(weights, inv_w0, omega);
+  const ConstOp<T> op =
+      tpufem::make_const_op<kOffsets, T>(weights, inv_w0, omega);
   const size_t smem = pas_smem<T>(ty);
   const dim3 grid(g.f2 / kTileX, ceil_div(g.f1, ty), ceil_div(g.f0, tz));
   const bool vec = aligned16({code_f, r, e});

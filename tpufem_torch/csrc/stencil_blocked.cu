@@ -1,28 +1,26 @@
-// Blocked stencil kernels for large 3D store grids: kernel B3 (the
-// general-coefficient stencil with K2/B4's five epilogues) and kernel B5b
-// (the const-weight stencil with B5's four epilogues).
+// Blocked stencil kernel for large 3D store grids: kernel B3, the
+// general-coefficient stencil with K2/B4's five epilogues.
 //
-// Replace tpufem/ops/stencil_pallas.py::_kernel2, ::_kernel2_residual,
-// ::_kernel2_smooth, ::_kernel2_matvec_dot, ::_kernel2_smooth_dot (B3) and
-// ::_kernel2_const_matvec, ::_kernel2_const_residual, ::_kernel2_const_smooth,
-// ::_kernel2_const_smooth_dot (B5b): the (Bz, By)-blocked twins that the
-// reference runs instead of the flat kernels once a grid passes its
-// _needs_2d rule (about 300^3).  They compute the same functions as K2/B4
-// and B5 (stencil.cu, const_stencil.cu), whose epilogues, dot and rounding
-// they share (common.cuh).  The wrappers carry the reference's routing rule
-// over unchanged; on this card it is a routing rule, not a memory limit.
+// Replaces tpufem/ops/stencil_pallas.py::_kernel2, ::_kernel2_residual,
+// ::_kernel2_smooth, ::_kernel2_matvec_dot and ::_kernel2_smooth_dot: the
+// (Bz, By)-blocked twins that the reference runs instead of the flat
+// kernels once a grid passes its _needs_2d rule (about 300^3).  B3 computes
+// the same functions as K2/B4 (stencil.cu), whose epilogues, dot and
+// rounding it shares (common.cuh).  The wrappers carry the reference's
+// routing rule over unchanged; on this card it is a routing rule, not a
+// memory limit.  The const-weight twins (B5b, ::_kernel2_const_*) compute
+// B5's function, and their route launches B5's staged kernel
+// (const_stencil.cu) on the same store grid.
 //
 // Bound on the card: bytes, as for the flat kernels: per row K coefficient
-// planes (B3) or the code plane (B5b), the epilogue's vectors and one y.
-// Design, for this card rather than block by block from the TPU: one CTA per
-// (z tile of BZ rows, y tile of 8 rows, 128-wide x strip) of the store grid
-// (store axes are multiples of 8, 8 and 128).  The CTA loads the haloed
-// x slab [BZ+2][10][130] into shared memory once (for B5b the slab holds x
-// already masked by its code: a neighbour counts when its code is 1, so the
-// code slab folds into it), then each thread walks its x column down the
-// tile's rows: the 15 neighbours come from the slab, every data plane and
-// vector streams from HBM in coalesced 128-wide rows.  The offset count is
-// a compile-time 15 and B3 works on two rows at a time, so 30 coefficient
+// planes, the epilogue's vectors and one y.  Design, for this card rather
+// than block by block from the TPU: one CTA per (z tile of BZ rows, y tile
+// of 8 rows, 128-wide x strip) of the store grid (store axes are multiples
+// of 8, 8 and 128).  The CTA loads the haloed x slab [BZ+2][10][130] into
+// shared memory once, then each thread walks its x column down the tile's
+// rows: the 15 neighbours come from the slab, every data plane and vector
+// streams from HBM in coalesced 128-wide rows.  The offset count is a
+// compile-time 15 and B3 works on two rows at a time, so 30 coefficient
 // loads are in flight at once: with a run-time count and one row at a time
 // B3's fp32 matvec at n=384 took 2.57 ms against the flat K2's 1.83
 // (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py).  The slab's halo is
@@ -67,13 +65,6 @@ constexpr int kOffsets = 15;
 // Offsets as slab index deltas: dz * kSY * kSX + dy * kSX + dx.
 struct Steps {
   int delta[kOffsets];
-};
-
-struct ConstSteps {
-  int delta[kOffsets];
-  double w[kOffsets];
-  double inv_w0;
-  double omega;
 };
 
 __device__ __forceinline__ long long block_id() {
@@ -141,53 +132,6 @@ stencil_blocked_kernel(const TD* __restrict__ data, const TV* __restrict__ x,
     } else {
       out = slab[c] +
             tpufem::omega_inv_diag<TD, TV>(omega, inv_diag[i]) * (b[i] - acc);
-      part += static_cast<double>(b[i]) * static_cast<double>(out);
-    }
-    y[i] = out;
-  }
-  if (partials != nullptr) {
-    part = tpufem::block_sum<tpufem::kBlock>(part);
-    if (threadIdx.x == 0) partials[block_id()] = part;
-  }
-}
-
-template <int EPI, typename TC, typename T, int BZ>
-__global__ void __launch_bounds__(tpufem::kBlock)
-const_stencil_blocked_kernel(const TC* __restrict__ code,
-                             const T* __restrict__ x,
-                             const T* __restrict__ b, T* __restrict__ y,
-                             double* __restrict__ partials, Grid g,
-                             ConstSteps st) {
-  __shared__ T slab[(BZ + 2) * kSY * kSX];
-  const long long ns = static_cast<long long>(g.s0) * g.s1 * g.s2;
-  // x masked to the interior rows: the neighbours an interior row counts
-  load_slab<BZ>(slab, g, ns, [&](long long j) {
-    return T(tpufem::widen(code[j])) == T(1) ? x[j] : T(0);
-  });
-  double part = 0.0;
-  for (int p = threadIdx.x / kBX; p < BZ * kBY; p += kColumns) {
-    long long i;
-    int c;
-    tile_row<BZ>(p, g, i, c);
-    const T ci = T(tpufem::widen(code[i]));
-    T ax;
-    if (ci != T(1)) {
-      ax = ci == T(2) ? x[i] : T(0);   // Dirichlet rows: identity
-    } else {
-      ax = T(0);
-#pragma unroll
-      for (int k = 0; k < kOffsets; ++k) {
-        ax += T(st.w[k]) * slab[c + st.delta[k]];
-      }
-    }
-    T out;
-    if (EPI == kMatvec) {
-      out = ax;
-    } else if (EPI == kResidual) {
-      out = b[i] - ax;
-    } else {
-      const T invd = ci == T(1) ? T(st.inv_w0) : T(1);
-      out = x[i] + T(st.omega) * invd * (b[i] - ax);
       part += static_cast<double>(b[i]) * static_cast<double>(out);
     }
     y[i] = out;
@@ -274,48 +218,6 @@ int stencil_dispatch(int epilogue, const void* data, const void* x,
   return finish(static_cast<TV*>(dot), partials, grid, s);
 }
 
-template <typename TC, typename T>
-int const_dispatch(int epilogue, const void* code, const void* x,
-                   const void* b, void* y, double* partials, void* dot,
-                   int s0, int s1, int s2, const int* steps,
-                   const double* weights, int k, double inv_w0, double omega,
-                   void* stream) {
-  constexpr int BZ = tile_z<T>();
-  const Grid g{s0, s1, s2};
-  dim3 grid;
-  ConstSteps st;
-  if (!tiles<BZ>(g, grid) || !slab_deltas(steps, k, st.delta) ||
-      (dot != nullptr && epilogue != kSmooth)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  for (int i = 0; i < k; ++i) st.w[i] = weights[i];
-  st.inv_w0 = inv_w0;
-  st.omega = omega;
-  const TC* c = static_cast<const TC*>(code);
-  const T* xv = static_cast<const T*>(x);
-  const T* bv = static_cast<const T*>(b);
-  T* yv = static_cast<T*>(y);
-  double* part = dot != nullptr ? partials : nullptr;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (epilogue) {
-    case kMatvec:
-      const_stencil_blocked_kernel<kMatvec, TC, T, BZ>
-          <<<grid, tpufem::kBlock, 0, s>>>(c, xv, bv, yv, part, g, st);
-      break;
-    case kResidual:
-      const_stencil_blocked_kernel<kResidual, TC, T, BZ>
-          <<<grid, tpufem::kBlock, 0, s>>>(c, xv, bv, yv, part, g, st);
-      break;
-    case kSmooth:
-      const_stencil_blocked_kernel<kSmooth, TC, T, BZ>
-          <<<grid, tpufem::kBlock, 0, s>>>(c, xv, bv, yv, part, g, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return finish(static_cast<T*>(dot), partials, grid, s);
-}
-
 }  // namespace
 
 extern "C" {
@@ -341,25 +243,6 @@ TPUFEM_BLOCKED_ENTRY(tpufem_stencil_blocked_bf16_f32, __nv_bfloat16, float)
 TPUFEM_BLOCKED_ENTRY(tpufem_stencil_blocked_f64, double, double)
 
 #undef TPUFEM_BLOCKED_ENTRY
-
-// B5b.  epilogue: 0 matvec, 1 residual, 2 smooth (dot <b, y> when dot !=
-// NULL); weights: the k = 15 interior weights; otherwise as B3.
-#define TPUFEM_CONST_BLOCKED_ENTRY(NAME, TC, T)                              \
-  int NAME(int epilogue, const void* code, const void* x, const void* b,    \
-           void* y, double* partials, void* dot, int s0, int s1, int s2,    \
-           const int* steps, const double* weights, int k, double inv_w0,   \
-           double omega, void* stream) {                                    \
-    return const_dispatch<TC, T>(epilogue, code, x, b, y, partials, dot,    \
-                                 s0, s1, s2, steps, weights, k, inv_w0,     \
-                                 omega, stream);                            \
-  }
-
-TPUFEM_CONST_BLOCKED_ENTRY(tpufem_const_stencil_blocked_f32, float, float)
-TPUFEM_CONST_BLOCKED_ENTRY(tpufem_const_stencil_blocked_bf16_f32,
-                           __nv_bfloat16, float)
-TPUFEM_CONST_BLOCKED_ENTRY(tpufem_const_stencil_blocked_f64, double, double)
-
-#undef TPUFEM_CONST_BLOCKED_ENTRY
 
 // Launch blocks (= dot partial slots) of a store grid for vectors of
 // vec_bytes bytes; 0 if the grid does not tile.

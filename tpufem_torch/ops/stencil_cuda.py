@@ -12,9 +12,13 @@ B5 ``const_stencil_apply`` replaces ::_kernel_const_matvec,
 ::_kernel_const_residual, ::_kernel_const_smooth and
 ::_kernel_const_smooth_dot: the same epilogues on the uniform-grid operator
 (K = 7 or 15 weights + row-type code plane).
-B3 ``stencil_blocked_apply`` replaces ::_kernel2* and B5b
-``const_stencil_blocked_apply`` replaces ::_kernel2_const_*: the same
-functions, tiled for large 3D grids.
+B3 ``stencil_blocked_apply`` replaces ::_kernel2* (K2's and B4's
+functions, tiled for large 3D grids) and B5b ``const_stencil_blocked_apply``
+replaces ::_kernel2_const_*: B5's function, which it computes with B5's
+kernel on the same store grid.  That kernel stages tiles of 128 store
+columns through shared memory and marches over ranges of planes;
+``const_tiling`` picks each launch's tile, and ``const_store_grid`` derives
+the store grid from a level's flat offsets where a caller gives none.
 
 Routing: given the store grid (the ``*_embedded`` functions pass their
 plan's), ``stencil_apply``, ``stencil_fused_apply`` and
@@ -45,6 +49,8 @@ __all__ = ["stencil_apply", "stencil_apply_plain",
            "const_stencil_apply", "const_stencil_apply_plain",
            "stencil_blocked_apply", "const_stencil_blocked_apply",
            "const_matvec_plain", "omega_inv_diag",
+           "const_store_grid", "const_tiling", "const_smem",
+           "CONST_TILE_ROWS",
            "stencil_matvec_embedded", "stencil_matvec_dot_embedded",
            "stencil_residual_embedded", "stencil_smooth_embedded",
            "stencil_smooth_dot_embedded",
@@ -56,7 +62,7 @@ _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _D = ctypes.c_double
 _STENCIL_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _LL, _P, _I, _D, _P)
-_CONST_ARGS = (_I, _P, _P, _P, _P, _P, _P, _LL, _P, _P, _I, _D, _D, _P)
+_CONST_ARGS = (_I,) + (_P,) * 9 + (_I, _D, _D, _I, _I, _P)
 _STENCIL_ENTRY = {(torch.float32, torch.float32): "tpufem_stencil_f32",
                   (torch.bfloat16, torch.float32): "tpufem_stencil_bf16_f32",
                   (torch.float64, torch.float64): "tpufem_stencil_f64"}
@@ -69,15 +75,11 @@ _STENCIL_SIGNATURES = dict(
     {e: _STENCIL_ARGS for e in _STENCIL_ENTRY.values()},
     tpufem_num_blocks=(_LL,))
 _CONST_SIGNATURES = dict({e: _CONST_ARGS for e in _CONST_ENTRY.values()},
-                         tpufem_num_blocks=(_LL,))
+                         tpufem_const_smem=(_I, _I, _I, _I))
 _BLOCKED_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _D, _P)
-_CONST_BLOCKED_ARGS = (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I,
-                       _D, _D, _P)
 _BLOCKED_SIGNATURES = dict(
     {e.replace("stencil", "stencil_blocked"): _BLOCKED_ARGS
      for e in _STENCIL_ENTRY.values()},
-    **{e.replace("stencil", "stencil_blocked"): _CONST_BLOCKED_ARGS
-       for e in _CONST_ENTRY.values()},
     tpufem_blocked_num_blocks=(_I, _I, _I, _I))
 
 
@@ -394,7 +396,7 @@ def stencil_smooth_dot_embedded(data, r, x, inv_diag, plan, *,
                                with_dot=True, store_grid=plan.store_grid)
 
 
-# -- constant-coefficient (uniform-grid) stencil: B5 --------------------------
+# -- constant-coefficient (uniform-grid) stencil: B5 and B5b ----------------
 
 def const_matvec_plain(weights, code: torch.Tensor, offsets,
                        x: torch.Tensor) -> torch.Tensor:
@@ -436,11 +438,10 @@ def const_stencil_apply_plain(epilogue: str, weights, code, x, offsets, *,
 
 
 def _check_const(epilogue, b, with_dot):
-    code = _epilogue(epilogue, tuple(_EPILOGUE))
+    _epilogue(epilogue, tuple(_EPILOGUE))
     if (epilogue == "matvec") != (b is None) or (
             with_dot and epilogue != "smooth"):
         raise ValueError("matvec takes no b; only the sweep takes a dot")
-    return code
 
 
 def _const_operands(what, weights, code, x, offsets, b):
@@ -462,6 +463,160 @@ def _const_operands(what, weights, code, x, offsets, b):
     return entry
 
 
+# The const stencils' grid steps in the plans' offset order (flat offsets
+# ascending): the 3D Kuhn split (K = 15) and the 2D split (K = 7), as
+# csrc/common.cuh's tap_step, whose launchers refuse any other stencil.
+_CONST_STEPS = {
+    15: ((-1, -1, -1), (-1, -1, 0), (-1, 0, -1), (-1, 0, 0), (0, -1, -1),
+         (0, -1, 0), (0, 0, -1), (0, 0, 0), (0, 0, 1), (0, 1, 0), (0, 1, 1),
+         (1, 0, 0), (1, 0, 1), (1, 1, 0), (1, 1, 1)),
+    7: ((-1, 0), (-1, 1), (0, -1), (0, 0), (0, 1), (1, -1), (1, 0))}
+_TILE_X = 128           # store columns of a tile
+_SMS = 132              # streaming multiprocessors of the H100 SXM
+_SMEM_PER_SM = 233472   # an SM's shared memory, 1 KB of it reserved a block
+_MAX_PLANES = 32
+# the tile rows the launcher has a kernel for (csrc/const_stencil.cu's
+# TPUFEM_CONST_ROWS) and the rows picked per item size (the sweep of
+# scripts/kernel_ab.py --tiles)
+CONST_TILE_ROWS = (4, 6, 8)
+_CONST_ROWS = {4: 8, 8: 6}
+
+# the output allocation of B5 and B5b (a test fills it with NaN first: the
+# kernel must write every row)
+_new_output = torch.empty
+
+
+@functools.lru_cache(maxsize=None)
+def _derived_grid(offsets: tuple, n: int) -> tuple:
+    steps = _CONST_STEPS.get(len(offsets))
+    if steps is None:
+        raise ValueError(f"{len(offsets)} offsets: the const stencils have "
+                         "15 (3D) or 7 (2D)")
+    sg = None
+    if len(offsets) == 15:
+        row, plane = offsets[9], offsets[11]
+        if row > 0 and plane > 0 and plane % row == 0 and n % plane == 0:
+            sg = (n // plane, plane // row, row)
+    elif offsets[6] > 0 and n % offsets[6] == 0:
+        sg = (n // offsets[6], offsets[6])
+    if sg is not None:
+        strides = (sg[1] * sg[2], sg[2], 1) if len(sg) == 3 else (sg[1], 1)
+        flat = tuple(sum(d * t for d, t in zip(step, strides))
+                     for step in steps)
+    if sg is None or flat != offsets:
+        raise ValueError(f"offsets {offsets} are not the {len(offsets)}-"
+                         f"point const stencil on any store grid of {n} "
+                         "rows")
+    return sg
+
+
+def const_store_grid(offsets, n: int, store_grid=None) -> tuple:
+    """The store grid that a const level's flat ``offsets`` over ``n`` rows
+    refer to: the Kuhn split's 15 give S2 (step (0, 1, 0)) and S1 S2 (step
+    (1, 0, 0)), the 2D split's 7 give S1 (step (1, 0)), and n the rest.
+    Raises if the offsets are not the stencil's on that grid, or if a given
+    ``store_grid`` is another."""
+    sg = _derived_grid(tuple(int(o) for o in offsets), int(n))
+    if store_grid is not None and tuple(int(v) for v in store_grid) != sg:
+        raise ValueError(f"store grid {tuple(store_grid)} is not the "
+                         f"offsets' {sg}")
+    return sg
+
+
+def _kernel_grid(store_grid):
+    """The kernel's view of a store grid: a 3D one as it is, a 2D one
+    (S0, S1) as (1, S0, S1)."""
+    sg = tuple(int(v) for v in store_grid)
+    return sg if len(sg) == 3 else (1, *sg)
+
+
+def _const_grid(k, store_grid, ty, tz):
+    """The launch grid of tile (ty, tz): (columns, rows, planes) of tiles
+    in 3D, (columns, 1, bands of ty rows) in 2D."""
+    s0, s1, s2 = _kernel_grid(store_grid)
+    if k == 15:
+        return s2 // _TILE_X, -(-s1 // ty), -(-s0 // tz)
+    bands = -(-s1 // ty)
+    return s2 // _TILE_X, 1, -(-bands // tz)
+
+
+def const_smem(k: int, itemsize: int, ty: int, code_itemsize=None) -> int:
+    """Dynamic shared memory (bytes) of a B5 block with ``ty`` tile rows
+    (csrc/const_stencil.cu's const_smem): x and code, four planes (3D;
+    three bands in 2D) each of ty + 2 rows by 128 columns and a 16-byte
+    chunk either side, the code in its own type, four such planes of the
+    masked x (two in 2D), and two ty x 128 tiles of b."""
+    ci = itemsize if code_itemsize is None else code_itemsize
+    nr, nm = (4, 4) if k == 15 else (3, 2)
+    ry = ty + 2
+    return (((nr + nm) * ry * (_TILE_X + 32 // itemsize)
+             + 2 * ty * _TILE_X) * itemsize
+            + nr * ry * (_TILE_X + 32 // ci) * ci)
+
+
+def const_blocks_per_sm(k: int, itemsize: int, ty: int,
+                        code_itemsize=None) -> int:
+    """Blocks of a tile an SM holds at most, by shared memory and threads
+    (256 a block)."""
+    smem = const_smem(k, itemsize, ty, code_itemsize)
+    return min(2048 // 256, _SMEM_PER_SM // (smem + 1024))
+
+
+@functools.lru_cache(maxsize=None)
+def const_tiling(k: int, itemsize: int, store_grid: tuple,
+                 code_itemsize=None):
+    """(ty, tz, shared memory bytes, grid) of one B5 / B5b launch.
+
+    A block owns 128 store columns and ``ty`` rows of each plane it
+    marches over: in 3D ``tz`` planes of the store grid, in 2D ``tz``
+    bands of ``ty`` rows (every tap of the 2D stencil lies in its band
+    and the halo row either side).  ``ty`` is fixed per item size; ``tz``
+    is the fewest planes (bands) up to 32 whose blocks fit in one wave,
+    the blocks the card holds at once (132 SMs x
+    ``const_blocks_per_sm``), and 32 where none does.  (In the tile sweep
+    a second, part-filled wave cost more than the halo planes of the
+    longer march.)  The grid is (columns, rows, planes) of tiles in 3D,
+    (columns, 1, bands) in 2D."""
+    if _kernel_grid(store_grid)[2] % _TILE_X:
+        raise ValueError(f"store grid {tuple(store_grid)}: rows of "
+                         f"{_TILE_X} columns")
+    ty = _CONST_ROWS[itemsize]
+    cap = _SMS * const_blocks_per_sm(k, itemsize, ty, code_itemsize)
+    tz = next((t for t in range(1, _MAX_PLANES + 1)
+               if math.prod(_const_grid(k, store_grid, ty, t)) <= cap),
+              _MAX_PLANES)
+    return (ty, tz, const_smem(k, itemsize, ty, code_itemsize),
+            _const_grid(k, store_grid, ty, tz))
+
+
+def _launch_const(counter, what, epilogue, weights, code, x, offsets, b,
+                  omega, with_dot, store_grid):
+    """Launch the staged const kernel (B5's, also B5b's) and count it on
+    ``counter``."""
+    entry = _const_operands(what, weights, code, x, offsets, b)
+    k, n = len(offsets), x.shape[0]
+    sg = const_store_grid(offsets, n, store_grid)
+    ty, tz, _, grid = const_tiling(k, x.element_size(), sg,
+                                   code.element_size())
+    steps = [v for step in _CONST_STEPS[k]
+             for v in (step if k == 15 else (0, *step))]
+    lib = _const_lib()
+    with torch.cuda.device(x.device):
+        y = _new_output(n, dtype=x.dtype, device=x.device)
+        dot, partials = _dot_buffers(x, with_dot, math.prod(grid))
+        status = getattr(lib, entry)(
+            _EPILOGUE[epilogue], code.data_ptr(), x.data_ptr(), _ptr(b),
+            y.data_ptr(), _ptr(partials), _ptr(dot),
+            (ctypes.c_int * 3)(*_kernel_grid(sg)),
+            (ctypes.c_int * (3 * k))(*steps),
+            (ctypes.c_double * k)(*(float(w) for w in weights)), k,
+            _inv_w0(weights, offsets), float(omega), ty, tz,
+            stream_handle())
+    check_launch(status, what)
+    counter.launches += 1
+    return (y, dot) if with_dot else y
+
+
 def const_stencil_apply(epilogue: str, weights, code: torch.Tensor,
                         x: torch.Tensor, offsets, *, b=None,
                         omega: float = 0.8, with_dot: bool = False,
@@ -470,9 +625,10 @@ def const_stencil_apply(epilogue: str, weights, code: torch.Tensor,
     y = x + omega invd (b - A x) of the uniform-grid operator (``weights``
     K floats, K = 7 or 15, ``code`` the row-type plane, which may be bf16);
     with ``with_dot`` (sweep only) also <b, y>.  ``store_grid`` routes as
-    in ``stencil_apply`` (to B5b).  No host sync."""
+    in ``stencil_apply`` (to B5b); without one the kernel derives it from
+    the offsets (``const_store_grid``).  No host sync."""
     offsets = tuple(int(o) for o in offsets)
-    code_id = _check_const(epilogue, b, with_dot)
+    _check_const(epilogue, b, with_dot)
     kw = dict(b=b, omega=omega, with_dot=with_dot)
     if _routed(store_grid, 3, int(b is not None), x):
         return const_stencil_blocked_apply(epilogue, weights, code, x,
@@ -480,23 +636,9 @@ def const_stencil_apply(epilogue: str, weights, code: torch.Tensor,
     if x.device.type == "cpu":
         return const_stencil_apply_plain(epilogue, weights, code, x, offsets,
                                          **kw)
-    what = "const_" + epilogue
-    entry = _const_operands(what, weights, code, x, offsets, b)
-    lib = _const_lib()
-    k = len(offsets)
-    with torch.cuda.device(x.device):
-        y = torch.empty_like(x)
-        dot, partials = _dot_buffers(x, with_dot,
-                                     lib.tpufem_num_blocks(x.shape[0]))
-        status = getattr(lib, entry)(
-            code_id, code.data_ptr(), x.data_ptr(), _ptr(b), y.data_ptr(),
-            _ptr(partials), _ptr(dot), x.shape[0],
-            (ctypes.c_longlong * k)(*offsets),
-            (ctypes.c_double * k)(*(float(w) for w in weights)), k,
-            _inv_w0(weights, offsets), float(omega), stream_handle())
-    check_launch(status, what)
-    const_stencil_apply.launches += 1
-    return (y, dot) if with_dot else y
+    return _launch_const(const_stencil_apply, "const_" + epilogue, epilogue,
+                         weights, code, x, offsets, b, omega, with_dot,
+                         store_grid)
 
 
 const_stencil_apply.launches = 0
@@ -506,28 +648,20 @@ def const_stencil_blocked_apply(epilogue: str, weights, code: torch.Tensor,
                                 x: torch.Tensor, offsets, store_grid, *,
                                 b=None, omega: float = 0.8,
                                 with_dot: bool = False):
-    """B5b: B5's four epilogues tiled over the 3D ``store_grid`` (15
-    offsets); the same function and types as B5.  No host sync."""
+    """B5b: B5's four epilogues on the 3D ``store_grid`` (15 offsets), the
+    route the reference takes past its ``_needs_2d`` rule; the same
+    function and types as B5, computed by B5's kernel.  No host sync."""
     offsets = tuple(int(o) for o in offsets)
-    code_id = _check_const(epilogue, b, with_dot)
+    _check_const(epilogue, b, with_dot)
     if x.device.type == "cpu":
         return const_stencil_apply_plain(epilogue, weights, code, x, offsets,
                                          b=b, omega=omega, with_dot=with_dot)
-    what = "const_blocked_" + epilogue
-    entry = _const_operands(what, weights, code, x, offsets, b)
-    k = len(offsets)
-    with torch.cuda.device(x.device):
-        lib, sg, steps, dot, partials = _blocked_args(what, x, offsets,
-                                                      store_grid, with_dot)
-        y = torch.empty_like(x)
-        status = getattr(lib, entry.replace("stencil", "stencil_blocked"))(
-            code_id, code.data_ptr(), x.data_ptr(), _ptr(b), y.data_ptr(),
-            _ptr(partials), _ptr(dot), *sg, steps,
-            (ctypes.c_double * k)(*(float(w) for w in weights)), k,
-            _inv_w0(weights, offsets), float(omega), stream_handle())
-    check_launch(status, what)
-    const_stencil_blocked_apply.launches += 1
-    return (y, dot) if with_dot else y
+    if len(store_grid) != 3:
+        raise ValueError(f"the blocked route takes 3D store grids, got "
+                         f"{tuple(store_grid)}")
+    return _launch_const(const_stencil_blocked_apply,
+                         "const_blocked_" + epilogue, epilogue, weights,
+                         code, x, offsets, b, omega, with_dot, store_grid)
 
 
 const_stencil_blocked_apply.launches = 0
