@@ -14,7 +14,9 @@
    CUDA events), beside the bound: the larger of the bytes the call must
    move over the HBM rate and its operations over the card's peak rate.
    - 3D, the n=96 and n=8 hierarchies (96..6, 8..4) and the 2-level n=64
-     ones: K1 and K2 in fp32 (K2 also in fp64); B4 (residual, sweep,
+     ones: K1 and K2 in fp32 (K2 also in fp64; K1 at n=96 also in fp64,
+     timed, and with the interp RHS), K1's planes and RHS bit for bit
+     against its plain version (a hard check); B4 (residual, sweep,
      sweep+dot) on every level of the general hierarchy over the built
      operator, fp32 data and bf16 data under fp32 vectors; B5 (matvec,
      residual, sweep, sweep+dot) on every const level; K3/K4 on every
@@ -23,7 +25,9 @@
      operators; B5 with 7 offsets on every const level (1024..8) in fp32
      and fp64; B4 on every level of the general hierarchy over B7's
      operator, fp32 and bf16 data.
-   - Scale, n=384: K1; B3 (matvec, matvec+dot, residual, sweep,
+   - Scale, n=384: K1, bit for bit against its plain version and timed
+     (the kernel only: the plain version takes seconds); B3 (matvec,
+     matvec+dot, residual, sweep,
      sweep+dot) and B5b (matvec, residual, sweep, sweep+dot) on the finest
      level of the general and const hierarchies (fp32 and bf16 data / code
      under fp32 vectors), each also against the flat kernel (K2/B4, B5)
@@ -64,8 +68,9 @@
      bit, timed (library call: torch.add(y, x, alpha=a)).
    - Sharded build: B8 on every stripe of the n=96 box with its interior
      nodes jittered by +-0.15 h (fp32 and fp64, 1, 4 and 8 shards) and of
-     the n=62 box (fp32, 4 shards), against its plain version on the same
-     extended stripe; the stripes of build_poisson_system_sharded, joined,
+     the n=62 box (fp32, 4 shards), bit for bit against its plain version
+     on the same extended stripe; the stripes of
+     build_poisson_system_sharded, joined,
      must equal K1's planes and RHS bit for bit; at n=96, 4 shards, one
      26-plane stripe is timed, and the four-launch build beside K1 (no
      library call builds it).
@@ -159,8 +164,10 @@
      launches B8 exactly 4 times and K1 never, its stripes equal K1's
      build bit for bit; solve_poisson_dist_general (Jacobi halo CG, tol
      1e-6) converges to within 1e-4 of the single-card Jacobi cg on K1's
-     operator (tests/test_dist_assembly.py's gate), and its counts at 1
-     and 8 shards are printed; then n=62, 4 shards (250,047 DOFs, the TPU
+     operator (tests/test_dist_assembly.py's gate), its counts at 4, 1
+     and 8 shards within one iteration of the FMA-contracted build's
+     (FMA_BUILD_DIST_COUNTS, printed beside); then n=62, 4 shards (250,047
+     DOFs, the TPU
      record's size) converges within 167 iterations (the TPU's 152 + 10%);
    - dist_mg: solve_poisson_dist at n=104 in 3D (1,157,625 DOFs), fp64, 8
      shards on the card, the manufactured solution of
@@ -194,6 +201,12 @@ N_SCALE = 384
 N_ROUTED = 64      # blocked kernels with the routing threshold at 0
 N_DIST_TPU = 62    # scripts/dist_assembly_hw.py: the TPU record's size
 DIST_TPU_MAXITER = 167   # its 152 iterations plus 10% (fp32 dot order)
+# The Jacobi halo CG counts at n=96 (shards: iterations) and the scale
+# path's error when K1 and B8 contracted products into fused multiply-adds
+# (their rounding since is their plain version's): printed beside this
+# run's, which may differ by the rounding (one iteration for the counts)
+FMA_BUILD_DIST_COUNTS = {4: 241, 1: 242, 8: 242}
+FMA_BUILD_SCALE_ERR = 1.1225e-05
 N_DIST_MG = 104    # tests/test_dist_mg.py: 105^3 = 1,157,625 DOFs
 DOMAIN = (-3.0, 3.0)
 FIELD_TOL = {"float32": 1e-5, "float64": 1e-12}   # x max|plain|
@@ -438,9 +451,13 @@ def _bound(inputs, outputs, flops, dtype_name):
 
 
 def _compare(records, key, label, kernel, plain, *, timed=False, work=None,
-             flat=None, flat_equal=False, library=None):
+             flat=None, flat_equal=False, library=None, exact=False,
+             time_plain=True):
     """Run kernel and plain on the same inputs, check, optionally time.
 
+    ``exact``: every output must equal the plain version's bit for bit
+    (a hard check, beside the field tolerance); ``time_plain=False`` times
+    the kernel alone (a plain version too slow to repeat at the shape);
     ``work``: (input tensors, operations, arithmetic type) for the bound;
     ``flat``: the flat kernel on the same inputs (the blocked kernels are
     held to it too; with ``flat_equal`` bit for bit, dots included);
@@ -470,6 +487,11 @@ def _compare(records, key, label, kernel, plain, *, timed=False, work=None,
               f"{key} {label}: max abs err {err:.3e} > {bound:.3e}")
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         msg.append(f"max abs err {err:.3e} (bound {bound:.3e})")
+    if exact:
+        same = all(torch.equal(o, r) for o, r in zip(outs, refs))
+        check(same, f"{key} {label}: not bit for bit equal to its plain "
+                    "version")
+        msg.append("bit for bit equal to the plain version")
     if flat is not None:
         fl = flat()
         fl = fl if isinstance(fl, tuple) else (fl,)
@@ -493,12 +515,18 @@ def _compare(records, key, label, kernel, plain, *, timed=False, work=None,
     if timed:
         # device time (stream queued ahead), then one call at a time with
         # the host's launch overhead included
-        ms, plain_ms = cuda_ms(kernel, reps=REPS), cuda_ms(plain, reps=REPS)
+        ms = cuda_ms(kernel, reps=REPS)
         host_ms = cuda_ms(kernel, reps=REPS, queue_ahead=False)
-        host_plain_ms = cuda_ms(plain, reps=REPS, queue_ahead=False)
-        line += (f"; device kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-                 f"with launch overhead kernel {host_ms:.4f} ms, plain "
-                 f"{host_plain_ms:.4f} ms")
+        if time_plain:
+            plain_ms = cuda_ms(plain, reps=REPS)
+            host_plain_ms = cuda_ms(plain, reps=REPS, queue_ahead=False)
+            line += (f"; device kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                     f"ms; with launch overhead kernel {host_ms:.4f} ms, "
+                     f"plain {host_plain_ms:.4f} ms")
+        else:
+            plain_ms = None
+            line += (f"; device kernel {ms:.4f} ms (plain not timed); with "
+                     f"launch overhead kernel {host_ms:.4f} ms")
         bound_ms = bound_by = flat_ms = lib_ms = None
         if work is not None:
             inputs, flops, arith = work
@@ -707,7 +735,23 @@ def _check_kernels(dev, records):
                  lambda: _arrays(build_poisson_system_plain(plan, C, f,
                                                             rule)),
                  timed=timed, work=([C], 6 * n ** 3 * _ELEMENT_FLOPS[3],
-                                    "float32"))
+                                    "float32"), exact=True)
+        if timed:
+            # fp64 and the interp RHS at the main shape, bit for bit too
+            C64 = C.double()
+            _compare(records, "K1", f"n={n} fp64",
+                     lambda: _arrays(build_poisson_system(plan, C64, f,
+                                                          rule)),
+                     lambda: _arrays(build_poisson_system_plain(
+                         plan, C64, f, rule)),
+                     timed=True, work=([C64], 6 * n ** 3 * _ELEMENT_FLOPS[3],
+                                       "float64"), exact=True)
+            del C64
+            _compare(records, "K1", f"n={n} fp32 interp RHS",
+                     lambda: _arrays(build_poisson_system(
+                         plan, C, f, rule, rhs_mode="interp")),
+                     lambda: _arrays(build_poisson_system_plain(
+                         plan, C, f, rule, rhs_mode="interp")), exact=True)
         A, b = build_poisson_system(plan, C, f, rule)
         code = torch.as_tensor(mg._embed_grid_numpy(
             np.ones(info.node_grid), plan.store_grid), device=dev,
@@ -963,10 +1007,14 @@ def _check_scale(dev, records):
     C = torch.as_tensor(node_coords_embedded_from_grid(
         coords, plan, np.float32), device=dev)
     del coords
-    # K*NS = 1.18e9 rows of stencil data: every index product is 64-bit
+    # K*NS = 1.18e9 rows of stencil data: every index product is 64-bit;
+    # the plain version (seconds a call here) is not timed
     _compare(records, "K1", f"n={N_SCALE} fp32",
              lambda: _arrays(build_poisson_system(plan, C, f, rule)),
-             lambda: _arrays(build_poisson_system_plain(plan, C, f, rule)))
+             lambda: _arrays(build_poisson_system_plain(plan, C, f, rule)),
+             timed=True, time_plain=False,
+             work=([C], 6 * N_SCALE ** 3 * _ELEMENT_FLOPS[3], "float32"),
+             exact=True)
     torch.cuda.empty_cache()
     A, _ = build_poisson_system(plan, C, f, rule)
     del C
@@ -1729,7 +1777,8 @@ def _drive_scale(dev):
         print(f"# scale {precond} solve_poisson_fast: {sol.cg.iterations} "
               f"iterations, relres {sol.cg.residual_norm.item():.3e}, rel "
               f"L2 error {err:.4e} (TPU reference at n=384: 12 iterations, "
-              f"1.1e-5), DOFs {sol.num_dofs}, phases {sol.phases_s}, wall "
+              f"1.1e-5; the FMA-contracted build: 12, "
+              f"{FMA_BUILD_SCALE_ERR:.4e}), DOFs {sol.num_dofs}, phases {sol.phases_s}, wall "
               f"{wall:.4f} s, peak device memory {peak_gb:.3f} GB "
               f"(torch.cuda.max_memory_allocated)")
         check(sol.num_dofs == (n + 1) ** 3, "scale: DOF count")
@@ -2790,13 +2839,8 @@ def _check_dist_assembly(dev, records):
                                                             rule),
                          timed=timed,
                          work=([Cx], 6 * cells[1] * cells[2] * (
-                             Cx.shape[1] - 2) * _ELEMENT_FLOPS[3], name))
-                plain_same = all(torch.equal(o, r) for o, r in zip(
-                    build_poisson_stripe(plan, Cx, z, f, rule),
-                    build_poisson_stripe_plain(plan, Cx, z, f, rule)))
-                if i == 0 or timed:
-                    print(f"# check B8 {label} stripe {i}: bit for bit "
-                          f"against its plain version: {plain_same}")
+                             Cx.shape[1] - 2) * _ELEMENT_FLOPS[3], name),
+                         exact=True)
             if main:
                 build_ms = cuda_ms(lambda: build_poisson_system_sharded(
                     plan, C, mesh, f, rule), reps=REPS)
@@ -2883,10 +2927,16 @@ def _drive_dist_assembly(dev):
     print(f"# dist_assembly solve (n={N_MAIN}, fp32, Jacobi halo CG to "
           f"1e-6): {counts[4]} iterations at 4 shards, relres "
           f"{float(res4.residual_norm):.3e}; {counts[1]} at 1 shard, "
-          f"{counts[8]} at 8; the single-card cg on K1's operator "
-          f"{ref.iterations}; rel diff of u {rel:.3e}")
+          f"{counts[8]} at 8 (the FMA-contracted build: "
+          + ", ".join(f"{FMA_BUILD_DIST_COUNTS[k]} at {k}" for k in (4, 1, 8))
+          + f"); the single-card cg on K1's operator {ref.iterations}; rel "
+          f"diff of u {rel:.3e}")
     check(ref.converged and rel <= 1e-4,
           f"dist_assembly: u differs from the single-card solve by {rel:.3e}")
+    check(all(abs(counts[k] - FMA_BUILD_DIST_COUNTS[k]) <= 1
+              for k in FMA_BUILD_DIST_COUNTS),
+          f"dist_assembly: counts {counts} more than one iteration from "
+          f"the FMA-contracted build's {FMA_BUILD_DIST_COUNTS}")
 
     plan62, C62 = _perturbed_coords(N_DIST_TPU, np.float32, dev)
     with timer("solve_n62_4_shards"):

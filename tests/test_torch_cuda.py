@@ -41,9 +41,12 @@ from tpufem_torch.solve.structured_fast import solve_poisson_fast
 
 pytestmark = pytest.mark.cuda
 
-# Tolerances: a kernel and its plain version compute the same sums in
-# another order (and with FMA contraction), so fields agree to a few ulps
-# of the largest entry; fp64 dots are accumulated in fp64 on both sides.
+# Tolerances: where a kernel and its plain version compute the same sums
+# in another order or with FMA contraction (B7 among the builds), fields
+# agree to a few ulps of the largest entry; fp64 dots are accumulated in
+# fp64 on both sides.  A kernel that adds in its plain version's order
+# with each product and sum rounded on its own (K1 and B8 among them) is
+# held to it bit for bit (torch.equal).
 _TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 # (coefficient type, vector type) pairs of the general stencil kernel
 _DATA_VEC = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
@@ -82,6 +85,8 @@ def _noncubic_plan():
 @pytest.mark.parametrize("rhs_mode", ["quadrature", "interp"])
 @pytest.mark.parametrize("apply_bc", [True, False])
 def test_fused_system_kernel_matches_plain(dev, dtype, rhs_mode, apply_bc):
+    """K1 equals its plain version bit for bit (no fused multiply-add,
+    the plain version's order) on the non-cubic box."""
     plan, coords = _noncubic_plan()
     np_dt = np.float32 if dtype == torch.float32 else np.float64
     C = torch.as_tensor(node_coords_embedded_from_grid(coords, plan, np_dt),
@@ -92,8 +97,98 @@ def test_fused_system_kernel_matches_plain(dev, dtype, rhs_mode, apply_bc):
     Ap, bp = build_poisson_system_plain(plan, C, f, rule, apply_bc=apply_bc,
                                         rhs_mode=rhs_mode)
     torch.cuda.synchronize()
-    _close(A.data, Ap.data, dtype)
-    _close(b, bp, dtype)
+    assert torch.equal(A.data, Ap.data)
+    assert torch.equal(b, bp)
+
+
+def _box_coords(n, dtype, dev, jitter):
+    """(plan, C on the card) of the uniform box of (-3, 3)^3 with n cells a
+    side, its interior nodes jittered by +-jitter h (default_rng(n))."""
+    from tpufem_torch.solve.multigrid import _light_grid
+
+    info, coords, bc = _light_grid((-3.0, 3.0), n)
+    plan = structured_plan(info, embed=True)
+    h = 6.0 / n
+    pert = np.random.default_rng(n).uniform(-jitter * h, jitter * h,
+                                            coords.shape)
+    coords = coords + np.where(~np.broadcast_to(bc, coords.shape), pert, 0.0)
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    return plan, torch.as_tensor(node_coords_embedded_from_grid(
+        coords, plan, np_dt), device=dev)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("rhs_mode", ["quadrature", "interp"])
+@pytest.mark.parametrize("n", [8, 33, 64])
+@pytest.mark.parametrize("jitter", [0.0, 0.15], ids=["uniform", "jittered"])
+def test_fused_system_kernel_bit_equal_on_boxes(dev, dtype, rhs_mode, n,
+                                                jitter):
+    """K1 on uniform and jittered boxes: planes and RHS equal to the plain
+    version's bit for bit; the picked tiles leave ragged last tiles in y
+    (fp64: 16 rows) and z at these sizes."""
+    plan, C = _box_coords(n, dtype, dev, jitter)
+    f, rule = model_problem_3d_planes(), tetrahedron_rule(2)
+    before = fused_system_cuda.build_poisson_system.launches
+    A, b = build_poisson_system(plan, C, f, rule, rhs_mode=rhs_mode)
+    assert fused_system_cuda.build_poisson_system.launches == before + 1
+    Ap, bp = build_poisson_system_plain(plan, C, f, rule, rhs_mode=rhs_mode)
+    torch.cuda.synchronize()
+    assert torch.equal(A.data, Ap.data)
+    assert torch.equal(b, bp)
+
+
+def _forced_fused_tiling(tx, nr, tz):
+    return lambda itemsize, store_grid: (tx, 256 // tx, nr, tz, 0, None)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("tile", [(tx, nr, tz)
+                                  for tx, nr in fused_system_cuda.FUSED_TILES
+                                  for tz in (1, 5, 32)])
+@pytest.mark.parametrize("n", [6, 33])
+def test_fused_system_kernel_bit_equal_over_tiles(dev, monkeypatch, dtype,
+                                                  tile, n):
+    """Every built tile and marches of 1, 5 and 32 planes give the plain
+    version's planes and RHS bit for bit: ragged last tiles in y (16-row
+    tiles on 40-row grids) and z, a march longer than the grid."""
+    plan, C = _box_coords(n, dtype, dev, 0.15)
+    f, rule = model_problem_3d_planes(), tetrahedron_rule(2)
+    Ap, bp = build_poisson_system_plain(plan, C, f, rule)
+    monkeypatch.setattr(fused_system_cuda, "fused_tiling",
+                        _forced_fused_tiling(*tile))
+    A, b = build_poisson_system(plan, C, f, rule)
+    torch.cuda.synchronize()
+    assert torch.equal(A.data, Ap.data)
+    assert torch.equal(b, bp)
+
+
+@pytest.mark.parametrize("tile", [(64, 1, 4), (16, 1, 4), (32, 1, 0)])
+def test_fused_system_refused_tile_raises(dev, monkeypatch, tile):
+    """A tile the launcher has no kernel for raises before the launch, and
+    the C launcher refuses it too."""
+    plan, C = _box_coords(8, torch.float32, dev, 0.0)
+    f, rule = model_problem_3d_planes(), tetrahedron_rule(2)
+    monkeypatch.setattr(fused_system_cuda, "fused_tiling",
+                        _forced_fused_tiling(*tile))
+    with pytest.raises(ValueError, match="tile"):
+        build_poisson_system(plan, C, f, rule)
+    monkeypatch.setattr(fused_system_cuda, "check_fused_tile",
+                        lambda *a: None)
+    with pytest.raises(RuntimeError, match="fused_system"):
+        build_poisson_system(plan, C, f, rule)
+
+
+def test_fused_smem_matches_the_launcher(dev):
+    """The planner's shared memory per block is the launcher's for every
+    built tile; a tile without a kernel gives -1."""
+    plan, _ = _noncubic_plan()
+    lib = fused_system_cuda._lib(plan, tetrahedron_rule(2),
+                                 model_problem_3d_planes().c_expr)
+    for itemsize in (4, 8):
+        for tx, nr in fused_system_cuda.FUSED_TILES:
+            assert lib.tpufem_fused_smem(itemsize, tx, nr) == \
+                fused_system_cuda.fused_smem(itemsize, tx, nr)
+        assert lib.tpufem_fused_smem(itemsize, 64, 1) == -1
 
 
 def test_fused_system_kernel_needs_c_expr(dev):
@@ -1263,8 +1358,8 @@ def _perturbed_noncubic(dtype, dev):
 def test_stripe_kernel_equals_k1_and_matches_plain(dev, dtype, rhs_mode,
                                                    shards):
     """B8: the sharded build's stripes, joined, equal K1's planes and RHS
-    bit for bit (the same kernel body and order); each stripe is within a
-    few ulps of its plain version (FMA contraction, as K1's)."""
+    bit for bit (the same kernel body and order), and each stripe equals
+    its plain version bit for bit."""
     from tpufem_torch.dist.assembly import build_poisson_system_sharded
     from tpufem_torch.dist.mesh import make_mesh, unshard
 
@@ -1288,8 +1383,8 @@ def test_stripe_kernel_equals_k1_and_matches_plain(dev, dtype, rhs_mode,
         d, r = fused_system_cuda.build_poisson_stripe_plain(
             plan, Cx, z, f, rule, rhs_mode=rhs_mode)
         # with several cards, shard i lies on card i % count
-        _close(data.shards[i].to(d.device), d, dtype)
-        _close(rhs.shards[i].to(r.device), r, dtype)
+        assert torch.equal(data.shards[i].to(d.device), d)
+        assert torch.equal(rhs.shards[i].to(r.device), r)
 
 
 def test_dist_pipeline_on_the_card_matches_cpu(dev):

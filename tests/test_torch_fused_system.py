@@ -16,16 +16,18 @@ from tpufem.assemble.structured import (assemble_stencil_structured_bt,
 from tpufem.assemble.structured import structured_plan as jax_plan
 from tpufem.fem.quadrature import tetrahedron_rule as jax_rule
 from tpufem.mesh.box import box_mesh
-from tpufem.ops.fused_system_pallas import (build_poisson_system_pallas,
-                                            node_coords_embedded)
+from tpufem.ops.fused_system_pallas import build_poisson_system_pallas
+from tpufem.ops.fused_system_pallas import \
+    node_coords_embedded as jax_node_coords_embedded
 from tpufem.solve.bc import apply_dirichlet_stencil
 from tpufem.solve.poisson import model_problem_3d_planes as jax_f
 
 from tpufem_torch.assemble.structured import structured_plan
 from tpufem_torch.fem.quadrature import tetrahedron_rule
-from tpufem_torch.mesh.core import StructuredInfo
+from tpufem_torch.mesh.box import box_mesh as port_box_mesh
 from tpufem_torch.ops import fused_system_cuda
 from tpufem_torch.ops.fused_system_cuda import (build_poisson_system,
+                                                node_coords_embedded,
                                                 tables_header)
 from tpufem_torch.solve.poisson import model_problem_3d_planes
 
@@ -39,19 +41,20 @@ def noncubic():
     # non-cubic box: catches axis swaps
     mesh = box_mesh(-3, 2, 0, 3, -2, 1, 5, 4, 6)
     jp = jax_plan(mesh, embed=True)
-    info = mesh.structured
-    tp = structured_plan(StructuredInfo(tuple(info.node_grid),
-                                        tuple(info.cell_grid),
-                                        np.asarray(info.type_node_offsets)),
+    tp = structured_plan(port_box_mesh(-3, 2, 0, 3, -2, 1, 5, 4, 6),
                          embed=True)
-    C = node_coords_embedded(mesh, jp, np.float64)
-    return mesh, jp, tp, C
+    # each package's own embedded coordinates: JAX's on JAX's side of a
+    # comparison, the port's on the port's
+    C_jax = jax_node_coords_embedded(mesh, jp, np.float64)
+    C = node_coords_embedded(port_box_mesh(-3, 2, 0, 3, -2, 1, 5, 4, 6), tp,
+                             np.float64)
+    return mesh, jp, tp, C_jax, C
 
 
 @pytest.mark.parametrize("degree", [2, 3])
 @pytest.mark.parametrize("apply_bc", [True, False])
 def test_system_build_matches_jax_pipeline(noncubic, degree, apply_bc):
-    mesh, jp, tp, C = noncubic
+    mesh, jp, tp, _, C = noncubic
     fp = jax_f()
     X = jnp.asarray(element_coords_bt(mesh, np.float64))
     A_ref = assemble_stencil_structured_bt(jp, p1_stiffness_bt(X,
@@ -74,10 +77,10 @@ def test_system_build_matches_jax_pipeline(noncubic, degree, apply_bc):
 
 
 def test_interp_rhs_matches_pallas_kernel(noncubic):
-    mesh, jp, tp, C = noncubic
+    mesh, jp, tp, C_jax, C = noncubic
     bc = jp.embed_field(jnp.asarray(mesh.node_flags != 0), fill=False)
     A_ref, b_ref = build_poisson_system_pallas(
-        jp, jnp.asarray(C), bc, jax_f(), jax_rule(2), block_lead=2,
+        jp, jnp.asarray(C_jax), bc, jax_f(), jax_rule(2), block_lead=2,
         rhs_mode="interp", interpret=True)
     A, b = build_poisson_system(tp, torch.as_tensor(C),
                                 model_problem_3d_planes(), tetrahedron_rule(2),
@@ -92,9 +95,10 @@ def test_interp_rhs_matches_pallas_kernel(noncubic):
 
 
 def test_generated_header_tables(noncubic):
-    """The tables K1 is compiled with: every (type, local node) entry, the
-    quadrature and f, taken from the plan (checked against the plan)."""
-    _, _, tp, _ = noncubic
+    """The tables K1 is compiled with: every type's vertex offsets, every
+    (type, local node) entry, the quadrature and f, taken from the plan
+    (checked against the plan)."""
+    _, _, tp, _, _ = noncubic
     rule = tetrahedron_rule(2)
     text = tables_header(tp, rule, model_problem_3d_planes().c_expr)
     assert "#define TPUFEM_K 15" in text
@@ -109,6 +113,10 @@ def test_generated_header_tables(noncubic):
         assert e[2:5] == list(offs[t, a])
         assert e[5:17] == list(offs[t].reshape(-1))
         assert e[17:] == list(tp.entry_k[t, a])
+    types = text.split("#define TPUFEM_FOR_TYPES(X) ")[1].split("\n")[0]
+    assert [list(map(int, e.split(", "))) for e in types.strip()
+            .removeprefix("X(").removesuffix(")").split(") X(")] == [
+        [t, *offs[t].reshape(-1)] for t in range(offs.shape[0])]
     qp = text.split("#define TPUFEM_FOR_QP(X) ")[1].split("\n")[0]
     assert qp.count("X(") == rule.num_points
     assert "T rhs_f(T x, T y, T z) { return (T(2) *" in text

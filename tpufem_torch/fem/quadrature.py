@@ -13,7 +13,8 @@ import math
 import numpy as np
 
 __all__ = ["QuadratureRule", "triangle_rule", "tetrahedron_rule",
-           "rule_for_cell"]
+           "rule_for_cell",
+           "TRI7_FP32_W", "TRI7_FP32_R", "TRI7_FP32_S", "TRI7_FP32_T"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +34,23 @@ class QuadratureRule:
         """[Q, dim+1] full barycentric coordinates (last = 1 - sum)."""
         last = 1.0 - self.points.sum(axis=1, keepdims=True)
         return np.concatenate([self.points, last], axis=1)
+
+
+# The reference's float32 tables of the 7-point triangle rule, verbatim:
+# weights and the barycentric coordinates (r, s, t) of each point, in the
+# exact rule's point order (``triangle_rule(5)`` reproduces them to fp32).
+TRI7_FP32_W = np.array(
+    [0.06296959, 0.06619708, 0.06296959, 0.06619708, 0.06296959, 0.06619708,
+     0.11250000], dtype=np.float32)
+TRI7_FP32_R = np.array(
+    [0.10128651, 0.47014206, 0.79742699, 0.47014206, 0.10128651, 0.05971587,
+     0.33333333], dtype=np.float32)
+TRI7_FP32_S = np.array(
+    [0.10128651, 0.05971587, 0.10128651, 0.47014206, 0.79742699, 0.47014206,
+     0.33333333], dtype=np.float32)
+TRI7_FP32_T = np.array(
+    [0.79742698, 0.47014207, 0.1012865, 0.05971588, 0.1012865, 0.47014207,
+     0.33333334], dtype=np.float32)
 
 
 def _tri7_exact() -> QuadratureRule:

@@ -42,9 +42,9 @@ def _nvcc() -> str:
     return found
 
 
-def _build_key(source: str, headers: dict) -> str:
+def _build_key(source: str, headers: dict, flags: tuple) -> str:
     h = hashlib.sha256()
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + flags).encode())
     h.update((CSRC_DIR / source).read_bytes())
     for inc in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(inc.name.encode())
@@ -55,23 +55,26 @@ def _build_key(source: str, headers: dict) -> str:
     return h.hexdigest()[:16]
 
 
-def load_library(source: str, signatures: dict, headers: dict | None = None
-                 ) -> ctypes.CDLL:
+def load_library(source: str, signatures: dict, headers: dict | None = None,
+                 flags: tuple = ()) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<source>``.
 
     ``signatures`` maps each exported C function to its ctypes argtypes
     (every function returns an int status).  ``headers`` maps file names
     to generated header text, written beside the build and put on the
     include path (e.g. the fused build's RHS expression and plan tables).
+    ``flags``: nvcc flags of this source beyond ``NVCC_FLAGS`` (e.g.
+    ``-fmad=false``, no fused multiply-add).
     """
     headers = dict(headers or {})
+    flags = tuple(flags)
     # memo on the call's own inputs first: hashing the sources reads files,
     # which would cost more than a launch on every call
-    memo = (source, tuple(sorted(headers.items())))
+    memo = (source, tuple(sorted(headers.items())), flags)
     lib = _LOADED.get(memo)
     if lib is not None:
         return lib
-    key = _build_key(source, headers)
+    key = _build_key(source, headers, flags)
     stem = Path(source).stem
     so_path = BUILD_DIR / f"{stem}-{key}.so"
     if not so_path.exists():
@@ -80,7 +83,8 @@ def load_library(source: str, signatures: dict, headers: dict | None = None
         for name, text in headers.items():
             (inc_dir / name).write_text(text)
         tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-I", str(inc_dir),
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-I", str(CSRC_DIR),
+               "-I", str(inc_dir),
                "-o", str(tmp), str(CSRC_DIR / source)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         log = proc.stdout + proc.stderr

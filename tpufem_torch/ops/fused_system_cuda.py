@@ -22,10 +22,18 @@ written with the plan tables into a generated header and each kernel is
 built once per distinct header (the reference's runtime-codegen idea).  A
 callable without a C expression raises on a CUDA tensor; it never drops to
 the plain version.
+
+K1 and B8 (one template, csrc/fused_system.cu) compute each tetrahedron
+once per tile of ``fused_tiling``'s and march over planes; they are built
+with ``-fmad=false`` and add their terms in the plain version's order, so
+they equal ``build_poisson_system_plain`` / ``build_poisson_stripe_plain``
+bit for bit.  B7 keeps nvcc's default contraction.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import numpy as np
 import torch
@@ -37,7 +45,9 @@ from tpufem_torch.fem.quadrature import QuadratureRule
 from tpufem_torch.ops._build import check_launch, load_library, stream_handle
 from tpufem_torch.sparse.stencil import StencilMatrix
 
-__all__ = ["node_coords_embedded_from_grid", "build_poisson_system",
+__all__ = ["node_coords_embedded", "node_coords_embedded_from_grid",
+           "fused_tiling", "fused_smem", "check_fused_tile", "FUSED_TILES",
+           "build_poisson_system",
            "build_poisson_system_plain", "build_poisson_stripe",
            "build_poisson_stripe_plain"]
 
@@ -52,15 +62,45 @@ _SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
 _ELEMENT = {3: P1Tetrahedron, 2: P1Triangle}
 _REF_VOLUME = {3: 1.0 / 6.0, 2: 0.5}
 _MASS_DENOM = {3: 120.0, 2: 24.0}
-# C, data, rhs, S0..S{d-1}, m0..m{d-1}, rhs_mode, apply_bc, stream
+# C, data, rhs, S0..S{d-1}, m0..m{d-1}, rhs_mode, apply_bc[, tx, nr, tz
+# in 3D], stream
 _SIGNATURES = {
-    d: {_ENTRY[d] + sfx: (_P, _P, _P) + (_I,) * (2 * d + 2) + (_P,)
-        for sfx in _SUFFIX.values()} for d in (2, 3)}
+    d: {_ENTRY[d] + sfx: (_P, _P, _P) + (_I,) * (2 * d + 2 + 3 * (d == 3))
+        + (_P,) for sfx in _SUFFIX.values()} for d in (2, 3)}
 # B8: C_ext, data, rhs, L, S1, S2, m0, m1, m2, rhs_mode, apply_bc, zbase,
-# stream
+# tx, nr, tz, stream
 _STRIPE_ENTRY = "tpufem_fused_system_stripe"
-_SIGNATURES[3].update({_STRIPE_ENTRY + sfx: (_P, _P, _P) + (_I,) * 9 + (_P,)
+_SIGNATURES[3].update({_STRIPE_ENTRY + sfx: (_P, _P, _P) + (_I,) * 12 + (_P,)
                        for sfx in _SUFFIX.values()})
+_SIGNATURES[3]["tpufem_fused_smem"] = (_I, _I, _I)
+# K1 and B8 round every product and sum on its own, as torch does
+_FLAGS = {3: ("-fmad=false",), 2: ()}
+
+# -- K1 / B8 tiles (csrc/fused_system.cu) -------------------------------------
+# A block of 256 threads owns tx store columns by 256 / tx rows, one
+# column a thread, takes the 6 types of a cell plane in nr rounds and
+# marches over tz planes.
+FUSED_TILES = ((16, 3), (32, 1))   # (tx, nr) the launcher has kernels for
+_THREADS = 256
+# per item size, the tile sweep's pick (scripts/fused_build_ablation.py
+# --tiles): fp32 32 columns with the 6 types at once (2 blocks an SM),
+# fp64 16 columns in 3 rounds of 2 types (2 blocks an SM, not 1)
+_TILE = {4: (32, 1), 8: (16, 3)}
+_SMS = 132                      # H100 SXM
+_SMEM_PER_SM = 233472           # bytes, 1 KB of it reserved per block
+_SMEM_PER_BLOCK = 232448        # bytes a block may use
+_MAX_PLANES = 32
+_VALS = 14                      # per cell and type: 10 entries, 4 loads
+_TYPES = 6                      # Kuhn tetrahedra a cell
+
+
+def node_coords_embedded(mesh, plan: StructuredPlan,
+                         dtype=np.float32) -> np.ndarray:
+    """[dim, *store_grid] embedded node coordinates of a structured mesh
+    (its nodes in grid order, x fastest)."""
+    coords_grid = np.moveaxis(
+        mesh.coords.reshape(tuple(plan.info.node_grid) + (mesh.dim,)), -1, 0)
+    return node_coords_embedded_from_grid(coords_grid, plan, dtype)
 
 
 def node_coords_embedded_from_grid(coords_grid: np.ndarray,
@@ -84,6 +124,66 @@ def node_coords_embedded_from_grid(coords_grid: np.ndarray,
     valid = (slice(None),) + tuple(slice(1, 1 + ng[d]) for d in range(g))
     out[valid] = coords_grid
     return out
+
+
+def fused_smem(itemsize: int, tx: int, nr: int = 1) -> int:
+    """Dynamic shared memory (bytes) of a K1 / B8 block of ``tx`` columns
+    taking the types in ``nr`` rounds (csrc/fused_system.cu's
+    Tile::kSmem): a ring of 3 planes of the 3 coordinates, each 256 / tx +
+    2 rows by tx columns and a 16-byte chunk either side, and 14 values
+    for each of a round's types of each of the (256 / tx + 1) x (tx + 1)
+    cells."""
+    ty = _THREADS // tx
+    ps = (ty + 2) * (tx + 32 // itemsize)
+    return (9 * ps + _TYPES // nr * _VALS * (ty + 1) * (tx + 1)) * itemsize
+
+
+def _blocks_per_sm(itemsize: int, tx: int, nr: int) -> int:
+    """Blocks of a tile an SM runs at once: the kernel's launch bounds (2
+    in fp32 and 1 in fp64 with one round, one more with several), or
+    fewer by shared memory."""
+    bounds = (2 if itemsize == 4 else 1) + (nr > 1)
+    return min(bounds, _SMEM_PER_SM // (fused_smem(itemsize, tx, nr) + 1024))
+
+
+@functools.lru_cache(maxsize=None)
+def fused_tiling(itemsize: int, store_grid: tuple):
+    """(tx, ty, nr, tz, shared memory bytes, grid) of one K1 / B8 launch
+    on a store grid (S0, S1, S2) (B8: S0 is the stripe's depth).
+
+    A block owns ``tx`` columns by ``ty = 256 / tx`` rows, takes a cell
+    plane's types in ``nr`` rounds (both per item size, from the tile
+    sweep) and marches over ``tz`` planes, its first step a warm-up cell
+    plane.  With W plane steps for each of the slots the
+    card holds at once (132 SMs x blocks per SM), a march of tz planes
+    costs about W (1 + 1 / tz) steps of work and half a block, (tz + 1) /
+    2 steps, of tail: tz = sqrt(2 W), within 1 .. 32.  The grid is
+    (columns, rows, planes) of tiles."""
+    s0, s1, s2 = (int(v) for v in store_grid)
+    tx, nr = _TILE[itemsize]
+    if s2 % tx or min(s0, s1, s2) < 1:
+        raise ValueError(f"store grid {tuple(store_grid)}: rows of "
+                         f"{tx}-column tiles")
+    ty = _THREADS // tx
+    cols = (s2 // tx) * -(-s1 // ty)
+    steps = cols * s0 / (_SMS * _blocks_per_sm(itemsize, tx, nr))
+    tz = max(1, min(_MAX_PLANES, s0, round(math.sqrt(2.0 * steps))))
+    return (tx, ty, nr, tz, fused_smem(itemsize, tx, nr),
+            (s2 // tx, -(-s1 // ty), -(-s0 // tz)))
+
+
+def check_fused_tile(itemsize: int, tx: int, nr: int, tz: int) -> None:
+    """Raise ValueError unless (tx columns, nr rounds of types, tz planes)
+    is a tile the launcher has a kernel for and its block fits the card's
+    shared memory (the C launcher refuses the same tiles)."""
+    if (tx, nr) not in FUSED_TILES or tz < 1:
+        raise ValueError(f"fused build: tile ({tx} columns, {nr} rounds, "
+                         f"{tz} planes): the kernels are {FUSED_TILES} "
+                         "(columns, rounds) with tz >= 1")
+    if fused_smem(itemsize, tx, nr) > _SMEM_PER_BLOCK:
+        raise ValueError(f"fused build: tile ({tx}, {nr}) needs "
+                         f"{fused_smem(itemsize, tx, nr)} B of shared memory "
+                         f"a block, more than {_SMEM_PER_BLOCK}")
 
 
 def _check_plan(plan: StructuredPlan) -> int:
@@ -119,6 +219,9 @@ def tables_header(plan: StructuredPlan, rule: QuadratureRule,
     lines.append("#define TPUFEM_FOR_QP(X) " + " ".join(
         "X(" + ", ".join(_lit(v) for v in phi[q]) + f", {_lit(w)})"
         for q, w in enumerate(rule.weights)))
+    lines.append("#define TPUFEM_FOR_TYPES(X) " + " ".join(
+        "X(" + ", ".join(str(int(v)) for v in (t, *offs[t].reshape(-1)))
+        + ")" for t in range(info.num_types)))
     terms = []
     for t in range(info.num_types):
         for a in range(npe):
@@ -136,7 +239,8 @@ def _lib(plan, rule, c_expr):
     dim = _check_plan(plan)
     return load_library(_SOURCE[dim], _SIGNATURES[dim],
                         {"tpufem_fused_tables.h":
-                         tables_header(plan, rule, c_expr)})
+                         tables_header(plan, rule, c_expr)},
+                        flags=_FLAGS[dim])
 
 
 def _launch_lib(plan, C_emb, f_planes, rule, rhs_mode):
@@ -159,13 +263,18 @@ def _launch(plan, C_emb, f_planes, rule, apply_bc, rhs_mode):
     sg = tuple(plan.store_grid)
     lib = _launch_lib(plan, C_emb, f_planes, rule, rhs_mode)
     m = plan.info.cell_grid
+    tile = ()
+    if dim == 3:    # the tile's columns, rounds of types and planes
+        tx, _, nr, tz, _, _ = fused_tiling(C_emb.element_size(), sg)
+        check_fused_tile(C_emb.element_size(), tx, nr, tz)
+        tile = (tx, nr, tz)
     with torch.cuda.device(C_emb.device):
         data = torch.empty((plan.width,) + sg, dtype=C_emb.dtype,
                            device=C_emb.device)
         rhs = torch.empty(sg, dtype=C_emb.dtype, device=C_emb.device)
         status = getattr(lib, _ENTRY[dim] + _SUFFIX[C_emb.dtype])(
             C_emb.data_ptr(), data.data_ptr(), rhs.data_ptr(), *sg, *m,
-            _RHS_MODES[rhs_mode], int(apply_bc), stream_handle())
+            _RHS_MODES[rhs_mode], int(apply_bc), *tile, stream_handle())
     check_launch(status, "fused_system" + ("_2d" if dim == 2 else ""))
     if dim == 2:
         build_poisson_system.launches_2d += 1
@@ -219,9 +328,16 @@ def _plain_rows(plan, C, c_first, z0, depth, f_planes, rule, apply_bc,
                 rhs_mode):
     """(data [K, depth * rest], rhs) of store planes [z0, z0 + depth) of
     the leading axis, from coordinates C whose plane 0 is global store
-    plane ``c_first``.  Each element's values are those of the whole-grid
-    build and reach a row in the same (type, a, b) order, so any stripe
-    equals the same rows of the whole build bit for bit."""
+    plane ``c_first``.
+
+    Order (what K1's march gives, csrc/fused_system.cu): in 3D a row sums
+    the terms of the cells on the plane below it (za = 1) and those of the
+    cells on its own plane (za = 0) apart, each group from 0 in (type, a,
+    b) order, and adds the two sums (each type's element values are
+    computed once per group); in 2D (B7, one thread a row) all terms in
+    (type, a, b) order.  Each element's values are those of the
+    whole-grid build, so any stripe equals the same rows of the whole
+    build bit for bit."""
     dim = _check_plan(plan)
     if rhs_mode not in _RHS_MODES:
         raise ValueError(f"rhs_mode {rhs_mode!r}: quadrature | interp")
@@ -230,8 +346,6 @@ def _plain_rows(plan, C, c_first, z0, depth, f_planes, rule, apply_bc,
     m = info.cell_grid
     npe = dim + 1
     dt, dev = C.dtype, C.device
-    data = torch.zeros((plan.width,) + sg, dtype=dt, device=dev)
-    rhs = torch.zeros(sg, dtype=dt, device=dev)
     phi = _ELEMENT[dim]().shape_values(rule.points)
     offs = info.type_node_offsets
     # the cells whose rows (store plane c + 1 + o, o in {0, 1}) can fall in
@@ -244,7 +358,9 @@ def _plain_rows(plan, C, c_first, z0, depth, f_planes, rule, apply_bc,
                 + tuple(slice(1 + int(o[d]), 1 + int(o[d]) + m[d])
                         for d in range(1, dim)))
 
-    for t in range(info.num_types if hi > lo else 0):
+    def element(t):
+        """(G, vol, |det|, facc) of the type-t elements of cells
+        [lo, hi): the loads are facc[a] * |det|."""
         Xt = [[C[d][sl(offs[t, n])] for d in range(dim)]
               for n in range(npe)]
         G, det = p1_gradients(Xt)
@@ -262,22 +378,37 @@ def _plain_rows(plan, C, c_first, z0, depth, f_planes, rule, apply_bc,
                 fq = f_planes(*xq)
                 for a in range(npe):
                     facc[a] = facc[a] + fq * (float(w) * float(phi[q, a]))
-        for a in range(npe):
-            # cells c in [lo, hi) land on local plane c + 1 + o - z0: keep
-            # those inside [0, depth)
-            first = lo + 1 + int(offs[t, a, 0]) - z0
-            c_lo, c_hi = max(0, -first), min(hi - lo, depth - first)
-            if c_hi <= c_lo:
-                continue
-            rows = ((slice(first + c_lo, first + c_hi),)
-                    + tuple(slice(1 + int(offs[t, a, d]),
-                                  1 + int(offs[t, a, d]) + m[d])
-                            for d in range(1, dim)))
-            for b in range(npe):
-                k = int(plan.entry_k[t, a, b])
-                data[k][rows] += (sum(G[a][d] * G[b][d] for d in range(dim))
-                                  * vol)[c_lo:c_hi]
-            rhs[rows] += (facc[a] * adet)[c_lo:c_hi]
+        return G, vol, adet, facc
+
+    data = rhs = None
+    for za in ((1, 0) if dim == 3 else (None,)):
+        # one group's sums (3D: the cells below, then those of the row's
+        # own plane), added to the groups' before
+        part = torch.zeros((plan.width,) + sg, dtype=dt, device=dev)
+        prhs = torch.zeros(sg, dtype=dt, device=dev)
+        for t in range(info.num_types if hi > lo else 0):
+            G, vol, adet, facc = element(t)
+            for a in range(npe):
+                if za is not None and int(offs[t, a, 0]) != za:
+                    continue
+                # cells c in [lo, hi) land on local plane c + 1 + o - z0:
+                # keep those inside [0, depth)
+                first = lo + 1 + int(offs[t, a, 0]) - z0
+                c_lo, c_hi = max(0, -first), min(hi - lo, depth - first)
+                if c_hi <= c_lo:
+                    continue
+                rows = ((slice(first + c_lo, first + c_hi),)
+                        + tuple(slice(1 + int(offs[t, a, d]),
+                                      1 + int(offs[t, a, d]) + m[d])
+                                for d in range(1, dim)))
+                for b in range(npe):
+                    k = int(plan.entry_k[t, a, b])
+                    part[k][rows] += (sum(G[a][d] * G[b][d]
+                                          for d in range(dim))
+                                      * vol)[c_lo:c_hi]
+                prhs[rows] += (facc[a] * adet)[c_lo:c_hi]
+        data = part if data is None else data + part
+        rhs = prhs if rhs is None else rhs + prhs
 
     if apply_bc:
         # global node index of every store position, broadcast along its axis
@@ -333,6 +464,9 @@ def build_poisson_stripe(plan: StructuredPlan, C_ext: torch.Tensor,
     lib = _launch_lib(plan, C_ext, f_planes, rule, rhs_mode)
     sg = tuple(plan.store_grid)
     m = plan.info.cell_grid
+    tx, _, nr, tz, _, _ = fused_tiling(C_ext.element_size(),
+                                       (depth,) + sg[1:])
+    check_fused_tile(C_ext.element_size(), tx, nr, tz)
     with torch.cuda.device(C_ext.device):
         data = torch.empty((plan.width, depth) + sg[1:], dtype=C_ext.dtype,
                            device=C_ext.device)
@@ -340,7 +474,7 @@ def build_poisson_stripe(plan: StructuredPlan, C_ext: torch.Tensor,
                           device=C_ext.device)
         status = getattr(lib, _STRIPE_ENTRY + _SUFFIX[C_ext.dtype])(
             C_ext.data_ptr(), data.data_ptr(), rhs.data_ptr(), depth,
-            *sg[1:], *m, _RHS_MODES[rhs_mode], 1, int(zbase),
+            *sg[1:], *m, _RHS_MODES[rhs_mode], 1, int(zbase), tx, nr, tz,
             stream_handle())
     check_launch(status, "fused_system_stripe")
     build_poisson_stripe.launches += 1

@@ -70,14 +70,23 @@ class BCSRMatrix:
         self._resolve_band()
         return self
 
-    def prime_band_plan(self, block_rows=None):
+    def prime_band_plan(self, block_rows=None, segment: bool = True,
+                        cap_k: bool = False):
         """Build and cache the banded block plan unconditionally (any
         bandwidth: the block size covers it; ``block_rows=None`` picks the
-        reference's ``auto_block_rows``).  Raises on failure."""
+        reference's ``auto_block_rows``).  Raises on failure.
+
+        ``cap_k`` caps the block size by the block's K * b * b value
+        planes (the reference's choice for Galerkin coarse levels with
+        many slots); ``segment=False`` asks for the single-segment
+        schedule.  The CUDA kernel gathers each column directly, so the
+        schedule changes the plan, not the product."""
         cols = _numpy(self.cols)
         if block_rows is None:
-            block_rows = auto_block_rows(_bandwidth(cols), cols.shape[0])
-        plan, data_t = bcsr_band_plan(self.data, cols, block_rows=block_rows)
+            k = cols.shape[1] * self.block_size ** 2 if cap_k else None
+            block_rows = auto_block_rows(_bandwidth(cols), cols.shape[0], k)
+        plan, data_t = bcsr_band_plan(self.data, cols, block_rows=block_rows,
+                                      segment=segment)
         dev = self.data.device
         self._band = (plan, torch.as_tensor(data_t, device=dev),
                       torch.as_tensor(plan.rel, device=dev))
