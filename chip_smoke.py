@@ -41,14 +41,18 @@
      half bandwidth 1001, random data from a seeded generator): B9 in fp32
      and fp64 with int16 (R = 8192) and int32 (R = 11008) window indices,
      its B11 route (per_block), the absolute-column (gather) mode, B10
-     with q = 3, 1 and 8 on the banded plan and q = 3 in absolute mode;
-     the library call is a torch.sparse CSR product.
+     with q = 3, 1 and 8 on the banded plan and q = 3 in absolute mode
+     (each B10 case bit for bit its plain version's, every timed shape
+     listed under the record's "shapes"); the library call is a
+     torch.sparse CSR product.
    - BCSR, at the elasticity paths' shapes (random data and patterns from
      a seeded generator): B12 on 491,401 block rows (b = 2, K = 8, half
      bandwidth 701) in fp32 and fp64 with int16 (R = 1024, and its
      per_block route) and int32 (R = 11008) window indices, on 68,921 block
-     rows (b = 3, K = 16, R = 4096), and B12g, the gather form's own
-     kernel, on randomly numbered patterns of both shapes, fp32 and fp64,
+     rows (b = 3, K = 16, R = 4096) in fp32 and fp64 (every B12 shape
+     timed and listed under the record's "shapes"), and B12g, the gather
+     form's own kernel, on randomly numbered patterns of both shapes, fp32
+     and fp64,
      each timed beside BSR (the 3D one is the BC correction's and the
      box6 gather's b = 3 build); every output must equal the plain
      version's bit for bit (no fused multiply-add, the reference's order),
@@ -310,10 +314,12 @@ _KERNELS = {
     "B9g": ("ell_spmv absolute-column mode (the gather form of ELLMatrix "
             "and the Dirichlet correction)", "tpufem_torch/csrc/ell.cu",
             "tpufem/sparse/ell_pallas.py:268"),
-    "B10": ("ell_spmv_multi", "tpufem_torch/csrc/ell.cu",
+    "B10": ("ell_spmv_multi (redesigned: a thread a row, q sums in "
+            "registers, the X window staged)", "tpufem_torch/csrc/ell.cu",
             "tpufem/sparse/ell_pallas.py:275"),
     "B12": ("bcsr_spmv (with its per_block route, "
-            "tpufem/sparse/ell_pallas.py:582)", "tpufem_torch/csrc/bcsr.cu",
+            "tpufem/sparse/ell_pallas.py:582; redesigned: slots unrolled and "
+            "loaded ahead)", "tpufem_torch/csrc/bcsr.cu",
             "tpufem/sparse/ell_pallas.py:548"),
     "B12g": ("bcsr_gather_spmv (the gather form of BCSRMatrix and the "
              "Dirichlet correction; redesigned with staged tiles)",
@@ -452,7 +458,7 @@ def _bound(inputs, outputs, flops, dtype_name):
 
 def _compare(records, key, label, kernel, plain, *, timed=False, work=None,
              flat=None, flat_equal=False, library=None, exact=False,
-             time_plain=True):
+             time_plain=True, shapes=False):
     """Run kernel and plain on the same inputs, check, optionally time.
 
     ``exact``: every output must equal the plain version's bit for bit
@@ -463,7 +469,9 @@ def _compare(records, key, label, kernel, plain, *, timed=False, work=None,
     held to it too; with ``flat_equal`` bit for bit, dots included);
     ``library``: one PyTorch call that computes the same
     function (timed beside the kernel, used nowhere in the port).  The
-    first timed shape of a kernel is its main one, recorded in the JSON.
+    first timed shape of a kernel is its main one, recorded in the JSON;
+    with ``shapes`` every timed shape is also listed under the record's
+    "shapes".
     """
     import torch
 
@@ -544,6 +552,10 @@ def _compare(records, key, label, kernel, plain, *, timed=False, work=None,
         if rec["ms"] is None:
             rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=bound_by, library_ms=lib_ms)
+        if shapes:
+            rec.setdefault("shapes", []).append(
+                {"shape": label, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "library_ms": lib_ms})
     print(line)
 
 
@@ -1160,7 +1172,8 @@ def _check_ell(dev, records):
                          lambda: ec.ell_matvec_cuda(*args, x,
                                                     per_block=per_block),
                          lambda: ec.ell_band_matvec_plain(*args, x),
-                         timed=True, work=([d_t, rel, x], 2 * k * n, dt),
+                         timed=True,
+                         work=([d_t[:, :n], rel[:, :n], x], 2 * k * n, dt),
                          library=(_library_ell(data, cols, x)
                                   if main and not per_block else None))
             if dtype == torch.float32 and idx == "int16":
@@ -1169,8 +1182,9 @@ def _check_ell(dev, records):
                     _compare(records, "B10", f"{n} rows fp32 int16 rel q={q}",
                              lambda: ec.ell_matvec_multi_cuda(*args, X),
                              lambda: ec.ell_band_matvec_multi_plain(*args, X),
-                             timed=True,
-                             work=([d_t, rel, X], 2 * k * n * q, dt),
+                             timed=True, exact=True, shapes=True,
+                             work=([d_t[:, :n], rel[:, :n], X],
+                                   2 * k * n * q, dt),
                              library=_library_ell(data, cols, X))
             del d_t, rel
         _compare(records, "B9g", f"{n} rows {dt} absolute columns",
@@ -1182,7 +1196,10 @@ def _check_ell(dev, records):
         X = torch.randn((n, 3), generator=gen, device=dev, dtype=dtype)
         _compare(records, "B10", f"{n} rows {dt} absolute columns q=3",
                  lambda: ec.ell_gather_matvec_multi_cuda(data, cols, X),
-                 lambda: ec.ell_gather_matvec_multi_plain(data, cols, X))
+                 lambda: ec.ell_gather_matvec_multi_plain(data, cols, X),
+                 exact=True, timed=dtype == torch.float32, shapes=True,
+                 work=([data, cols, X], 2 * k * n * 3, dt),
+                 library=_library_ell(data, cols, X))
     del data32, x32, cols
     torch.cuda.empty_cache()
 
@@ -1283,7 +1300,7 @@ def _check_bcsr(dev, records):
                 d_t = torch.as_tensor(data_t, device=dev).to(dtype)
                 rel = torch.as_tensor(plan.rel, device=dev)
                 args = (plan, d_t, rel)
-                lib = dtype == torch.float32 and idx == "int16"
+                lib = idx == "int16"
                 for per_block in ((False, True) if plan.dtab is not None
                                   else (False,)):
                     _compare(
@@ -1293,7 +1310,7 @@ def _check_bcsr(dev, records):
                         lambda: ec.bcsr_matvec_cuda(*args, x,
                                                     per_block=per_block),
                         lambda: ec.bcsr_band_matvec_plain(*args, x),
-                        timed=True,
+                        timed=True, exact=True, shapes=True,
                         work=([d_t[..., :n], rel[:, :n], x],
                               2 * k * b * b * n, dt),
                         library=(_library_bcsr(data, cols,

@@ -1,11 +1,14 @@
 """Time kernels B12g (the BCSR gather-form SpMV), B15 (SAXPY), the
 multigrid transfers K3 (residual + restrict) and K4 (prolong + add +
-smooth) and the const stencil B5 and its blocked route B5b of tpufem_torch
-from two checkouts of this repository on one NVIDIA GPU, in turns A, B,
-B, A.
+smooth), the const stencil B5 and its blocked route B5b, the banded BCSR
+SpMV B12 and the ELL SpMV on q right-hand sides B10 of tpufem_torch from
+two checkouts of this repository on one NVIDIA GPU, in turns A, B, B, A.
 
-    python scripts/kernel_ab.py <checkout A> <checkout B>
-    python scripts/kernel_ab.py --tiles <checkout>
+    python scripts/kernel_ab.py <checkout A> <checkout B> [case prefix ...]
+    python scripts/kernel_ab.py --tiles <checkout> [case prefix ...]
+
+Given case prefixes (e.g. ``B12 B10``), only the cases whose names start
+with one of them run.
 
 Each turn is a fresh process that imports ``tpufem_torch`` from its
 checkout, builds csrc/bcsr.cu and csrc/saxpy.cu from that checkout's
@@ -29,7 +32,15 @@ stream queued ahead):
     smooth + dot), 3D level 192 (the scale path's) fp32 smooth, 2D level
     1024 fp32 smooth and matvec; and B5b, ``const_stencil_blocked_apply``,
     at n=384 (the scale path's finest level, 315 MB a vector) in fp32 and
-    with a bf16 code plane, all four epilogues; each beside its bound.
+    with a bf16 code plane, all four epilogues; each beside its bound;
+  * B12, ``bcsr_matvec_cuda``, on ``chip_smoke.py``'s banded shapes (block
+    columns drawn at random within the band): 2D, 491,401 block rows, b =
+    2, K = 8, R = 1024, and 3D, 68,921 block rows, b = 3, K = 16, R =
+    4096, int16 windows, fp32 and fp64, each beside its bound;
+  * B10, ``ell_matvec_multi_cuda``, on ``chip_smoke.py``'s banded ELL
+    matrix (1,002,001 rows, K = 8, half bandwidth 1001, R = 8192) at q = 3
+    and 8 in fp32, and ``ell_gather_matvec_multi_cuda`` (the absolute-column
+    form) at q = 3, each beside its bound.
 
 The inputs come from seeded generators on the card, the same in both
 checkouts, and each output is hashed, so the checkouts' outputs are held
@@ -47,7 +58,11 @@ three transfer shapes for every such tile, each tile the wrapper picks
 marked; and B5 / B5b (one whose ``const_tiling`` returns (rows, planes,
 shared memory, grid) and whose ``CONST_TILE_ROWS`` lists the rows it has
 kernels for) at 3D level 96 (fp32, fp64), 3D level 192, 2D level 1024 (2D
-planes are bands of rows) and n=384, the sweep, for every such tile.
+planes are bands of rows) and n=384, the sweep, for every such tile; and
+B12 (one whose ``BCSR_TILE_ROWS`` lists its tiles) at its four shapes
+and types for every tile, and B10 (one whose ``ell_multi_designs``
+lists its (threads, window)) at q = 3 and 8 and in the absolute-column
+form for every design.
 """
 from __future__ import annotations
 
@@ -59,6 +74,7 @@ from pathlib import Path
 _COMMON = r"""
 import hashlib, json, sys
 import torch
+SELECT = sys.argv[1:]
 sys.path.insert(0, ".")
 from tpufem_torch.ops.saxpy_cuda import saxpy
 from tpufem_torch.sparse.ell_cuda import bcsr_gather_matvec_cuda
@@ -166,6 +182,75 @@ def const_calls(label, lv, code, x, b, which):
     return out
 
 
+BANDS = (("B12 2D", 491_401, 8, 701, 2, 1024),
+         ("B12 3D", 68_921, 16, 1723, 3, 4096))
+ELL_BAND = (1_002_001, 8, 1001, 8192)
+
+
+def wanted(name):
+    # a case, or a group of cases by the start of their names, that one of
+    # the selected prefixes reaches
+    return not SELECT or any(name.startswith(p) or p.startswith(name)
+                             for p in SELECT)
+
+
+def band_case(n, k, band, b, R):
+    # chip_smoke.py's banded BCSR case from a seeded generator on the card:
+    # the plan on the host, data_t / rel on the card, x [b, n] fp32
+    from tpufem_torch.sparse import ell_cuda as ec
+
+    g = torch.Generator(device=dev).manual_seed(n + k + b)
+    cols = (torch.arange(n, device=dev)[:, None] + torch.randint(
+        -band, band + 1, (n, k), generator=g, device=dev)).clamp_(
+        0, n - 1).to(torch.int32)
+    data = torch.randn((n, k, b, b), generator=g, device=dev)
+    x = torch.randn((b, n), generator=g, device=dev)
+    plan, data_t = ec.bcsr_band_plan(data, cols, block_rows=R,
+                                     segment=False)
+    return plan, torch.as_tensor(data_t, device=dev), torch.as_tensor(
+        plan.rel, device=dev), x
+
+
+def band_bytes(plan, d_t, rel, x):
+    n = plan.n
+    return (d_t[..., :n].numel() * d_t.element_size()
+            + rel[:, :n].numel() * rel.element_size()
+            + 2 * x.numel() * x.element_size())
+
+
+def ell_case():
+    # chip_smoke.py's banded ELL matrix from a seeded generator on the card
+    from tpufem_torch.sparse import ell_cuda as ec
+
+    n, k, band, R = ELL_BAND
+    g = torch.Generator(device=dev).manual_seed(n)
+    cols = (torch.arange(n, device=dev)[:, None] + torch.randint(
+        -band, band + 1, (n, k), generator=g, device=dev)).clamp_(
+        0, n - 1).to(torch.int32)
+    data = torch.randn((n, k), generator=g, device=dev)
+    plan = ec.ell_band_plan(data, cols, block_rows=R, segment=False)
+    return (plan, torch.as_tensor(plan.data_t, device=dev),
+            torch.as_tensor(plan.rel, device=dev), data, cols, g)
+
+
+def ell_calls(plan, d_t, rel, data, cols, g):
+    # {case: (call, bytes it must move)} of B10
+    from tpufem_torch.sparse import ell_cuda as ec
+
+    n, k = data.shape
+    out = {}
+    for q in (3, 8):
+        X = torch.randn((n, q), generator=g, device=dev)
+        nbytes = n * k * (4 + rel.element_size()) + 2 * X.numel() * 4
+        out[f"B10 q={q} fp32"] = (
+            lambda X=X: ec.ell_matvec_multi_cuda(plan, d_t, rel, X), nbytes)
+        if q == 3:
+            out["B10 q=3 fp32 absolute columns"] = (
+                lambda X=X: ec.ell_gather_matvec_multi_cuda(data, cols, X),
+                n * k * 8 + 2 * X.numel() * 4)
+    return out
+
+
 def transfer_out(res):
     # (sha256 of the field, the dot or None)
     if isinstance(res, tuple):
@@ -180,13 +265,15 @@ for (label, nr, k, b), dtype, banded in (
         [(s, d, False) for s in SHAPES
          for d in (torch.float32, torch.float64)]
         + [(s, torch.float32, True) for s in SHAPES]):
+    if not wanted("B12g"):
+        break
     data, cols, x = gather_case(nr, k, b, dtype, banded)
     fn = lambda: bcsr_gather_matvec_cuda(data, cols, x)
     name = (f"B12g {label} {str(dtype)[6:]}"
             + (" banded" if banded else ""))
     out[name] = {"ms": cuda_ms(fn, reps=50), "sha256": digest(fn())}
     del data, cols, x
-for n in (524288, 1 << 26):
+for n in (524288, 1 << 26) if wanted("B15") else ():
     g = torch.Generator(device=dev).manual_seed(n)
     a = torch.tensor([5.1], device=dev)
     x = torch.rand(n, generator=g, device=dev)
@@ -198,7 +285,7 @@ for n in (524288, 1 << 26):
         "torch_add_ms": cuda_ms(lambda: torch.add(y, x, alpha=alpha),
                                 reps=50)}
     del x, y
-for n, dtype in TRANSFERS:
+for n, dtype in TRANSFERS if wanted("K") else ():
     case = transfer_case(n, dtype)
     for kind, (fn, nbytes) in transfer_calls(*case).items():
         sha, dot = transfer_out(fn())
@@ -208,6 +295,8 @@ for n, dtype in TRANSFERS:
     del case
     torch.cuda.empty_cache()
 for label, dim, n, cdt, which in CONSTS:
+    if not wanted(label):
+        continue
     lv, code, x, b = const_case(dim, n, cdt)
     for name, (fn, nbytes) in const_calls(label, lv, code, x, b,
                                           which).items():
@@ -217,7 +306,25 @@ for label, dim, n, cdt, which in CONSTS:
             "bound_ms": nbytes / 3.35e12 * 1e3}
     del lv, code, x, b
     torch.cuda.empty_cache()
-print(json.dumps(out))
+from tpufem_torch.sparse import ell_cuda as ec
+for label, n, k, band, b, R in BANDS if wanted("B12 ") else ():
+    plan, d_t32, rel, x32 = band_case(n, k, band, b, R)
+    for dtype in (torch.float32, torch.float64):
+        d_t, x = d_t32.to(dtype), x32.to(dtype)
+        fn = lambda: ec.bcsr_matvec_cuda(plan, d_t, rel, x)
+        out[f"{label} {str(dtype)[6:]}"] = {
+            "ms": cuda_ms(fn, reps=50), "sha256": digest(fn()),
+            "bound_ms": band_bytes(plan, d_t, rel, x) / 3.35e12 * 1e3}
+        del d_t, x
+    del plan, d_t32, rel, x32
+    torch.cuda.empty_cache()
+if wanted("B10"):
+    case = ell_case()
+    for name, (fn, nbytes) in ell_calls(*case).items():
+        out[name] = {"ms": cuda_ms(fn, reps=50), "sha256": digest(fn()),
+                     "bound_ms": nbytes / 3.35e12 * 1e3}
+    del case
+print(json.dumps({k: v for k, v in out.items() if wanted(k)}))
 """
 
 _TILES = _COMMON + r"""
@@ -226,6 +333,8 @@ from tpufem_torch.sparse import ell_cuda
 picked = ell_cuda.bcsr_gather_tiling
 for (label, nr, k, b), dtype in [(s, d) for s in SHAPES
                                  for d in (torch.float32, torch.float64)]:
+    if not wanted("B12g"):
+        break
     data, cols, x = gather_case(nr, k, b, dtype)
     itemsize = data.element_size()
     rows0 = picked(itemsize, b, k)[0]
@@ -253,7 +362,7 @@ chosen = mt.transfer_tiling
 TILES = {k: [(ty, tz) for ty in mt.TILE_ROWS[k]
              for tz in ((4, 8, 16, 32) if k == "K4" else (2, 4, 8, 16))]
          for k in ("K4", "K3")}
-for n, dtype in TRANSFERS:
+for n, dtype in TRANSFERS if wanted("K") else ():
     case = transfer_case(n, dtype)
     lf, lc, r = case[0], case[1], case[2]
     calls = transfer_calls(*case)
@@ -290,6 +399,8 @@ from tpufem_torch.ops import stencil_cuda as sc
 
 picked_const = sc.const_tiling
 for label, dim, n, cdt, _ in CONSTS[:-1]:
+    if not wanted(label):
+        continue
     lv, code, x, b = const_case(dim, n, cdt)
     fn, nbytes = const_calls(label, lv, code, x, b, ("smooth",))["smooth"]
     ref = fn()
@@ -313,26 +424,75 @@ for label, dim, n, cdt, _ in CONSTS[:-1]:
                   + (" (picked)" if (ty, tz) == pick else ""))
     del lv, code, x, b, ref
     torch.cuda.empty_cache()
+
+picked_band = ell_cuda.bcsr_band_tiling
+for label, n, k, band, b, R in BANDS if wanted("B12 ") else ():
+    plan, d_t32, rel, x32 = band_case(n, k, band, b, R)
+    for dtype in (torch.float32, torch.float64):
+        d_t, x = d_t32.to(dtype), x32.to(dtype)
+        fn = lambda: ell_cuda.bcsr_matvec_cuda(plan, d_t, rel, x)
+        ref = fn()
+        pick = picked_band()
+        bound = band_bytes(plan, d_t, rel, x) / 3.35e12 * 1e3
+        for rows in ell_cuda.BCSR_TILE_ROWS:
+            ell_cuda.bcsr_band_tiling = lambda *a, r=rows: r
+            try:
+                same = torch.equal(fn(), ref)
+                ms = cuda_ms(fn, reps=50)
+            finally:
+                ell_cuda.bcsr_band_tiling = picked_band
+            print(f"# {label} {str(dtype)[6:]}, {rows} block rows a block "
+                  f"({-(-n // rows)} blocks): {ms:.4f} ms (bound "
+                  f"{bound:.4f} ms), equal to the picked tile's output "
+                  f"{same}" + (" (picked)" if rows == pick else ""))
+        del d_t, x, ref
+    del plan, d_t32, rel, x32
+    torch.cuda.empty_cache()
+
+picked_multi = ell_cuda.ell_multi_tiling
+if wanted("B10"):
+    case = ell_case()
+    for name, (fn, nbytes) in ell_calls(*case).items():
+        ref = fn()
+        q = ref.shape[1]
+        for design in ell_cuda.ell_multi_designs(4, q):
+            if "absolute" in name and design[1]:
+                continue                    # the absolute form never stages
+            ell_cuda.ell_multi_tiling = lambda *a, d=design: d
+            try:
+                same = torch.equal(fn(), ref)
+                ms = cuda_ms(fn, reps=50)
+            finally:
+                ell_cuda.ell_multi_tiling = picked_multi
+            print(f"# {name}, {design[0]} threads a block, window "
+                  f"{design[1]}: {ms:.4f} ms (bound "
+                  f"{nbytes / 3.35e12 * 1e3:.4f} ms), equal to the picked "
+                  f"design's output {same}"
+                  + (" (picked)" if tuple(design) == tuple(picked_multi(4, q))
+                     else ""))
+    del case
 """
 
 
 def main() -> int:
-    if len(sys.argv) != 3:
+    if len(sys.argv) < 3:
         print(__doc__, file=sys.stderr)
         return 2
+    select = sys.argv[3:]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0])
     if sys.argv[1] == "--tiles":
-        return subprocess.run([sys.executable, "-c", _TILES],
+        return subprocess.run([sys.executable, "-c", _TILES, *select],
                               cwd=Path(sys.argv[2]).resolve(),
-                              timeout=600).returncode
+                              timeout=900).returncode
     dirs = {"A": Path(sys.argv[1]).resolve(), "B": Path(sys.argv[2]).resolve()}
     runs = {"A": [], "B": []}
     for key in ("A", "B", "B", "A"):
-        proc = subprocess.run([sys.executable, "-c", _TURN], cwd=dirs[key],
-                              capture_output=True, text=True, timeout=600)
+        proc = subprocess.run([sys.executable, "-c", _TURN, *select],
+                              cwd=dirs[key], capture_output=True, text=True,
+                              timeout=900)
         if proc.returncode != 0:
             print(proc.stderr, file=sys.stderr)
             return 1

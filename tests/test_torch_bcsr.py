@@ -178,13 +178,16 @@ def _random_bcsr(seed, nr, k, band, b):
 
 
 # (rows, slots, half bandwidth, block rows): R = 256 stores int16 windows,
-# R = 11008 (3R > 32767) int32 ones
-_CASES = {"int16": (1000, 8, 200, 256), "int32": (11500, 4, 300, 11008)}
+# R = 11008 (3R > 32767) int32 ones; "int16-k16" has the 3D elasticity
+# path's 16 slots (B12's K = 16 instance on the card)
+_CASES = {"int16": (1000, 8, 200, 256), "int32": (11500, 4, 300, 11008),
+          "int16-k16": (200, 16, 60, 128)}
 
 
-@pytest.mark.parametrize("per_block", [False, True])
-@pytest.mark.parametrize("case,b", [("int16", 2), ("int16", 3),
-                                    ("int32", 2)])
+@pytest.mark.parametrize("case,b,per_block", [
+    (case, b, per_block) for per_block in (False, True)
+    for case, b in (("int16", 2), ("int16", 3), ("int32", 2))]
+    + [("int16-k16", 3, False)])   # the per_block twin takes 12 s more
 def test_band_plan_and_plain_kernel_match_pallas(case, b, per_block):
     """The port's banded block plan equals JAX's bcsr_band_plan, and B12's
     plain version (the wrapper's CPU path) equals the TPU kernel,

@@ -1152,6 +1152,143 @@ def test_bcsr_gather_kernel_on_views_off_16_bytes(dev, off, dtype, b, k):
     assert torch.equal(y, ell_cuda.bcsr_gather_matvec_plain(data, cols, x))
 
 
+def _band_case(dev, dtype, b, n, k, block_rows, seed):
+    """A random banded BCSR matrix of n block rows and k slots (half
+    bandwidth 100 or less), its banded plan on the card and a
+    component-major x [b, n]."""
+    from tpufem_torch.sparse import ell_cuda
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    band = min(100, max(n - 1, 0))
+    cols = (torch.arange(n)[:, None] + torch.randint(
+        -band, band + 1, (n, k), generator=g)).clamp_(0, n - 1).to(
+        torch.int32)
+    data = torch.randn((n, k, b, b), generator=g, dtype=dtype)
+    x = torch.randn((b, n), generator=g, dtype=dtype).to(dev)
+    plan, data_t = ell_cuda.bcsr_band_plan(data, cols, block_rows=block_rows,
+                                           per_block=True)
+    d_t, rel = (torch.as_tensor(a, device=dev) for a in (data_t, plan.rel))
+    return plan, d_t, rel, x
+
+
+@pytest.mark.parametrize("n", [1, 31, 1000, 4097])
+@pytest.mark.parametrize("k", [8, 16, 5])
+@pytest.mark.parametrize("b", [2, 3])
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_bcsr_band_kernel_bit_equal_over_designs(dev, monkeypatch, dtype, b,
+                                                 k, n):
+    """B12 equals its plain version bit for bit in every tile its chooser
+    can pick and in odd tiles (1, 33 and 262 rows), at n below one tile and
+    off a tile multiple, at the unrolled K = 8 and 16 and at K = 5 (the
+    run-time instance), with one launch counted per call."""
+    from tpufem_torch.sparse import ell_cuda
+
+    plan, d_t, rel, x = _band_case(dev, dtype, b, n, k, 256, n + k + b)
+    ref = ell_cuda.bcsr_band_matvec_plain(plan, d_t, rel, x)
+    for tile in sorted(set(ell_cuda.BCSR_TILE_ROWS) | {1, 33, 262}):
+        monkeypatch.setattr(ell_cuda, "bcsr_band_tiling",
+                            lambda *a, t=tile: t)
+        before = ell_cuda.bcsr_matvec_cuda.launches
+        y = ell_cuda.bcsr_matvec_cuda(plan, d_t, rel, x)
+        torch.cuda.synchronize()
+        assert ell_cuda.bcsr_matvec_cuda.launches == before + 1
+        assert y.shape == (b, n)
+        assert torch.equal(y, ref), tile
+
+
+@pytest.mark.parametrize("block_rows", [256, 11008], ids=["int16", "int32"])
+@pytest.mark.parametrize("b", [2, 3])
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_bcsr_band_kernel_layouts(dev, dtype, b, block_rows):
+    """B12 on both x layouts of the paths (component-major [b, n], the
+    transposed view of a node-major vector), x padded to NP, the per_block
+    route, and y written through a transposed view (node-major storage):
+    the same bits in every case."""
+    from tpufem_torch.sparse import ell_cuda
+
+    n = 2500
+    plan, d_t, rel, x = _band_case(dev, dtype, b, n, 16 if b == 3 else 8,
+                                   block_rows, 7 * b)
+    assert plan.rel.dtype == (np.int16 if block_rows == 256 else np.int32)
+    ref = ell_cuda.bcsr_band_matvec_plain(plan, d_t, rel, x)
+    xn = x.T.contiguous()
+    xp = torch.cat([x, x.new_zeros((b, plan.np_rows - n))], 1)
+    before = ell_cuda.bcsr_matvec_cuda.launches_per_block
+    for got in (ell_cuda.bcsr_matvec_cuda(plan, d_t, rel, x),
+                ell_cuda.bcsr_matvec_cuda(plan, d_t, rel, xn.T),
+                ell_cuda.bcsr_matvec_cuda(plan, d_t, rel, xp),
+                ell_cuda.bcsr_matvec_cuda(plan, d_t, rel, x,
+                                          per_block=True)):
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+    assert ell_cuda.bcsr_matvec_cuda.launches_per_block == before + 1
+    yn = torch.full((n, b), float("nan"), dtype=dtype, device=dev)
+    ell_cuda._bcsr_launch("bcsr_matvec", d_t, rel, xn.T, yn.T, n, plan.width,
+                          (1, b * b * plan.np_rows, plan.np_rows),
+                          (1, plan.np_rows), plan.block_rows)
+    torch.cuda.synchronize()
+    assert torch.equal(yn.T, ref)
+
+
+@pytest.mark.parametrize("tile", [0, 385])
+def test_bcsr_band_refused_tile_raises(dev, monkeypatch, tile):
+    """A tile of no rows or past the kernel's 384 threads a block is
+    refused at launch, not run."""
+    from tpufem_torch.sparse import ell_cuda
+
+    plan, d_t, rel, x = _band_case(dev, torch.float64, 3, 500, 16, 256, 1)
+    monkeypatch.setattr(ell_cuda, "bcsr_band_tiling", lambda *a: tile)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ell_cuda.bcsr_matvec_cuda(plan, d_t, rel, x)
+
+
+def _shifted_rows(t):
+    """A copy of t whose storage starts one element past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    v = buf[1:].view(t.shape)
+    v.copy_(t)
+    assert v.data_ptr() % 16 != 0
+    return v
+
+
+@pytest.mark.parametrize("q", [2, 3, 4, 5, 8, 9])
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_ell_multi_kernel_bit_equal(dev, monkeypatch, dtype, q):
+    """B10 equals its plain version bit for bit at every q its instances
+    cover (2-8 unrolled, 9 at run time), on the banded plan and in the
+    absolute-column form, at 3001 rows (off every block size), in each
+    design the chooser picks from (block size; X staged in shared memory
+    or not: the absolute form's columns span too far to stage), and with X
+    off a 16-byte boundary (the scalar accesses); one launch counted per
+    call."""
+    from tpufem_torch.sparse import ell_cuda
+
+    data, cols, _ = _ell_case(dev, dtype, n=3001)
+    X = torch.randn((3001, q), generator=torch.Generator(
+        device="cpu").manual_seed(q), dtype=dtype).to(dev)
+    plan = ell_cuda.ell_band_plan(data, cols, block_rows=512)
+    d_t, rel = (torch.as_tensor(a, device=dev) for a in (plan.data_t,
+                                                          plan.rel))
+    ref = ell_cuda.ell_band_matvec_multi_plain(plan, d_t, rel, X)
+    assert torch.equal(ref, ell_cuda.ell_gather_matvec_multi_plain(
+        data, cols, X))
+    for design in ell_cuda.ell_multi_designs(X.element_size(), q):
+        monkeypatch.setattr(ell_cuda, "ell_multi_tiling",
+                            lambda *a, d=design: d)
+        for Xv in (X, _shifted_rows(X)):
+            before = (ell_cuda.ell_matvec_multi_cuda.launches,
+                      ell_cuda.ell_gather_matvec_multi_cuda.launches)
+            Y = ell_cuda.ell_matvec_multi_cuda(plan, d_t, rel, Xv)
+            Yg = ell_cuda.ell_gather_matvec_multi_cuda(data, cols, Xv)
+            torch.cuda.synchronize()
+            assert (ell_cuda.ell_matvec_multi_cuda.launches,
+                    ell_cuda.ell_gather_matvec_multi_cuda.launches) == (
+                before[0] + 1, before[1] + 1)
+            assert torch.equal(Y, ref), design
+            assert torch.equal(Yg, ref), design
+
+
 @pytest.mark.parametrize("kw", [dict(matvec="pallas"), dict()],
                          ids=["pallas", "gather"])
 @pytest.mark.parametrize("dim", [2, 3])

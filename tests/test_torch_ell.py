@@ -104,7 +104,7 @@ def test_band_matvec_matches_pallas(case, mode):
 
 
 @pytest.mark.parametrize("segmented", [False, True])
-@pytest.mark.parametrize("q", [1, 3, 8])
+@pytest.mark.parametrize("q", [1, 2, 3, 5, 8])
 def test_band_matvec_multi_matches_pallas(q, segmented):
     """B10: Y = A X against the TPU multi-RHS kernel, interpreted."""
     ref_plan, plan, _, _, rng = _plans("int16")

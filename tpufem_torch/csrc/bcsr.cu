@@ -19,17 +19,30 @@
 // only selects the schedule the TPU needed.
 //
 // B12 bound on the card: bytes.  Per block row it reads K B^2 values and K
-// indices and writes B outputs; x is gathered within the RCM band (a window
-// of 3R nodes per block, and x fits the 50 MB L2), so it costs about one
-// read.  2D (B = 2) at 491,401 block rows, K = 8, R = 1024, fp32 with int16
-// rel: data 62.9 MB, rel 7.9 MB, x and y 3.9 MB each, about 78.6 MB, so
-// about 23.5 us at 3.35 TB/s.  Design: one thread per block row,
-// consecutive threads on consecutive rows, so each (k, c, d) plane of
-// data_t and each rel plane is read in fully coalesced lines (the plan is
-// transposed for exactly that); each thread gathers x_d[col] once per
-// (k, d) and feeds all B accumulators, as the TPU kernel shares its
-// gathers; no shared memory.  Only the n real rows are computed: their
-// columns lie in [0, n), and the padding rows up to NP are never read.
+// indices and writes B outputs; x is gathered within the RCM band (x fits
+// the 50 MB L2), so it costs about one read.  2D (B = 2) at 491,401 block
+// rows, K = 8, fp32 with int16 rel: 78.6 MB, 23.5 us at 3.35 TB/s; 3D (B =
+// 3) at 68,921 block rows, K = 16: 43.5 MB, 13.0 us.  What held the first
+// design (one thread a row, the slot loop run to a run-time K) at 43% of
+// that at the 3D shape was not the bytes but each thread's chain: a
+// slot's index load, then its dependent x gathers, one slot after another,
+// and a few warps an SM to hide it (scripts/spmv_ablation.py: moving every
+// gather onto the diagonal left its time within 2%).  Design: one thread a
+// block row, consecutive threads on consecutive rows (each (k, c, d) plane
+// of data_t and each rel plane read in coalesced lines), the slots
+// unrolled for K = 8 and 16 (a run-time instance for any other K), and
+// each slot's index and values loaded kBandAhead slots before they are
+// summed, the order held by keep_order(), so that several slots' loads and
+// gathers are in flight at once.  Tiles of 384 rows (the chooser,
+// sparse/ell_cuda.py's bcsr_band_tiling).  Tried and measured slower
+// (PERF.md, Findings): B threads a row, one per output (3x the gathers); x's
+// band staged in shared memory per block (the copy before any sum
+// serialised each block); tiles balanced over the SMs.  At the 3D shape
+// the random gathers still cost about 0.003 ms (0.0188 ms, against 0.0158
+// with every gather on the diagonal), and the rest runs at about 80% of
+// the bytes bound (PERF.md).  Only the n real
+// rows are computed: their columns lie in [0, n), and the padding rows up
+// to NP are never read.
 //
 // B12g replaces the gather form of the reference's BCSRMatrix
 // (tpufem/sparse/bcsr.py:152-154, XLA's gather and reduce; the Pallas
@@ -66,9 +79,11 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <climits>
 #include <cstdint>
 
 #include "common.cuh"
+#include "spmv_probe.cuh"
 
 namespace {
 
@@ -88,45 +103,139 @@ struct BcsrLayout {
   long long y_comp, y_node;          // y: component, node
 };
 
-template <typename T, typename Idx, int B>
-__global__ void __launch_bounds__(tpufem::kBlock)
+// Slots whose columns and values are loaded ahead of the one being summed:
+// 16 bytes of each value plane, 4 slots in fp32 and 2 in fp64 (the fastest
+// in scripts/spmv_ablation.py's sweep, which sets TPUFEM_BCSR_AHEAD,
+// spmv_probe.cuh).
+template <typename T>
+constexpr int kBandAhead = TPUFEM_BCSR_AHEAD > 0
+                               ? TPUFEM_BCSR_AHEAD
+                               : 16 / static_cast<int>(sizeof(T));
+constexpr int kBandMaxThreads = 384;
+
+// Keeps the compiler from moving loads across it: the loads issued ahead
+// stay ahead (without it the compiler sinks them to their uses, and the
+// slots' loads no longer overlap).  TPUFEM_BCSR_ORDER=0 leaves it out
+// (scripts/spmv_ablation.py's probe).
+__device__ __forceinline__ void keep_order() {
+  if (TPUFEM_BCSR_ORDER) asm volatile("" ::: "memory");
+}
+
+// Thread r of a block of tile_rows threads computes block row
+// i = blockIdx.x * tile_rows + r and all B of its outputs.  It loads its
+// first P slots' columns and values, then sums the slots in order, each
+// slot's column and values loaded P slots before it is summed, so P
+// slots' index loads, x gathers and value loads are in flight at once.
+// (The first loads sit in the `live` branch before the early return, each
+// slot's behind keep_order(): so placed, ptxas keeps them ahead, 79 and 70
+// registers at the 3D shape in fp32 and fp64 with int16 windows; without,
+// it sinks them to their uses, 40 to 44, and the time goes back to the
+// parent's.)  K slots known at compile time; K = 0: l.k at run time,
+// loaded as summed.
+template <typename T, typename Idx, int B, int K>
+__global__ void __launch_bounds__(kBandMaxThreads)
 bcsr_spmv(const T* __restrict__ data, const Idx* __restrict__ idx,
-          const T* __restrict__ x, T* __restrict__ y, BcsrLayout l) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
-  if (i >= l.rows) return;
-  const long long base = window_base(i, l.block_rows);
+          const T* __restrict__ x, T* __restrict__ y, BcsrLayout l,
+          int tile_rows) {
+  constexpr int P = K > 0 && (kBandAhead<T>) > K ? K : kBandAhead<T>;
+  const long long i =
+      static_cast<long long>(blockIdx.x) * tile_rows + threadIdx.x;
+  const bool live = i < l.rows;
+  const long long base = window_base(live ? i : 0, l.block_rows);
+  const Idx* __restrict__ ip = idx + (live ? i : 0) * l.i_row;
+  const T* __restrict__ dp = data + (live ? i : 0) * l.d_row;
+  const auto column = [&](int s) {
+    return static_cast<int>(base + ip[s * l.i_slot]);
+  };
+  const auto value = [&](int s, int c, int d) {
+    return dp[s * l.d_slot + (c * B + d) * l.d_comp];
+  };
+  const auto gather = [&](int col, int d) {
+    return x[d * l.x_comp + static_cast<long long>(col) * l.x_node];
+  };
+
+  int col[K > 0 ? K : 1];
+  T v[K > 0 ? K : 1][B][B];
+  if constexpr (K > 0) {
+    if (live) {
+#pragma unroll
+      for (int s = 0; s < P; ++s) {
+        col[s] = column(s);
+#pragma unroll
+        for (int c = 0; c < B; ++c)
+#pragma unroll
+          for (int d = 0; d < B; ++d) v[s][c][d] = value(s, c, d);
+      }
+    }
+  }
+  keep_order();
+  if (!live) return;
+
   T acc[B];
 #pragma unroll
   for (int c = 0; c < B; ++c) acc[c] = T(0);
-  for (int s = 0; s < l.k; ++s) {
-    const long long col =
-        base + static_cast<long long>(idx[i * l.i_row + s * l.i_slot]);
-    const T* __restrict__ d = data + i * l.d_row + s * l.d_slot;
+  if constexpr (K > 0) {
 #pragma unroll
-    for (int dd = 0; dd < B; ++dd) {
-      const T xv = x[dd * l.x_comp + col * l.x_node];
+    for (int s = 0; s < K; ++s) {
+      if (s + P < K) {
+        col[s + P] = column(s + P);
 #pragma unroll
-      for (int c = 0; c < B; ++c)
-        acc[c] = add_rn(acc[c], mul_rn(d[(c * B + dd) * l.d_comp], xv));
+        for (int c = 0; c < B; ++c)
+#pragma unroll
+          for (int d = 0; d < B; ++d) v[s + P][c][d] = value(s + P, c, d);
+      }
+      keep_order();
+#pragma unroll
+      for (int d = 0; d < B; ++d) {
+        const T xv = gather(col[s], d);
+#pragma unroll
+        for (int c = 0; c < B; ++c)
+          acc[c] = add_rn(acc[c], mul_rn(v[s][c][d], xv));
+      }
+    }
+  } else {
+    for (int s = 0; s < l.k; ++s) {
+      const int cs = column(s);
+#pragma unroll
+      for (int d = 0; d < B; ++d) {
+        const T xv = gather(cs, d);
+#pragma unroll
+        for (int c = 0; c < B; ++c)
+          acc[c] = add_rn(acc[c], mul_rn(value(s, c, d), xv));
+      }
     }
   }
 #pragma unroll
   for (int c = 0; c < B; ++c) y[c * l.y_comp + i * l.y_node] = acc[c];
 }
 
+template <typename T, typename Idx, int B, int K>
+int launch_band(const void* data, const void* idx, const void* x, void* y,
+                const BcsrLayout& l, int tile_rows, cudaStream_t stream) {
+  const auto blocks = static_cast<unsigned>((l.rows + tile_rows - 1) /
+                                            tile_rows);
+  bcsr_spmv<T, Idx, B, K><<<blocks, tile_rows, 0, stream>>>(
+      static_cast<const T*>(data), static_cast<const Idx*>(idx),
+      static_cast<const T*>(x), static_cast<T*>(y), l, tile_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The instance for l.k (8 and 16 unrolled, any other at run time), in
+// blocks of tile_rows block rows (one thread each, at most 384).  Columns
+// must fit an int.
 template <typename T, typename Idx, int B>
 int launch(const void* data, const void* idx, const void* x, void* y,
-           const BcsrLayout& l, void* stream) {
-  if (l.rows < 0 || l.k < 1 || l.block_rows < 1)
+           const BcsrLayout& l, int tile_rows, void* stream) {
+  if (l.rows < 0 || l.rows > INT_MAX || l.k < 1 || l.block_rows < 1 ||
+      tile_rows < 1 || tile_rows > kBandMaxThreads)
     return static_cast<int>(cudaErrorInvalidValue);
   if (l.rows == 0) return static_cast<int>(cudaSuccess);
-  bcsr_spmv<T, Idx, B>
-      <<<tpufem::num_blocks(l.rows), tpufem::kBlock, 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(data), static_cast<const Idx*>(idx),
-          static_cast<const T*>(x), static_cast<T*>(y), l);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (l.k == 8)
+    return launch_band<T, Idx, B, 8>(data, idx, x, y, l, tile_rows, s);
+  if (l.k == 16)
+    return launch_band<T, Idx, B, 16>(data, idx, x, y, l, tile_rows, s);
+  return launch_band<T, Idx, B, 0>(data, idx, x, y, l, tile_rows, s);
 }
 
 // -- B12g: the gather form -------------------------------------------------
@@ -388,17 +497,19 @@ extern "C" {
 
 // B12: y = A x for a BCSR matrix of B x B blocks on the banded plan
 // (block_rows > 0: data_t [K, B, B, NP], rel [K, NP]).  Strides in
-// elements.
+// elements; blocks of tile_rows block rows (one thread each);
+// cudaErrorInvalidValue past 384.
 #define TPUFEM_BCSR_ENTRY(NAME, T, IDX, B)                                   \
   int NAME(const void* data, const void* idx, const void* x, void* y,        \
            long long rows, int k, long long d_row, long long d_slot,         \
            long long d_comp, long long i_row, long long i_slot,              \
            long long block_rows, long long x_comp, long long x_node,         \
-           long long y_comp, long long y_node, void* stream) {               \
+           long long y_comp, long long y_node, int tile_rows,                \
+           void* stream) {                                                   \
     const BcsrLayout l{rows,       k,      d_row,  d_slot, d_comp, i_row,    \
                        i_slot,     block_rows, x_comp, x_node, y_comp,       \
                        y_node};                                              \
-    return launch<T, IDX, B>(data, idx, x, y, l, stream);                    \
+    return launch<T, IDX, B>(data, idx, x, y, l, tile_rows, stream);         \
   }
 
 TPUFEM_BCSR_ENTRY(tpufem_bcsr_spmv_f32_i16_b2, float, int16_t, 2)

@@ -1,0 +1,22 @@
+// The build-time probes of the banded SpMV kernels, B12 (bcsr.cu) and B10
+// (ell.cu), in one place.  Only scripts/spmv_ablation.py sets them (-D...
+// in load_library's flags) to build probe copies; the defaults here are the
+// shipped designs, measured fastest in that script's sweep.
+#pragma once
+
+// B12: slots whose columns and values are loaded ahead of the one being
+// summed.  0: 16 bytes of each value plane (4 slots in fp32, 2 in fp64).
+#ifndef TPUFEM_BCSR_AHEAD
+#define TPUFEM_BCSR_AHEAD 0
+#endif
+
+// B12: 1 keeps the compiler fence (keep_order) after each slot's loads;
+// 0 leaves it out.
+#ifndef TPUFEM_BCSR_ORDER
+#define TPUFEM_BCSR_ORDER 1
+#endif
+
+// B10: slots a group on the banded plan.
+#ifndef TPUFEM_ELL_AHEAD
+#define TPUFEM_ELL_AHEAD 2
+#endif

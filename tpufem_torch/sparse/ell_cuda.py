@@ -13,13 +13,16 @@ CUDA kernel gathers each column directly, so ``segmented`` and
 
   * ``ell_matvec_cuda`` (B9; B11 with ``per_block=True``):
     y = A x from the plan;
-  * ``ell_matvec_multi_cuda`` (B10): Y = A X for X [n, q];
+  * ``ell_matvec_multi_cuda`` (B10): Y = A X for X [n, q], a thread a row
+    with its q sums in registers, X's rows staged in shared memory where
+    a block's columns fit the window ``ell_multi_tiling`` gives;
   * ``ell_gather_matvec_cuda`` / ``ell_gather_matvec_multi_cuda``: the same
     kernels in absolute-column mode on row-major data / cols [N, K] (the
     gather form of ``ELLMatrix``);
   * ``bcsr_matvec_cuda`` (B12, both TPU variants): y = A x for a BCSR
     matrix of b x b blocks (b = 2, 3) on the node pattern's banded plan
-    (``bcsr_band_plan``), x and y component-major [b, n];
+    (``bcsr_band_plan``), x and y component-major [b, n], a thread a block
+    row in tiles of ``bcsr_band_tiling`` rows;
     ``bcsr_gather_matvec_cuda`` (B12g, its own kernel in csrc/bcsr.cu):
     the same product on row-major data [NR, K, b, b] / cols [NR, K] and
     node-major x (the gather form of ``BCSRMatrix``), staged through
@@ -33,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -41,7 +45,8 @@ import torch
 from tpufem_torch.ops._build import check_launch, load_library, stream_handle
 
 __all__ = ["ELLBandPlan", "ell_band_plan", "auto_block_rows",
-           "ell_matvec_cuda", "ell_matvec_multi_cuda",
+           "ell_matvec_cuda", "ell_matvec_multi_cuda", "ell_multi_tiling",
+           "ell_multi_designs", "bcsr_band_tiling",
            "ell_gather_matvec_cuda", "ell_gather_matvec_multi_cuda",
            "ell_band_matvec_plain", "ell_band_matvec_multi_plain",
            "ell_gather_matvec_plain", "ell_gather_matvec_multi_plain",
@@ -267,10 +272,47 @@ _ENTRY = {(torch.float32, torch.int16): "tpufem_ell_spmv_f32_i16",
           (torch.float32, torch.int32): "tpufem_ell_spmv_f32_i32",
           (torch.float64, torch.int16): "tpufem_ell_spmv_f64_i16",
           (torch.float64, torch.int32): "tpufem_ell_spmv_f64_i32"}
+# B10: the same, then align, threads, window, stream
+_MULTI_ARGS = _ARGS[:-1] + (_I, _I, _I, _P)
+_MULTI_ENTRY = {key: name.replace("spmv", "spmv_multi")
+                for key, name in _ENTRY.items()}
 
 
 def _lib():
-    return load_library("ell.cu", {e: _ARGS for e in _ENTRY.values()})
+    return load_library("ell.cu", {
+        **{e: _ARGS for e in _ENTRY.values()},
+        **{e: _MULTI_ARGS for e in _MULTI_ENTRY.values()}})
+
+
+# B10's designs (threads a block, one row each; X rows a block stages in
+# shared memory, 0: none): every design the sweep (``scripts/kernel_ab.py
+# --tiles``) times, and by (value bytes, q) the one it measured fastest
+ELL_MULTI_THREADS = (64, 128, 256)
+ELL_MULTI_WINDOWS = (0, 2560, 4096)
+_MULTI_PICKED = {(4, 3): (256, 2560), (4, 8): (256, 0)}
+_SMEM_PER_BLOCK = 232448       # 227 KB of shared memory a block may take
+# of which B10 may stage: the rest is kept for its static part
+_STAGE_LIMIT = _SMEM_PER_BLOCK - 1024
+
+
+def ell_multi_designs(itemsize: int, q: int):
+    """Every (threads, window rows) B10 can launch for q columns of
+    ``itemsize``-byte values."""
+    return [(t, w) for t in ELL_MULTI_THREADS for w in ELL_MULTI_WINDOWS
+            if w * q * itemsize <= _STAGE_LIMIT]
+
+
+def ell_multi_tiling(itemsize: int, q: int):
+    """B10's design for ``q`` columns of ``itemsize``-byte values:
+    (threads a block, one row a thread; rows of X a block stages in shared
+    memory, 0: none), one of ``ell_multi_designs``."""
+    return _MULTI_PICKED.get((itemsize, q), (256, 0))
+
+
+def _row_align(itemsize: int, q: int, *tensors) -> int:
+    """The bytes (16, 8 or the value's) every row of q values of each
+    tensor starts on: what B10's vector accesses may assume."""
+    return math.gcd(16, q * itemsize, *(t.data_ptr() for t in tensors))
 
 
 def _expect(what, t, dtype, shape, device):
@@ -298,9 +340,17 @@ def _launch(what, data, idx, x, rows, k, row_stride, slot_stride, block_rows,
     shape = (rows,) if q == 1 and x.dim() == 1 else (rows, q)
     with torch.cuda.device(x.device):
         y = torch.empty(shape, dtype=x.dtype, device=x.device)
-        status = getattr(_lib(), entry)(
-            data.data_ptr(), idx.data_ptr(), x.data_ptr(), y.data_ptr(),
-            rows, k, row_stride, slot_stride, block_rows, q, stream_handle())
+        args = (data.data_ptr(), idx.data_ptr(), x.data_ptr(), y.data_ptr(),
+                rows, k, row_stride, slot_stride, block_rows, q)
+        if q == 1:
+            status = getattr(_lib(), entry)(*args, stream_handle())
+        else:
+            threads, window = ell_multi_tiling(x.element_size(), q)
+            if not block_rows:      # absolute columns: no band to stage
+                window = 0
+            status = getattr(_lib(), _MULTI_ENTRY[data.dtype, idx.dtype])(
+                *args, _row_align(x.element_size(), q, x, y), threads,
+                window, stream_handle())
     check_launch(status, what)
     return y
 
@@ -468,7 +518,8 @@ def bcsr_gather_matvec_plain(data, cols, x):
     return y.reshape(-1)
 
 
-_BCSR_ARGS = (_P, _P, _P, _P, _LL, _I) + (_LL,) * 10 + (_P,)
+# data, idx, x, y, rows, k, 10 strides, tile_rows, stream
+_BCSR_ARGS = (_P, _P, _P, _P, _LL, _I) + (_LL,) * 10 + (_I, _P)
 _BCSR_ENTRY = {(t, i, b): f"tpufem_bcsr_spmv_{tn}_{iname}_b{b}"
                for t, tn in ((torch.float32, "f32"), (torch.float64, "f64"))
                for i, iname in ((torch.int16, "i16"), (torch.int32, "i32"))
@@ -486,6 +537,19 @@ def _bcsr_lib():
         **{e: _GATHER_ARGS for e in _GATHER_ENTRY.values()}})
 
 
+# B12's block rows a block (one thread each, at most 384): every tile the
+# sweep (``scripts/kernel_ab.py --tiles``) times at the paths' shapes
+BCSR_TILE_ROWS = (128, 256, 384)
+
+
+def bcsr_band_tiling() -> int:
+    """B12's block rows a block (one thread a row), one of
+    ``BCSR_TILE_ROWS``: 384, the fastest (or within 1% of it) at each of
+    the elasticity paths' four shapes and types in the sweep, so every
+    shape and type takes it."""
+    return 384
+
+
 def _bcsr_launch(what, data, idx, x, y, rows, k, d_strides, i_strides,
                  block_rows):
     """One launch of B12 on the banded plan: ``rows`` block rows of ``k``
@@ -501,11 +565,12 @@ def _bcsr_launch(what, data, idx, x, y, rows, k, d_strides, i_strides,
     if x.dtype != data.dtype or x.device != data.device:
         raise ValueError(f"{what}: x must be {data.dtype} on {data.device}, "
                          f"got {x.dtype} {x.device}")
+    tile_rows = bcsr_band_tiling()
     with torch.cuda.device(x.device):
         status = getattr(_bcsr_lib(), entry)(
             data.data_ptr(), idx.data_ptr(), x.data_ptr(), y.data_ptr(),
             rows, k, *d_strides, *i_strides, block_rows, *x.stride(),
-            *y.stride(), stream_handle())
+            *y.stride(), tile_rows, stream_handle())
     check_launch(status, what)
     return y
 
@@ -552,8 +617,6 @@ bcsr_matvec_cuda.launches = 0
 bcsr_matvec_cuda.launches_per_block = 0
 
 
-# Shared memory a block of B12g (csrc/bcsr.cu) may take: 227 KB
-_SMEM_PER_BLOCK = 232448
 _GATHER_MAX_THREADS = 384
 # bytes of one staged tile: two buffers of about this size leave room for
 # four blocks on an SM, which measured fastest at the paths' shapes
