@@ -21,7 +21,9 @@
      operator, fp32 data and bf16 data under fp32 vectors; B5 (matvec,
      residual, sweep, sweep+dot) on every const level; K3/K4 on every
      level pair.
-   - 2D, n=1024 and n=8: B7 in fp32 and fp64; K2 on B7's fp32 and fp64
+   - 2D, n=1024 and n=8: B7 in fp32 and fp64 (its tile printed), bit for
+     bit against its plain version, at n=8 with both RHS modes, the n=1024
+     builds timed (the record's "shapes"); K2 on B7's fp32 and fp64
      operators; B5 with 7 offsets on every const level (1024..8) in fp32
      and fp64; B4 on every level of the general hierarchy over B7's
      operator, fp32 and bf16 data.
@@ -60,8 +62,8 @@
      BSR product (its CSR expansion where BSR @ x does not run).
    - Assembly: B13 on the embedded element coordinates of the n=96 Kuhn
      box (the assembly path's shape) and of the non-cubic 5 x 4 x 6 box,
-     fp32 and fp64, bit for bit against its plain version (no library
-     call computes it).
+     fp32 and fp64 (its tile printed, every shape timed), bit for bit
+     against its plain version (no library call computes it).
    - Reduction and SAXPY: B14 on examples/reduction_bench.py's 64 MB
      vector (block = n / 8) in fp32 and fp64 and at an n that is not a
      block multiple, bit for bit against its plain version and within
@@ -849,14 +851,15 @@ def _check_transfers(records, gen, levels, timed):
 
 
 def _check_2d(dev, records):
-    """B7 at n=1024 and n=8 (fp32, fp64); B5 with 7 offsets on every 2D
+    """B7 at n=1024 and n=8 (fp32, fp64; bit for bit, both RHS modes at
+    n=8, the tile it launches printed); B5 with 7 offsets on every 2D
     const level; K2 and B4 on every level of the 2D general hierarchy."""
     import numpy as np
     import torch
 
     from tpufem_torch.fem.quadrature import triangle_rule
     from tpufem_torch.ops.fused_system_cuda import (
-        build_poisson_system, build_poisson_system_plain,
+        build_poisson_system, build_poisson_system_plain, fused_2d_tiling,
         node_coords_embedded_from_grid)
     from tpufem_torch.ops.stencil_cuda import (stencil_apply,
                                                stencil_apply_plain)
@@ -872,15 +875,27 @@ def _check_2d(dev, records):
             C = torch.as_tensor(node_coords_embedded_from_grid(
                 coords, plan, np_dt), device=dev)
             dt = str(C.dtype).replace("torch.", "")
+            tx, rows, smem, grid = fused_2d_tiling(C.element_size(),
+                                                   tuple(plan.store_grid))
+            print(f"# tile B7 2D n={n} {dt}: {tx} cells completing "
+                  f"{tx - 1} columns, bands of {rows} rows, grid {grid}, "
+                  f"{smem} B of shared memory a block")
             for apply_bc in (True, False):
-                _compare(records, "B7",
-                         f"2D n={n} {dt}{'' if apply_bc else ' raw'}",
-                         lambda: _arrays(build_poisson_system(
-                             plan, C, f, rule, apply_bc=apply_bc)),
-                         lambda: _arrays(build_poisson_system_plain(
-                             plan, C, f, rule, apply_bc=apply_bc)),
-                         timed=n == N_2D and apply_bc,
-                         work=([C], 2 * n ** 2 * _ELEMENT_FLOPS[2], dt))
+                for mode in ("quadrature", "interp"):
+                    if mode == "interp" and n != N_SMALL:
+                        continue        # timed at n=1024 in the path's mode
+                    _compare(records, "B7",
+                             f"2D n={n} {dt}{'' if apply_bc else ' raw'}"
+                             + ("" if mode == "quadrature" else " interp"),
+                             lambda: _arrays(build_poisson_system(
+                                 plan, C, f, rule, apply_bc=apply_bc,
+                                 rhs_mode=mode)),
+                             lambda: _arrays(build_poisson_system_plain(
+                                 plan, C, f, rule, apply_bc=apply_bc,
+                                 rhs_mode=mode)),
+                             timed=n == N_2D and apply_bc, shapes=True,
+                             exact=True,
+                             work=([C], 2 * n ** 2 * _ELEMENT_FLOPS[2], dt))
         # K2 on the fp32 operator (2d path) and on the fp64 one
         # (2d_dirichlet path)
         ops = {}
@@ -2464,7 +2479,8 @@ def _check_assembly(dev, records):
     import torch
 
     from tpufem_torch.ops.assemble_cuda import (assemble_stencil_cuda,
-                                                assemble_stencil_plain)
+                                                assemble_stencil_plain,
+                                                assemble_tiling)
 
     for shape in (N_MAIN, (5, 4, 6)):
         mesh, plan, X64 = _embedded_coords(shape, dev)
@@ -2473,6 +2489,11 @@ def _check_assembly(dev, records):
         for dt in (torch.float32, torch.float64):
             X = X64.to(dt)
             name = str(dt).replace("torch.", "")
+            tx, ty, tz, smem, grid = assemble_tiling(
+                X.element_size(), tuple(plan.store_grid))
+            print(f"# tile B13 {label} {name}: {tx} columns x {ty} rows, "
+                  f"{tz} planes, grid {grid}, {smem} B of shared memory a "
+                  "block")
             # the bound counts only the coordinates B13 reads: those of
             # cells inside the cell grid (padding cells are skipped)
             m0, m1, m2 = plan.info.cell_grid
@@ -2480,7 +2501,7 @@ def _check_assembly(dev, records):
             _compare(records, "B13", f"{label} {name}",
                      lambda: assemble_stencil_cuda(plan, X).data,
                      lambda: assemble_stencil_plain(plan, X).data,
-                     timed=True,
+                     timed=True, shapes=True,
                      work=([read], mesh.num_elements * _ASSEMBLE_FLOPS, name))
             same = torch.equal(assemble_stencil_cuda(plan, X).data,
                                assemble_stencil_plain(plan, X).data)

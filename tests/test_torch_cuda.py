@@ -42,11 +42,11 @@ from tpufem_torch.solve.structured_fast import solve_poisson_fast
 pytestmark = pytest.mark.cuda
 
 # Tolerances: where a kernel and its plain version compute the same sums
-# in another order or with FMA contraction (B7 among the builds), fields
-# agree to a few ulps of the largest entry; fp64 dots are accumulated in
-# fp64 on both sides.  A kernel that adds in its plain version's order
-# with each product and sum rounded on its own (K1 and B8 among them) is
-# held to it bit for bit (torch.equal).
+# in another order or with FMA contraction, fields agree to a few ulps of
+# the largest entry; fp64 dots are accumulated in fp64 on both sides.  A
+# kernel that adds in its plain version's order with each product and sum
+# rounded on its own (every build among them: K1, B7, B8, B13) is held to
+# it bit for bit (torch.equal).
 _TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 # (coefficient type, vector type) pairs of the general stencil kernel
 _DATA_VEC = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
@@ -549,24 +549,42 @@ def test_solve_poisson_fast_general_cuda_matches_cpu(dev, kw):
 
 # -- the third slice: B7, B5 with 7 offsets, B3 and B5b ---------------------
 
-def _grid_2d(n):
+def _grid_2d(n, jitter=0.0):
+    """(plan, node coordinates) of the square (-3, 3)^2 with n cells a
+    side, its interior nodes jittered by +-jitter h (default_rng(n))."""
     from tpufem_torch.solve.multigrid import _light_grid
 
-    info, coords, _ = _light_grid((-3.0, 3.0), n, 2)
+    info, coords, bc = _light_grid((-3.0, 3.0), n, 2)
+    if jitter:
+        h = 6.0 / n
+        pert = np.random.default_rng(n).uniform(-jitter * h, jitter * h,
+                                                coords.shape)
+        coords = coords + np.where(~np.broadcast_to(bc, coords.shape), pert,
+                                   0.0)
     return structured_plan(info, embed=True), coords
+
+
+def _coords_2d(n, dtype, dev, jitter=0.0):
+    plan, coords = _grid_2d(n, jitter)
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    return plan, torch.as_tensor(node_coords_embedded_from_grid(
+        coords, plan, np_dt), device=dev)
 
 
 @pytest.mark.parametrize("dtype", _DTYPES)
 @pytest.mark.parametrize("rhs_mode", ["quadrature", "interp"])
 @pytest.mark.parametrize("apply_bc", [True, False])
-def test_fused_system_2d_kernel_matches_plain(dev, dtype, rhs_mode, apply_bc):
+@pytest.mark.parametrize("n", [8, 24, 200])
+def test_fused_system_2d_kernel_matches_plain(dev, dtype, rhs_mode, apply_bc,
+                                              n):
+    """B7 equals its plain version bit for bit (built with -fmad=false, its
+    terms in the plain version's order) and launches once: store grids of
+    (16, 128), (32, 128) (x pads 25 nodes to 128 columns) and (208, 256),
+    its two column tiles."""
     from tpufem_torch.fem.quadrature import triangle_rule
     from tpufem_torch.solve.poisson import model_problem_2d_planes
 
-    plan, coords = _grid_2d(24)      # x pads 25 nodes to 128 store columns
-    np_dt = np.float32 if dtype == torch.float32 else np.float64
-    C = torch.as_tensor(node_coords_embedded_from_grid(coords, plan, np_dt),
-                        device=dev)
+    plan, C = _coords_2d(n, dtype, dev)
     f, rule = model_problem_2d_planes(), triangle_rule(2)
     before = fused_system_cuda.build_poisson_system.launches_2d
     A, b = build_poisson_system(plan, C, f, rule, apply_bc=apply_bc,
@@ -575,8 +593,68 @@ def test_fused_system_2d_kernel_matches_plain(dev, dtype, rhs_mode, apply_bc):
                                         rhs_mode=rhs_mode)
     torch.cuda.synchronize()
     assert fused_system_cuda.build_poisson_system.launches_2d == before + 1
-    _close(A.data, Ap.data, dtype)
-    _close(b, bp, dtype)
+    assert torch.equal(A.data, Ap.data)
+    assert torch.equal(b, bp)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("tile", [(tx, rows)
+                                  for tx in fused_system_cuda.FUSED_2D_TILES
+                                  for rows in (1, 7, 64, 1000)])
+def test_fused_system_2d_bit_equal_over_tiles(dev, monkeypatch, dtype, tile):
+    """Every built tile and bands of 1, 7, 64 and 1000 rows give the plain
+    version's planes and RHS bit for bit on a jittered n=300 grid (304 x
+    384 store rows: ragged last bands, a band longer than the grid), with
+    the elimination and without."""
+    from tpufem_torch.fem.quadrature import triangle_rule
+    from tpufem_torch.solve.poisson import model_problem_2d_planes
+
+    plan, C = _coords_2d(300, dtype, dev, 0.15)
+    f, rule = model_problem_2d_planes(), triangle_rule(2)
+    monkeypatch.setattr(fused_system_cuda, "fused_2d_tiling",
+                        lambda itemsize, store_grid: (*tile, 0, None))
+    for apply_bc in (True, False):
+        A, b = build_poisson_system(plan, C, f, rule, apply_bc=apply_bc)
+        Ap, bp = build_poisson_system_plain(plan, C, f, rule,
+                                            apply_bc=apply_bc)
+        torch.cuda.synchronize()
+        assert torch.equal(A.data, Ap.data)
+        assert torch.equal(b, bp)
+
+
+@pytest.mark.parametrize("tile", [(32, 4), (128, 4), (64, 0)])
+def test_fused_system_2d_refused_tile_raises(dev, monkeypatch, tile):
+    """A B7 tile the launcher has no kernel for raises before the launch,
+    and the C launcher refuses it too."""
+    from tpufem_torch.fem.quadrature import triangle_rule
+    from tpufem_torch.solve.poisson import model_problem_2d_planes
+
+    plan, C = _coords_2d(24, torch.float32, dev)
+    f, rule = model_problem_2d_planes(), triangle_rule(2)
+    monkeypatch.setattr(fused_system_cuda, "fused_2d_tiling",
+                        lambda itemsize, store_grid: (*tile, 0, None))
+    with pytest.raises(ValueError, match="tile"):
+        build_poisson_system(plan, C, f, rule)
+    monkeypatch.setattr(fused_system_cuda, "check_fused_2d_tile",
+                        lambda *a: None)
+    with pytest.raises(RuntimeError, match="fused_system_2d"):
+        build_poisson_system(plan, C, f, rule)
+
+
+def test_fused_2d_smem_matches_the_launcher(dev):
+    """B7's planner counts the launcher's shared memory per block for every
+    built tile; a tile without a kernel gives -1."""
+    from tpufem_torch.fem.quadrature import triangle_rule
+    from tpufem_torch.solve.poisson import model_problem_2d_planes
+
+    plan, _ = _grid_2d(8)
+    lib = fused_system_cuda._lib(plan, triangle_rule(2),
+                                 model_problem_2d_planes().c_expr)
+    for itemsize in (4, 8):
+        for tx in fused_system_cuda.FUSED_2D_TILES:
+            assert lib.tpufem_fused_2d_smem(itemsize, tx) == \
+                fused_system_cuda.fused_2d_smem(itemsize, tx)
+        assert lib.tpufem_fused_2d_smem(itemsize, 32) == -1
 
 
 @pytest.mark.parametrize("dtype", _DTYPES)
@@ -1348,22 +1426,30 @@ def test_elasticity_build_on_the_card_is_deterministic(dev, monkeypatch):
     _close(runs[0].cpu(), ref, torch.float32)
 
 
-@pytest.mark.parametrize("dtype", _DTYPES)
-@pytest.mark.parametrize("dims", [(5, 4, 6), (8, 8, 8)],
-                         ids=["box5x4x6", "cube8"])
-def test_assemble_kernel_matches_plain_and_k1(dev, dtype, dims):
-    """B13 equals its plain version bit for bit, and its planes are K1's
-    raw stiffness (apply_bc=False) within the field tolerance."""
+def _assemble_box(dims, dtype, dev):
+    """(mesh, plan, X_emb on the card) of the box (-1, 2) x (0, 1) x (-2, 0)
+    with dims = (nx, ny, nz) cells."""
     from tpufem_torch.mesh.box import box_mesh
-    from tpufem_torch.ops.assemble_cuda import (assemble_stencil_cuda,
-                                                assemble_stencil_plain,
-                                                element_coords_bt_embedded)
+    from tpufem_torch.ops.assemble_cuda import element_coords_bt_embedded
 
     mesh = box_mesh(-1, 2, 0, 1, -2, 0, *dims)
     plan = structured_plan(mesh, embed=True)
     np_dt = np.float32 if dtype == torch.float32 else np.float64
-    X = torch.as_tensor(element_coords_bt_embedded(mesh, plan, dtype=np_dt),
-                        device=dev)
+    return mesh, plan, torch.as_tensor(
+        element_coords_bt_embedded(mesh, plan, dtype=np_dt), device=dev)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("dims", [(5, 4, 6), (8, 8, 8), (37, 11, 9)],
+                         ids=["box5x4x6", "cube8", "box37x11x9"])
+def test_assemble_kernel_matches_plain_and_k1(dev, dtype, dims):
+    """B13 equals its plain version bit for bit and launches once, and its
+    planes are K1's raw stiffness (apply_bc=False) within the field
+    tolerance; 37 x 11 x 9 cells leave ragged tiles in y and z."""
+    from tpufem_torch.ops.assemble_cuda import (assemble_stencil_cuda,
+                                                assemble_stencil_plain)
+
+    mesh, plan, X = _assemble_box(dims, dtype, dev)
     before = assemble_stencil_cuda.launches
     A = assemble_stencil_cuda(plan, X)
     assert assemble_stencil_cuda.launches == before + 1
@@ -1373,11 +1459,60 @@ def test_assemble_kernel_matches_plain_and_k1(dev, dtype, dims):
     assert torch.equal(A.data, ref.data)
     ng = plan.info.node_grid
     coords = np.moveaxis(mesh.coords.reshape(*ng, 3), -1, 0)
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
     C = torch.as_tensor(node_coords_embedded_from_grid(coords, plan, np_dt),
                         device=dev)
     K1, _ = build_poisson_system(plan, C, model_problem_3d_planes(),
                                  tetrahedron_rule(2), apply_bc=False)
     _close(A.data, K1.data, dtype)
+
+
+def _assemble_tiles():
+    from tpufem_torch.ops.assemble_cuda import ASSEMBLE_TILES
+
+    return [(tx, ty, tz) for tx, ty in ASSEMBLE_TILES for tz in (1, 3, 32)]
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("tile", _assemble_tiles())
+def test_assemble_kernel_bit_equal_over_tiles(dev, monkeypatch, dtype, tile):
+    """Every built B13 tile (columns, rows) and marches of 1, 3 and 32
+    planes give the plain version's planes bit for bit on the
+    37 x 11 x 9 box (16 store planes and rows: ragged last tiles, a march
+    longer than the grid)."""
+    from tpufem_torch.ops import assemble_cuda
+
+    _, plan, X = _assemble_box((37, 11, 9), dtype, dev)
+    ref = assemble_cuda.assemble_stencil_plain(plan, X)
+    monkeypatch.setattr(assemble_cuda, "assemble_tiling",
+                        lambda itemsize, store_grid: (*tile, 0, None))
+    A = assemble_cuda.assemble_stencil_cuda(plan, X)
+    torch.cuda.synchronize()
+    assert torch.equal(A.data, ref.data)
+
+
+@pytest.mark.parametrize("tile", [(16, 16, 4), (64, 4, 0)])
+def test_assemble_refused_tile_raises(dev, monkeypatch, tile):
+    """A B13 tile the launcher has no kernel for raises before the launch,
+    and the C launcher refuses it too; the planner's shared memory per
+    block is the launcher's for every built tile."""
+    from tpufem_torch.ops import assemble_cuda
+
+    _, plan, X = _assemble_box((5, 4, 6), torch.float32, dev)
+    monkeypatch.setattr(assemble_cuda, "assemble_tiling",
+                        lambda itemsize, store_grid: (*tile, 0, None))
+    with pytest.raises(ValueError, match="tile"):
+        assemble_cuda.assemble_stencil_cuda(plan, X)
+    monkeypatch.setattr(assemble_cuda, "check_assemble_tile",
+                        lambda *a: None)
+    with pytest.raises(RuntimeError, match="assemble_stencil"):
+        assemble_cuda.assemble_stencil_cuda(plan, X)
+    lib = assemble_cuda._lib(plan)
+    for itemsize in (4, 8):
+        for tx, ty in assemble_cuda.ASSEMBLE_TILES:
+            assert lib.tpufem_assemble_smem(itemsize, tx, ty) == \
+                assemble_cuda.assemble_smem(itemsize, tx, ty)
+        assert lib.tpufem_assemble_smem(itemsize, 16, 16) == -1
 
 
 @pytest.mark.parametrize("dtype", _DTYPES)

@@ -24,10 +24,12 @@ callable without a C expression raises on a CUDA tensor; it never drops to
 the plain version.
 
 K1 and B8 (one template, csrc/fused_system.cu) compute each tetrahedron
-once per tile of ``fused_tiling``'s and march over planes; they are built
-with ``-fmad=false`` and add their terms in the plain version's order, so
-they equal ``build_poisson_system_plain`` / ``build_poisson_stripe_plain``
-bit for bit.  B7 keeps nvcc's default contraction.
+once per tile of ``fused_tiling``'s and march over planes; B7 computes
+each triangle once per tile of ``fused_2d_tiling``'s and marches down a
+band of rows.  All three are built with ``-fmad=false`` and add their
+terms in the plain version's order, so they equal
+``build_poisson_system_plain`` / ``build_poisson_stripe_plain`` bit for
+bit.
 """
 from __future__ import annotations
 
@@ -47,6 +49,8 @@ from tpufem_torch.sparse.stencil import StencilMatrix
 
 __all__ = ["node_coords_embedded", "node_coords_embedded_from_grid",
            "fused_tiling", "fused_smem", "check_fused_tile", "FUSED_TILES",
+           "fused_2d_tiling", "fused_2d_smem", "check_fused_2d_tile",
+           "FUSED_2D_TILES",
            "build_poisson_system",
            "build_poisson_system_plain", "build_poisson_stripe",
            "build_poisson_stripe_plain"]
@@ -62,10 +66,10 @@ _SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
 _ELEMENT = {3: P1Tetrahedron, 2: P1Triangle}
 _REF_VOLUME = {3: 1.0 / 6.0, 2: 0.5}
 _MASS_DENOM = {3: 120.0, 2: 24.0}
-# C, data, rhs, S0..S{d-1}, m0..m{d-1}, rhs_mode, apply_bc[, tx, nr, tz
-# in 3D], stream
+# C, data, rhs, S0..S{d-1}, m0..m{d-1}, rhs_mode, apply_bc, the tile (tx,
+# nr, tz in 3D; tx, rows in 2D), stream
 _SIGNATURES = {
-    d: {_ENTRY[d] + sfx: (_P, _P, _P) + (_I,) * (2 * d + 2 + 3 * (d == 3))
+    d: {_ENTRY[d] + sfx: (_P, _P, _P) + (_I,) * (2 * d + 2 + d)
         + (_P,) for sfx in _SUFFIX.values()} for d in (2, 3)}
 # B8: C_ext, data, rhs, L, S1, S2, m0, m1, m2, rhs_mode, apply_bc, zbase,
 # tx, nr, tz, stream
@@ -73,8 +77,9 @@ _STRIPE_ENTRY = "tpufem_fused_system_stripe"
 _SIGNATURES[3].update({_STRIPE_ENTRY + sfx: (_P, _P, _P) + (_I,) * 12 + (_P,)
                        for sfx in _SUFFIX.values()})
 _SIGNATURES[3]["tpufem_fused_smem"] = (_I, _I, _I)
-# K1 and B8 round every product and sum on its own, as torch does
-_FLAGS = {3: ("-fmad=false",), 2: ()}
+_SIGNATURES[2]["tpufem_fused_2d_smem"] = (_I, _I)
+# K1, B8 and B7 round every product and sum on its own, as torch does
+_FLAGS = {3: ("-fmad=false",), 2: ("-fmad=false",)}
 
 # -- K1 / B8 tiles (csrc/fused_system.cu) -------------------------------------
 # A block of 256 threads owns tx store columns by 256 / tx rows, one
@@ -186,6 +191,59 @@ def check_fused_tile(itemsize: int, tx: int, nr: int, tz: int) -> None:
                          f"a block, more than {_SMEM_PER_BLOCK}")
 
 
+# -- B7 tiles (csrc/fused_system_2d.cu) ---------------------------------------
+# A block of tx threads computes tx cells of a row, one a thread, completes
+# the tx - 1 columns between them (tiles overlap by a cell) and marches
+# down a band of rows, a ring of 3 cell rows of 2 types x 9 values in
+# shared memory.
+FUSED_2D_TILES = (64,)          # tx the launcher has kernels for
+# per item size, the tile sweep's pick (scripts/fused_build_ab.py --tiles;
+# 128 cells measured no faster, PERF.md): (tx, rows of a band)
+_TILE_2D = {4: (64, 5), 8: (64, 3)}
+_VALS_2D = 9                    # per cell and type: 6 entries, 3 loads
+_TYPES_2D = 2                   # triangles a cell
+
+
+def fused_2d_smem(itemsize: int, tx: int) -> int:
+    """Dynamic shared memory (bytes) of a B7 block of ``tx`` threads
+    (csrc/fused_system_2d.cu's Tile::kSmem): a ring of 3 cell rows, 9
+    values for each of the 2 types of each of the tx cells."""
+    return 3 * _TYPES_2D * _VALS_2D * tx * itemsize
+
+
+@functools.lru_cache(maxsize=None)
+def fused_2d_tiling(itemsize: int, store_grid: tuple):
+    """(tx, rows, shared memory bytes, grid) of one B7 launch on a store
+    grid (S0, S1).
+
+    A block of ``tx`` threads completes ``tx - 1`` columns and marches
+    down a band of ``rows`` store rows, its first step a warm-up cell row
+    (both per item size, from the tile sweep: short bands in several
+    waves beat the one wave of B5's const_tiling, PERF.md).  The grid is
+    (column tiles, 1, bands)."""
+    s0, s1 = (int(v) for v in store_grid)
+    if min(s0, s1) < 1:
+        raise ValueError(f"store grid {tuple(store_grid)}: empty")
+    tx, rows = _TILE_2D[itemsize]
+    rows = min(rows, s0)
+    return (tx, rows, fused_2d_smem(itemsize, tx),
+            (-(-(s1 - 1) // (tx - 1)), 1, -(-s0 // rows)))
+
+
+def check_fused_2d_tile(itemsize: int, tx: int, rows: int) -> None:
+    """Raise ValueError unless (tx threads, bands of rows) is a B7 tile the
+    launcher has a kernel for and its block fits the card's shared memory
+    (the C launcher refuses the same tiles)."""
+    if tx not in FUSED_2D_TILES or rows < 1:
+        raise ValueError(f"B7: tile ({tx} columns, {rows} rows): the "
+                         f"kernels are {FUSED_2D_TILES} columns with "
+                         "rows >= 1")
+    if fused_2d_smem(itemsize, tx) > _SMEM_PER_BLOCK:
+        raise ValueError(f"B7: tile of {tx} columns needs "
+                         f"{fused_2d_smem(itemsize, tx)} B of shared "
+                         f"memory a block, more than {_SMEM_PER_BLOCK}")
+
+
 def _check_plan(plan: StructuredPlan) -> int:
     """The plan's dimension: 3 (P1 tetrahedra) or 2 (P1 triangles)."""
     if not plan.embedded:
@@ -263,11 +321,14 @@ def _launch(plan, C_emb, f_planes, rule, apply_bc, rhs_mode):
     sg = tuple(plan.store_grid)
     lib = _launch_lib(plan, C_emb, f_planes, rule, rhs_mode)
     m = plan.info.cell_grid
-    tile = ()
     if dim == 3:    # the tile's columns, rounds of types and planes
         tx, _, nr, tz, _, _ = fused_tiling(C_emb.element_size(), sg)
         check_fused_tile(C_emb.element_size(), tx, nr, tz)
         tile = (tx, nr, tz)
+    else:           # the tile's columns and band of rows
+        tx, rows, _, _ = fused_2d_tiling(C_emb.element_size(), sg)
+        check_fused_2d_tile(C_emb.element_size(), tx, rows)
+        tile = (tx, rows)
     with torch.cuda.device(C_emb.device):
         data = torch.empty((plan.width,) + sg, dtype=C_emb.dtype,
                            device=C_emb.device)
@@ -334,8 +395,8 @@ def _plain_rows(plan, C, c_first, z0, depth, f_planes, rule, apply_bc,
     the terms of the cells on the plane below it (za = 1) and those of the
     cells on its own plane (za = 0) apart, each group from 0 in (type, a,
     b) order, and adds the two sums (each type's element values are
-    computed once per group); in 2D (B7, one thread a row) all terms in
-    (type, a, b) order.  Each element's values are those of the
+    computed once per group); in 2D (B7's march down the rows) all terms
+    in (type, a, b) order.  Each element's values are those of the
     whole-grid build, so any stripe equals the same rows of the whole
     build bit for bit."""
     dim = _check_plan(plan)
