@@ -60,6 +60,14 @@
      version's bit for bit (no fused multiply-add, the reference's order),
      which the field tolerance above contains; the library call is torch's
      BSR product (its CSR expansion where BSR @ x does not run).
+   - AMG hierarchies, right after each AMG path below, on the hierarchy
+     that path builds: every product of every level (A, Qp, Qr) held once
+     against its plain version, bit for bit: B12 (or B12g where a matrix
+     rides the gather form) on the 982,802-DOF block hierarchy (3 x 3
+     transfers and levels) and the n = 40 box's (6 x 6), B9 and B10 (q =
+     3) on the 1,002,001-row scalar one; the 982k fine-level Qp (b = 3)
+     and the box's first 6 x 6 level timed beside their bounds and BSR
+     (under B12's "shapes").
    - Assembly: B13 on the embedded element coordinates of the n=96 Kuhn
      box (the assembly path's shape) and of the non-cubic 5 x 4 x 6 box,
      fp32 and fp64 (its tile printed, every shape timed), bit for bit
@@ -140,6 +148,32 @@
      launch;
    - elasticity_3d: the same on the n = 40 box (206,763 DOFs, b = 3,
      block_rows 4096);
+   - unstructured_amg: examples/unstructured_1m.py --precond amg on the
+     unstructured path's system (1,002,001 rows, fp32): build_amg (greedy,
+     strength 0.08, V-cycle; every matrix's plan built at setup, none on
+     the gather form), cg to 1e-5 with check_every=2: <= 30 iterations
+     (the TPU's F4: 26), rel L2 error within 10% of the same fp32
+     system's error at relres 1e-6 (its fp32 assembly leaves about
+     2.0e-5), the hierarchy and setup walls printed; apply_multi on an
+     [n, 3] block within 1e-5 of three applies; then
+     solve_poisson_ell(precond="amg") on the mesh: <= 30 iterations, rel
+     L2 error <= 2.0e-5; B9 and B10 must launch;
+   - elasticity_amg: examples/elasticity_unstructured.py --precond amg at
+     full width (982,802 DOFs, matvec="pallas"), fp32 with its fp64 twin:
+     <= 40 iterations (the TPU's F1: 33, coarsest 273 rows), the fp64
+     solution's true relres <= 1e-5 and the fp32 one within the drift
+     limit and 1e-4 of it (as for elasticity; rounding the fp64 solution
+     to fp32 alone leaves a true relres of about 3e-3 here, so the fp32
+     solution cannot be held to 1e-5), the hierarchy and setup walls
+     printed; then matvec="gather" with AMG converges; B12 must launch,
+     at b = 3;
+   - elasticity_3d_amg: the n = 40 box with the AMG on the six rigid body
+     modes, fp32, converges to 1e-6; B12 must launch at b = 6;
+   - elasticity_box: examples/elasticity_1m.py --n 72 --precond mg
+     (solve_elasticity_box, 1,167,051 DOFs, fp32, tol 1e-5, the
+     manufactured displacement): <= 16 iterations (BENCH_NOTES.md:88:
+     14), rel L2 error <= 1e-3 (TPU 7.6e-4); no hand-written kernel (the
+     block-stencil product is XLA in the reference);
    - elasticity_small: fp64 to 1e-10 on a 48 x 48 perturbed mesh and a 6^3
      box, both matvec branches, each at the JAX package's CPU count, the
      two solutions within 1e-8;
@@ -179,9 +213,11 @@
      shards on the card, the manufactured solution of
      tests/test_dist_mg.py (seed 3), tol 1e-9: converged in fewer than 30
      iterations, error below 1e-7, at least 2 distributed levels;
-   - dryrun: the port's dryrun_multichip(8) on the card (stages 1, 2, 3,
-     5, 6 of __graft_entry__.py with their asserts), stage 2 within one
-     iteration of MULTICHIP_r05.json's 13; B8 launched 8 times.
+   - dryrun: the port's dryrun_multichip(8) on the card (the six stages
+     of __graft_entry__.py with their asserts; stage 4, the distributed
+     AMG, converges in its 100 iterations, MULTICHIP_r05.json's 24
+     printed beside), stage 2 within one iteration of MULTICHIP_r05.json's
+     13; B8 launched 8 times.
 
 The second-to-last line is the kernels' JSON record (launches summed over
 the paths), the last line {"ok": true, "device": {...}}.  Any failed check
@@ -387,6 +423,7 @@ def _rhs_2d_zero():
 
 
 def _build_kernels():
+    from tpufem_torch import native
     from tpufem_torch.fem.quadrature import tetrahedron_rule, triangle_rule
     from tpufem_torch.ops import assemble_cuda, reduction, saxpy_cuda
     from tpufem_torch.ops import fused_system_cuda, mg_transfer_cuda
@@ -413,6 +450,7 @@ def _build_kernels():
         "assemble.cu": lambda: assemble_cuda._lib(plan),
         "reduction.cu": reduction._lib,
         "saxpy.cu": saxpy_cuda._lib,
+        "meshgen.cpp (g++)": native.build_native,
     }
 
     def timed(build):
@@ -1634,8 +1672,12 @@ def _paths(dev, records):
               lambda: _drive_2d_dirichlet(dev), ("B7", "K2", "B5"))
     _run_path("scale", counters, records, lambda: _drive_scale(dev),
               ("K1", "B3", "B5b", "K3", "K4", "B4"))
+    keep = {}
     _run_path("unstructured", counters, records,
-              lambda: _drive_unstructured(dev), ("B9", "B9g", "B10"))
+              lambda: _drive_unstructured(dev, keep), ("B9", "B9g", "B10"))
+    _run_path("unstructured_amg", counters, records,
+              lambda: _drive_unstructured_amg(dev, records, keep),
+              ("B9", "B10"))
     _run_path("ell_small", counters, records, lambda: _drive_ell_small(dev),
               ("B9", "B9g"))
     _run_path("elasticity", counters, records,
@@ -1644,6 +1686,12 @@ def _paths(dev, records):
               lambda: _drive_elasticity_3d(dev), ("B12", "B12g"))
     _run_path("elasticity_small", counters, records,
               lambda: _drive_elasticity_small(dev), ("B12", "B12g"))
+    _run_path("elasticity_amg", counters, records,
+              lambda: _drive_elasticity_amg(dev, records), ("B12",))
+    _run_path("elasticity_3d_amg", counters, records,
+              lambda: _drive_elasticity_3d_amg(dev, records), ("B12",))
+    _run_path("elasticity_box", counters, records,
+              lambda: _drive_elasticity_box(dev), ())
     _run_path("weakform", counters, records, lambda: _drive_weakform(dev),
               ("B9", "B9g"))
     _run_path("assembly", counters, records,
@@ -1856,9 +1904,10 @@ def _drive_scale(dev):
     return lambda: _per_iteration("scale", pcg10)
 
 
-def _drive_unstructured(dev):
+def _drive_unstructured(dev, keep):
     """examples/unstructured_1m.py's default, composed from the port at full
-    size; then the same solve through the entry point."""
+    size; then the same solve through the entry point.  Keeps (A, b, the
+    exact solution) in ``keep`` for the unstructured_amg path."""
     import numpy as np
     import torch
 
@@ -2004,6 +2053,7 @@ def _drive_unstructured(dev):
     def pcg10():
         return cg_fixed(A.matvec, b, 10, M=M)
 
+    keep["unstructured"] = (A, b, ue, mesh0)
     return lambda: _per_iteration("unstructured", pcg10)
 
 
@@ -2109,13 +2159,14 @@ def _eliminated_rhs(mesh, dim, dtype, dev):
     return torch.where(torch.as_tensor(V.dof_flags, device=dev), 0.0, b)
 
 
-def _elasticity_pair(name, mesh, dev, **kw):
-    """solve_elasticity(matvec="pallas", block-Jacobi, tol 1e-6) in fp32 and
-    in fp64 on one mesh: gates convergence, B12 once per iteration plus the
-    start, the fp64 solution's true relative residual (fp64, the unpermuted
-    operator) <= 1e-5, the fp32 solution within 1e-4 of the fp64 one, and
-    the fp32 solution's own true relative residual within the drift limit.
-    Returns the fp32 solution.
+def _elasticity_pair(name, mesh, dev, precond="jacobi", **kw):
+    """solve_elasticity(matvec="pallas", tol 1e-6, ``precond``: block-Jacobi
+    or the block AMG) in fp32 and in fp64 on one mesh: gates convergence,
+    B12 once per iteration plus the start (with AMG: more, the cycle's
+    products), the fp64 solution's true relative residual (fp64, the
+    unpermuted operator) <= 1e-5, the fp32 solution within 1e-4 of the fp64
+    one, and the fp32 solution's own true relative residual within the
+    drift limit.  Returns the fp32 solution.
 
     Why the fp32 solution is not held to 1e-5: rounding the fp64 solution
     to fp32 alone leaves a relative residual rr_round (about 3e-3 at
@@ -2138,25 +2189,29 @@ def _elasticity_pair(name, mesh, dev, **kw):
         before = (ell_cuda.bcsr_matvec_cuda.launches,
                   ell_cuda.bcsr_gather_matvec_cuda.launches)
         t0 = time.perf_counter()
+        by_b = dict(ell_cuda.bcsr_matvec_cuda.launches_by_block)
         sol = solve_elasticity(mesh, body_force=_body_force(mesh.dim),
                                dtype=dtype, tol=1e-6, matvec="pallas",
-                               precond="jacobi", device=dev, **kw)
+                               precond=precond, device=dev, **kw)
         wall = time.perf_counter() - t0
         band = ell_cuda.bcsr_matvec_cuda.launches - before[0]
         gather = ell_cuda.bcsr_gather_matvec_cuda.launches - before[1]
+        by_b = {bb: c - by_b[bb] for bb, c in
+                ell_cuda.bcsr_matvec_cuda.launches_by_block.items()
+                if c > by_b[bb]}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         its = sol.cg.iterations
-        print(f"# {name} {dt} solve_elasticity(pallas, jacobi): "
+        print(f"# {name} {dt} solve_elasticity(pallas, {precond}): "
               f"{sol.space.num_dofs} DOFs, {its} iterations, relres "
               f"{sol.cg.residual_norm.item():.4e}, B12 launches {band} "
-              f"({band / max(its, 1):.4f} per iteration), absolute-mode "
-              f"launches {gather}, phases (s, each ending in a synchronize) "
-              + json.dumps({k: round(v, 4) for k, v in sol.walls.items()})
+              f"({band / max(its, 1):.4f} per iteration; by block size "
+              f"{json.dumps(by_b)}), absolute-mode launches {gather}, phases "
+              "(s, each ending in a synchronize) " + _walls_json(sol.walls)
               + f", wall {wall:.2f} s, peak device memory {peak_gb:.3f} GB "
               "(torch.cuda.max_memory_allocated)")
         check(sol.cg.converged, f"{name} {dt}: not converged in {its}")
-        check(band == its + 1, f"{name} {dt}: {band} B12 launches for {its} "
-                               "iterations")
+        check(band == its + 1 if precond == "jacobi" else band > its + 1,
+              f"{name} {dt}: {band} B12 launches for {its} iterations")
         sols[dt] = sol
     A64 = sols["float64"].A
     b64 = _eliminated_rhs(mesh, mesh.dim, torch.float64, dev)
@@ -2354,6 +2409,415 @@ def _drive_elasticity_small(dev):
         check(du <= 1e-8, f"elasticity_small {name}: branches differ {du:.3e}")
         del us
     torch.cuda.empty_cache()
+
+
+def _walls_json(walls):
+    """A solve's phase walls (and the AMG setup's detail) as JSON."""
+    def rounded(v):
+        if isinstance(v, dict):
+            return {k: rounded(x) for k, x in v.items()}
+        return round(v, 4) if isinstance(v, float) else v
+
+    return json.dumps(rounded(walls))
+
+
+# The AMG paths.  BENCH_NOTES.md F1 (the TPU's block AMG on the 982,802-DOF
+# system: 33 fp32 iterations, a coarsest of 273 rows) and F4 (its
+# scalar AMG on the 1,002,001-row system: 26 iterations, hierarchy
+# [1002001, 166046, 20629, 2654] + 452) are counts, not times;
+# the gates leave room for fp32 counts that move between machines.
+ELAST_AMG_MAXITER = 40
+UNSTR_AMG_MAXITER = 30
+F1_ITERS, F1_COARSE = 33, 273
+F4_ITERS, F4_LEVELS = 26, "[1002001, 166046, 20629, 2654] + 452"
+
+
+def _print_hierarchy(name, detail, setup_s):
+    print(f"# {name} hierarchy: levels {detail['levels']} + coarse "
+          f"{detail['coarse_rows']} rows, operator complexity "
+          f"{detail['operator_complexity']:.4f}, setup {setup_s:.2f} s "
+          f"(host stages: " + json.dumps({
+              k: round(v, 4) for k, v in detail.items()
+              if isinstance(v, float) and k != "operator_complexity"})
+          + f"), riding the gather kernel: {detail['gather']}")
+
+
+def _amg_hierarchy_of(sol, mesh, dev, block_rows):
+    """The block AMG hierarchy that solve_elasticity(matvec="pallas",
+    precond="amg") builds for ``sol``'s system (the same RCM permutation
+    and setup, rebuilt here), with its operator and the component-major
+    rhs: (hier, mv, perm, b_cm)."""
+    import torch
+
+    from tpufem_torch.solve.amg_block import build_block_amg
+    from tpufem_torch.solve.elasticity import banded_block_system
+    from tpufem_torch.sparse.bcsr import BCSRMatrix
+
+    A = sol.A
+    mv, _, perm, data_p, cols_p = banded_block_system(
+        A, A.cols.cpu().numpy(), block_rows=block_rows, permuted=True)
+    hier = build_block_amg(BCSRMatrix(torch.as_tensor(data_p, device=dev),
+                                      torch.as_tensor(cols_p, device=dev)),
+                           coords=mesh.coords[perm])
+    gen = torch.Generator(device=dev).manual_seed(9)
+    b_cm = torch.randn((A.block_size, A.data.shape[0]), generator=gen,
+                       device=dev, dtype=A.dtype)
+    return hier, mv, perm, b_cm
+
+
+def _check_bcsr_levels(records, name, hier, dev, timed=()):
+    """Every product of every level of a block AMG hierarchy (A, Qp, Qr)
+    against its plain version, bit for bit, on one random vector; the
+    matrices named in ``timed`` (e.g. "A1", "Qp0") also timed beside their
+    bound and torch's BSR product."""
+    import torch
+
+    from tpufem_torch.sparse import ell_cuda as ec
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    for i, lv in enumerate(hier.levels):
+        for mname in ("A", "Qp", "Qr"):
+            M = getattr(lv, mname)
+            if M is None:
+                continue
+            nr, k, b, _ = M.data.shape
+            dt = str(M.dtype).replace("torch.", "")
+            x = torch.randn((b, nr), generator=gen, device=dev,
+                            dtype=M.dtype)
+            xn = x.T.reshape(-1).contiguous()
+            label = (f"{name} level {i} {mname} {nr} block rows b={b} K={k} "
+                     f"{dt}")
+            is_timed = f"{mname}{i}" in timed
+            flops = 2 * k * b * b * nr
+            if isinstance(M._band, tuple):
+                plan, d_t, rel = M._band
+                _compare(records, "B12", label + f" R={plan.block_rows}",
+                         lambda: ec.bcsr_matvec_cuda(plan, d_t, rel, x),
+                         lambda: ec.bcsr_band_matvec_plain(plan, d_t, rel, x),
+                         exact=True, timed=is_timed, shapes=is_timed,
+                         work=([d_t[..., :nr], rel[:, :nr], x], flops, dt),
+                         library=(_library_bcsr(M.data, M.cols, xn, True)
+                                  if is_timed else None))
+            else:
+                _compare(records, "B12g", label + " absolute columns",
+                         lambda: ec.bcsr_gather_matvec_cuda(M.data, M.cols,
+                                                            xn),
+                         lambda: ec.bcsr_gather_matvec_plain(M.data, M.cols,
+                                                             xn),
+                         exact=True, timed=is_timed, shapes=is_timed,
+                         work=([M.data, M.cols, xn], flops, dt),
+                         library=(_library_bcsr(M.data, M.cols, xn, False)
+                                  if is_timed else None))
+    torch.cuda.empty_cache()
+
+
+def _check_ell_levels(records, name, hier, dev):
+    """Every product of every level of a scalar AMG hierarchy (A, Qp, Qr):
+    B9 and B10 (q = 3) against their plain versions, bit for bit."""
+    import torch
+
+    from tpufem_torch.sparse import ell_cuda as ec
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for i, lv in enumerate(hier.levels):
+        for mname in ("A", "Qp", "Qr"):
+            M = getattr(lv, mname)
+            if M is None:
+                continue
+            check(isinstance(M._band, tuple),
+                  f"{name} level {i} {mname}: no banded plan")
+            plan, d_t, rel = M._band
+            n, k = M.data.shape
+            dt = str(M.dtype).replace("torch.", "")
+            x = torch.randn(n, generator=gen, device=dev, dtype=M.dtype)
+            X = torch.randn((n, 3), generator=gen, device=dev, dtype=M.dtype)
+            label = (f"{name} level {i} {mname} {n} rows K={k} {dt} "
+                     f"R={plan.block_rows}")
+            _compare(records, "B9", label,
+                     lambda: ec.ell_matvec_cuda(plan, d_t, rel, x),
+                     lambda: ec.ell_band_matvec_plain(plan, d_t, rel, x),
+                     exact=True)
+            _compare(records, "B10", label + " q=3",
+                     lambda: ec.ell_matvec_multi_cuda(plan, d_t, rel, X),
+                     lambda: ec.ell_band_matvec_multi_plain(plan, d_t, rel,
+                                                            X),
+                     exact=True)
+    torch.cuda.empty_cache()
+
+
+def _drive_elasticity_amg(dev, records):
+    """examples/elasticity_unstructured.py --precond amg at full width
+    (982,802 DOFs, lam = mu = 1, f = (1, -0.5), tol 1e-6, matvec="pallas"):
+    fp32 with its fp64 twin (_elasticity_pair), <= ELAST_AMG_MAXITER
+    iterations, B12 on the 3 x 3 transfers and levels; then
+    matvec="gather" with AMG converges."""
+    import torch
+
+    from tpufem_torch.mesh.rectangle import perturbed_rectangle_mesh
+    from tpufem_torch.solve.elasticity import solve_elasticity
+    from tpufem_torch.sparse import ell_cuda
+
+    mesh = perturbed_rectangle_mesh(-1.0, 1.0, -1.0, 1.0, N_ELAST, N_ELAST,
+                                    jitter=0.2, seed=0)
+    check(2 * mesh.num_nodes == ELAST_DOFS, "elasticity_amg: mesh size")
+    b3 = ell_cuda.bcsr_matvec_cuda.launches_by_block[3]
+    sol = _elasticity_pair("elasticity_amg", mesh, dev, precond="amg",
+                           maxiter=3000)
+    detail = sol.walls["precond_setup_detail"]
+    _print_hierarchy("elasticity_amg fp32", detail,
+                     sol.walls["precond_setup"])
+    its = sol.cg.iterations
+    print(f"# elasticity_amg fp32: {its} iterations (TPU, BENCH_NOTES F1: "
+          f"{F1_ITERS}), coarsest {detail['coarse_rows']} rows "
+          f"(F1: {F1_COARSE}); block-Jacobi takes 2953-2955 here")
+    check(its <= ELAST_AMG_MAXITER,
+          f"elasticity_amg: {its} iterations > {ELAST_AMG_MAXITER}")
+    check(ell_cuda.bcsr_matvec_cuda.launches_by_block[3] > b3,
+          "elasticity_amg: B12 never ran at b = 3")
+    check(detail["gather"] == [], "elasticity_amg: a level rode the gather "
+                                  f"kernel: {detail['gather']}")
+
+    t0 = time.perf_counter()
+    solg = solve_elasticity(mesh, body_force=_body_force(2),
+                            dtype=torch.float32, tol=1e-6, maxiter=3000,
+                            matvec="gather", precond="amg", device=dev)
+    wall = time.perf_counter() - t0
+    dg = solg.walls["precond_setup_detail"]
+    _print_hierarchy("elasticity_amg gather fp32", dg,
+                     solg.walls["precond_setup"])
+    du = (torch.linalg.vector_norm(solg.u - sol.u)
+          / torch.linalg.vector_norm(sol.u)).item()
+    print(f"# elasticity_amg fp32 solve_elasticity(gather, amg): "
+          f"{solg.cg.iterations} iterations, relres "
+          f"{solg.cg.residual_norm.item():.4e}, phases "
+          + _walls_json(solg.walls) + f", wall {wall:.2f} s; ||u_gather - "
+          f"u_pallas|| / ||u_pallas|| {du:.4e}")
+    check(solg.cg.converged, "elasticity_amg gather: not converged")
+    del solg
+
+    def after():
+        from tpufem_torch.solve.cg import cg_fixed
+
+        hier, mv, _, b_cm = _amg_hierarchy_of(sol, mesh, dev, 1024)
+        _check_bcsr_levels(records, "elasticity_amg", hier, dev,
+                           timed=("Qp0",))
+        nb = sol.A.block_size
+
+        def M(r_cm):
+            return hier.apply(r_cm.T.reshape(-1)).reshape(-1, nb).T
+
+        _per_iteration("elasticity_amg", lambda: cg_fixed(mv, b_cm, 10,
+                                                          M=M))
+
+    return after
+
+
+def _drive_elasticity_3d_amg(dev, records):
+    """The n = 40 box (206,763 DOFs), fp32, the block AMG with the six
+    rigid body modes (6 x 6 coarse blocks and transfers), tol 1e-6,
+    block_rows 4096: converges; B12 runs at b = 6."""
+    import torch
+
+    from tpufem_torch.mesh.box import box_mesh
+    from tpufem_torch.solve.elasticity import solve_elasticity
+    from tpufem_torch.sparse import ell_cuda
+
+    mesh = box_mesh(-1, 1, -1, 1, -1, 1, N_ELAST_3D, N_ELAST_3D, N_ELAST_3D)
+    check(3 * mesh.num_nodes == ELAST_3D_DOFS, "elasticity_3d_amg: DOFs")
+    b6 = ell_cuda.bcsr_matvec_cuda.launches_by_block[6]
+    t0 = time.perf_counter()
+    sol = solve_elasticity(mesh, body_force=_body_force(3),
+                           dtype=torch.float32, tol=1e-6, maxiter=3000,
+                           matvec="pallas", precond="amg", block_rows=4096,
+                           device=dev)
+    wall = time.perf_counter() - t0
+    detail = sol.walls["precond_setup_detail"]
+    _print_hierarchy("elasticity_3d_amg fp32", detail,
+                     sol.walls["precond_setup"])
+    n6 = ell_cuda.bcsr_matvec_cuda.launches_by_block[6] - b6
+    print(f"# elasticity_3d_amg fp32 solve_elasticity(pallas, amg): "
+          f"{sol.cg.iterations} iterations (no TPU record at this size; "
+          f"block-Jacobi 171), relres {sol.cg.residual_norm.item():.4e}, "
+          f"B12 launches at b = 6: {n6}, phases " + _walls_json(sol.walls)
+          + f", wall {wall:.2f} s")
+    check(sol.cg.converged, "elasticity_3d_amg: not converged")
+    check(n6 > 0, "elasticity_3d_amg: B12 never ran at b = 6")
+
+    def after():
+        from tpufem_torch.solve.cg import cg_fixed
+
+        hier, mv, _, b_cm = _amg_hierarchy_of(sol, mesh, dev, 4096)
+        check(len(hier.levels) >= 2 and hier.levels[1].A.block_size == 6,
+              "elasticity_3d_amg: expected a 6 x 6 level")
+        _check_bcsr_levels(records, "elasticity_3d_amg", hier, dev,
+                           timed=("A1",))
+
+        def M(r_cm):
+            return hier.apply(r_cm.T.reshape(-1)).reshape(-1, 3).T
+
+        _per_iteration("elasticity_3d_amg",
+                       lambda: cg_fixed(mv, b_cm, 10, M=M))
+
+    return after
+
+
+def _drive_unstructured_amg(dev, records, keep):
+    """examples/unstructured_1m.py --precond amg at full size, on the
+    unstructured path's assembled, RCM-ordered system (1,002,001 rows,
+    fp32): build_amg (greedy, strength 0.08, V-cycle), cg to 1e-5 with
+    check_every=2: <= UNSTR_AMG_MAXITER iterations, its rel L2 error
+    within 10% of the same fp32 system solved to relres 1e-6 (the error
+    that system's fp32 assembly leaves: about 2.0e-5 here, so the
+    absolute 2.0e-5 gate is held on the entry point below);
+    apply_multi on an [n, 3] block against three applies (1e-5
+    relative).  Then solve_poisson_ell(precond="amg") on the same mesh:
+    <= UNSTR_AMG_MAXITER iterations, rel L2 error <= 2.0e-5."""
+    import torch
+
+    from tpufem_torch.solve.amg import build_amg
+    from tpufem_torch.solve.cg import cg, cg_fixed
+    from tpufem_torch.solve.poisson import model_problem_2d, solve_poisson_ell
+
+    A, b, ue, mesh0 = keep.pop("unstructured")
+    walls = {}
+    t0 = time.perf_counter()
+    hier = build_amg(A, aggregation="greedy", cycle="V", strength=0.08,
+                     walls_out=walls)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    _print_hierarchy("unstructured_amg", walls, setup)
+    print(f"# unstructured_amg hierarchy on the TPU (BENCH_NOTES F4): "
+          f"{F4_LEVELS}")
+    check(walls["gather"] == [], "unstructured_amg: a matrix rode the "
+                                 f"gather form: {walls['gather']}")
+    t0 = time.perf_counter()
+    res = cg(A.matvec, b, tol=1e-5, maxiter=3000, M=hier.apply,
+             check_every=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    err = _rel_err(res.x, ue)
+    print(f"# unstructured_amg AMG-PCG (V-cycle): {res.iterations} "
+          f"iterations (TPU, F4: {F4_ITERS}; Chebyshev(14) about 242), "
+          f"relres {res.residual_norm.item():.3e}, rel L2 error {err:.4e}, "
+          f"solve wall {wall:.4f} s")
+    check(res.converged and res.iterations <= UNSTR_AMG_MAXITER,
+          f"unstructured_amg: {res.iterations} iterations, converged "
+          f"{res.converged}")
+    tight = cg(A.matvec, b, tol=1e-6, maxiter=200, M=hier.apply)
+    err_floor = _rel_err(tight.x, ue)
+    print(f"# unstructured_amg the same fp32 system to relres 1e-6: "
+          f"{tight.iterations} iterations, rel L2 error {err_floor:.4e} "
+          f"(the fp32 assembly's floor; the solve to 1e-5 is "
+          f"{err / err_floor:.4f} of it)")
+    check(tight.converged, "unstructured_amg: relres 1e-6 not reached")
+    check(err <= 1.1 * err_floor,
+          f"unstructured_amg: rel L2 error {err:.3e} > 1.1 x the system's "
+          f"{err_floor:.3e}")
+    del tight
+    gen = torch.Generator(device=dev).manual_seed(12)
+    R3 = torch.randn((A.shape[0], 3), generator=gen, device=dev)
+    Z3 = hier.apply_multi(R3)
+    cols3 = torch.stack([hier.apply(R3[:, j].contiguous())
+                         for j in range(3)], 1)
+    err3 = ((Z3 - cols3).abs().max() / cols3.abs().max()).item()
+    print(f"# unstructured_amg apply_multi on an [n, 3] block vs 3 applies: "
+          f"max rel difference {err3:.3e}")
+    check(err3 <= 1e-5, f"unstructured_amg: apply_multi differs {err3:.3e}")
+    del R3, Z3, cols3
+
+    t0 = time.perf_counter()
+    sol = solve_poisson_ell(mesh0, precond="amg", dtype=torch.float32,
+                            tol=1e-5, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    err_e = _rel_err(sol.u, torch.as_tensor(
+        model_problem_2d()[1](mesh0.coords), device=dev))
+    print(f"# unstructured_amg solve_poisson_ell(amg, fp32): "
+          f"{sol.cg.iterations} iterations, relres "
+          f"{sol.cg.residual_norm.item():.3e}, rel L2 error {err_e:.4e}, "
+          f"wall {wall:.2f} s (host pattern, RCM, plan and hierarchy "
+          "included)")
+    check(sol.cg.converged and sol.cg.iterations <= UNSTR_AMG_MAXITER,
+          f"unstructured_amg entry: {sol.cg.iterations} iterations")
+    check(err_e <= 2.0e-5, f"unstructured_amg entry: rel L2 error "
+                           f"{err_e:.3e} > 2.0e-5")
+    del sol
+
+    def after():
+        _check_ell_levels(records, "unstructured_amg", hier, dev)
+        _per_iteration("unstructured_amg",
+                       lambda: cg_fixed(A.matvec, b, 10, M=hier.apply))
+
+    return after
+
+
+# examples/elasticity_1m.py --n 72 --precond mg: 73^3 x 3 = 1,167,051
+# DOFs; the TPU record (BENCH_NOTES.md:88): 14 iterations, error 7.6e-4
+N_ELAST_BOX = 72
+ELAST_BOX_DOFS = 1_167_051
+ELAST_BOX_MAXITER = 16
+
+
+def _drive_elasticity_box(dev):
+    """examples/elasticity_1m.py --n 72 --precond mg (lam 1.2, mu 0.8, the
+    manufactured displacement, fp32, tol 1e-5): solve_elasticity_box with
+    the vector MG in <= ELAST_BOX_MAXITER iterations, rel L2 error <=
+    1e-3.  No hand-written kernel runs (the block-stencil product and the
+    transfers are XLA in the reference, plain PyTorch here)."""
+    import numpy as np
+    import torch
+
+    from tpufem_torch.solve.cg import cg_fixed
+    from tpufem_torch.solve.elasticity_structured import (
+        build_elasticity_multigrid, elastic_mg_preconditioner,
+        manufactured_elasticity_3d, solve_elasticity_box)
+    from tpufem_torch.solve.multigrid import _light_grid
+
+    lam, mu = 1.2, 0.8
+    u_exact, f = manufactured_elasticity_3d(lam, mu)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sol = solve_elasticity_box((-3.0, 3.0), N_ELAST_BOX, lam=lam, mu=mu,
+                               body_force=f, dtype=torch.float32, tol=1e-5,
+                               maxiter=4000, precond="mg", device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _, coords_grid, _ = _light_grid((-3.0, 3.0), N_ELAST_BOX, 3)
+    ue = u_exact(*coords_grid).reshape(3, -1)
+    u = sol.u.double().cpu().numpy()
+    err = float(np.linalg.norm(u - ue) / np.linalg.norm(ue))
+    print(f"# elasticity_box solve_elasticity_box(n={N_ELAST_BOX}, mg, "
+          f"fp32): {sol.num_dofs} DOFs, {sol.cg.iterations} iterations "
+          f"(TPU, BENCH_NOTES.md:88: 14), relres "
+          f"{sol.cg.residual_norm.item():.3e}, rel L2 error {err:.4e} "
+          f"(TPU 7.6e-4), wall {wall:.2f} s (host setup included), peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    check(sol.num_dofs == ELAST_BOX_DOFS, "elasticity_box: DOF count")
+    check(sol.cg.converged and sol.cg.iterations <= ELAST_BOX_MAXITER,
+          f"elasticity_box: {sol.cg.iterations} iterations")
+    check(err <= 1e-3, f"elasticity_box: rel L2 error {err:.3e} > 1e-3")
+
+    def after():
+        from tpufem_torch.solve.elasticity_structured import (
+            block_stencil_matvec)
+
+        levels = build_elasticity_multigrid((-3.0, 3.0), N_ELAST_BOX,
+                                            lam=lam, mu=mu,
+                                            dtype=torch.float32, device=dev)
+        M = elastic_mg_preconditioner(levels)
+        top = levels[0]
+        gen = torch.Generator(device=dev).manual_seed(13)
+        nn = int(np.prod(top.plan.info.node_grid))
+        # random nodal values (zero on the store grid's padding and on
+        # the clamped boundary)
+        b = torch.stack([top.plan.embed_field(torch.randn(
+            nn, generator=gen, device=dev)) for _ in range(3)])
+        b = torch.where(top.bc_mask[None], 0.0, b)
+        _per_iteration("elasticity_box", lambda: cg_fixed(
+            lambda x: block_stencil_matvec(top.data, x, top.plan.offsets),
+            b, 10, M=M))
+
+    return after
 
 
 def _drive_weakform(dev):
@@ -3056,9 +3520,11 @@ def _drive_dist_mg(dev):
 
 
 def _drive_dryrun(dev):
-    """The port's dryrun_multichip(8) on the card: stages 1, 2, 3, 5 and 6
-    with the reference's asserts; stage 2 (fp64) within one iteration of
-    MULTICHIP_r05's 13; stage 3 launches B8 once per shard."""
+    """The port's dryrun_multichip(8) on the card: its six stages with the
+    reference's asserts (stage 4, the distributed AMG's W-cycle PCG to
+    1e-8, converges within 100 iterations); stage 2 (fp64) within one
+    iteration of MULTICHIP_r05's 13; stage 3 launches B8 once per
+    shard."""
     from tpufem_torch.dist.dryrun import dryrun_multichip
     from tpufem_torch.ops.fused_system_cuda import build_poisson_stripe
 
@@ -3066,13 +3532,17 @@ def _drive_dryrun(dev):
     out = dryrun_multichip(8)
     b8 = build_poisson_stripe.launches - b8
     reference = {"stencil_cg": 40, "dist_mg": 13, "dist_assembly": 31,
-                 "dist_bcsr": 72}
+                 "dist_amg": 24, "dist_bcsr": 72}
     print("# dryrun iterations (MULTICHIP_r05.json, 8 virtual CPU devices, "
           "in brackets): " + ", ".join(
               f"{k} {out[k]['iterations']} ({v})"
               for k, v in reference.items())
           + f"; energy drift {out['dist_dynamics']['drift']:.3e}; B8 "
           f"launches {b8}")
+    st4 = out["dist_amg"]
+    print(f"# dryrun stage 4 (dist-AMG): {st4['dofs']} DOFs, "
+          f"{st4['levels']} levels, {st4['iterations']} W-cycle PCG "
+          f"iterations (MULTICHIP_r05: 24), relres {st4['relres']:.3e}")
     check(abs(out["dist_mg"]["iterations"] - 13) <= 1,
           f"dryrun: stage 2 took {out['dist_mg']['iterations']} iterations")
     check(b8 == 8, f"dryrun: B8 launched {b8} times, not 8")

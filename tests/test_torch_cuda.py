@@ -1685,3 +1685,231 @@ def test_dist_pipeline_on_the_card_matches_cpu(dev):
     assert np.abs(u - u_c).max() <= 1e-10 * np.abs(u_c).max()
     assert res_mg.converged and res_mg.iterations == res_mg_c.iterations
     assert np.abs(u_mg - u_mg_c).max() <= 1e-10 * np.abs(u_mg_c).max()
+
+
+# -- B12 / B12g at the block AMG's block sizes, and the AMG on the card ----
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("b", [4, 5, 6])
+@pytest.mark.parametrize("k", [8, 64])
+@pytest.mark.parametrize("block_rows", [512, 11008], ids=["int16", "int32"])
+def test_bcsr_band_kernel_wide_blocks(dev, dtype, b, k, block_rows):
+    """B12 at b = 4 to 6 (the block AMG's transfers and 6 x 6 coarse
+    levels; the run-time-K instance), K = 8 and a fat K = 64: bit for bit
+    its plain version and the gather form's."""
+    from tpufem_torch.sparse import ell_cuda
+
+    data, cols, x = _bcsr_case(dev, dtype, b, n=1500, k=k)
+    plan, data_t = ell_cuda.bcsr_band_plan(data, cols, block_rows=block_rows)
+    d_t, rel = (torch.as_tensor(a, device=dev) for a in (data_t, plan.rel))
+    before = ell_cuda.bcsr_matvec_cuda.launches
+    y = ell_cuda.bcsr_matvec_cuda(plan, d_t, rel, x)
+    ref = ell_cuda.bcsr_band_matvec_plain(plan, d_t, rel, x)
+    torch.cuda.synchronize()
+    assert ell_cuda.bcsr_matvec_cuda.launches == before + 1
+    assert torch.equal(y, ref)
+    g = ell_cuda.bcsr_gather_matvec_plain(data, cols, x.T.reshape(-1))
+    assert torch.equal(y, g.reshape(-1, b).T)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("b", [4, 5, 6])
+@pytest.mark.parametrize("k", [8, 64, 128])
+def test_bcsr_gather_kernel_wide_blocks(dev, dtype, b, k):
+    """B12g at b = 4 to 6, K = 8 and fat K (64, 128: fp64 6 x 6 blocks
+    take the 1- and 2-row tiles), randomly numbered and on a band, bit for
+    bit its plain version."""
+    from tpufem_torch.sparse import ell_cuda
+
+    rows, _ = ell_cuda.bcsr_gather_tiling(
+        torch.empty((), dtype=dtype).element_size(), b, k)
+    for numbering in ("random", "banded"):
+        for nr in (1, rows + 1, 3001):
+            data, cols, x = _gather_case(dev, dtype, b, k, nr, numbering,
+                                         nr + k + b)
+            before = ell_cuda.bcsr_gather_matvec_cuda.launches
+            y = ell_cuda.bcsr_gather_matvec_cuda(data, cols, x)
+            torch.cuda.synchronize()
+            assert ell_cuda.bcsr_gather_matvec_cuda.launches == before + 1
+            assert torch.equal(
+                y, ell_cuda.bcsr_gather_matvec_plain(data, cols, x))
+
+
+def _elasticity_system(dev, dim):
+    """The Dirichlet-eliminated fp64 elasticity operator (lam = mu = 1) of
+    a perturbed 20 x 20 square or a 7^3 box, and its node coordinates."""
+    from tpufem_torch.fem.space import VectorFunctionSpace
+    from tpufem_torch.mesh.adjacency import ell_pattern
+    from tpufem_torch.mesh.box import box_mesh
+    from tpufem_torch.mesh.rectangle import perturbed_rectangle_mesh
+    from tpufem_torch.solve.elasticity import elasticity_forms
+    from tpufem_torch.sparse.bcsr import (BCSRMatrix, apply_dirichlet_bcsr,
+                                          assemble_bcsr)
+
+    mesh = (perturbed_rectangle_mesh(-1, 1, -1, 1, 20, 20, jitter=0.2,
+                                     seed=0) if dim == 2
+            else box_mesh(-1, 1, -1, 1, -1, 1, 7, 7, 7))
+    V = VectorFunctionSpace(mesh, degree=1)
+    wf = elasticity_forms(V, 1.0, 1.0)
+    wf.device = "cpu"
+    pat = ell_pattern(V.scalar_dof_conn, V.num_scalar_dofs,
+                      pad_to=8 if dim == 2 else 16)
+    A = assemble_bcsr(pat, wf.element_matrices(
+        torch.as_tensor(mesh.element_coords())), dim)
+    A, _ = apply_dirichlet_bcsr(A, torch.zeros(V.num_dofs,
+                                               dtype=torch.float64),
+                                V.dof_flags)
+    return (BCSRMatrix(A.data.to(dev), A.cols.to(dev)),
+            BCSRMatrix(A.data, A.cols), mesh.coords)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_block_amg_on_the_card(dev, dim):
+    """build_block_amg on a card matrix primes every coarse level and
+    transfer matrix (none left unresolved; the finest by the bandwidth
+    rule, here banded), its cycle launches B12 (b = 3 transfers in 2D, 6 x
+    6 levels and transfers in 3D) and equals the same hierarchy's cycle on
+    the CPU within 1e-12 relative (fp64)."""
+    from tpufem_torch.solve.amg_block import build_block_amg
+    from tpufem_torch.sparse import ell_cuda
+
+    A_dev, A_cpu, coords = _elasticity_system(dev, dim)
+    walls = {}
+    h = build_block_amg(A_dev, coords=coords, walls_out=walls)
+    hc = build_block_amg(A_cpu, coords=coords)
+    assert len(h.levels) >= 1 and walls["gather"] == []
+    for lv in h.levels:
+        for M in (lv.A, lv.Qp, lv.Qr):
+            assert isinstance(M._band, tuple)
+    assert h.levels[0].Qp.block_size == (3 if dim == 2 else 6)
+    r = torch.randn(A_cpu.shape[0], dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(dim))
+    before = ell_cuda.bcsr_matvec_cuda.launches
+    z = h.apply(r.to(dev))
+    torch.cuda.synchronize()
+    assert ell_cuda.bcsr_matvec_cuda.launches > before
+    zc = hc.apply(r)
+    assert (z.cpu() - zc).abs().max() <= 1e-12 * zc.abs().max()
+
+
+@pytest.mark.parametrize("transfer", ["banded", "gather"])
+def test_scalar_amg_on_the_card(dev, transfer):
+    """build_amg (greedy, strength 0.08) on a card matrix primes every
+    level operator and embedded transfer (with transfer="gather" only the
+    rectangular P and P^T ride the gather kernel); apply launches B9 and
+    apply_multi B10; both equal the CPU hierarchy's within 1e-12."""
+    from tpufem_torch.assemble.ell import assemble_ell
+    from tpufem_torch.assemble.local import p1_stiffness
+    from tpufem_torch.fem.elements import P1Triangle
+    from tpufem_torch.mesh.adjacency import ell_pattern, reverse_cuthill_mckee
+    from tpufem_torch.mesh.rectangle import perturbed_rectangle_mesh
+    from tpufem_torch.solve.amg import build_amg
+    from tpufem_torch.solve.bc import apply_dirichlet_ell
+    from tpufem_torch.sparse import ell_cuda
+    from tpufem_torch.sparse.ell import ELLMatrix, reorder_ell
+
+    mesh = perturbed_rectangle_mesh(-3, 3, -3, 3, 40, 40, jitter=0.25,
+                                    seed=0)
+    pat = ell_pattern(mesh.conn, mesh.num_nodes, pad_to=8)
+    A = assemble_ell(pat, p1_stiffness(torch.as_tensor(
+        mesh.element_coords()), P1Triangle()))
+    A, _ = apply_dirichlet_ell(A, torch.zeros(mesh.num_nodes,
+                                              dtype=torch.float64),
+                               torch.as_tensor(mesh.node_flags != 0))
+    data, cols = reorder_ell(A.data, A.cols,
+                             reverse_cuthill_mckee(A.cols.numpy()))
+    walls = {}
+    kw = dict(strength=0.08, coarse_n=100, transfer=transfer)
+    h = build_amg(ELLMatrix(torch.as_tensor(data, device=dev),
+                            torch.as_tensor(cols, device=dev)),
+                  walls_out=walls, **kw)
+    hc = build_amg(ELLMatrix(torch.as_tensor(data), torch.as_tensor(cols)),
+                   **kw)
+    assert len(h.levels) >= 2
+    assert walls["gather"] == ([] if transfer == "banded" else [
+        f"{m}{i}" for i in range(len(h.levels)) for m in "PR"])
+    for lv in h.levels:
+        for M in (lv.A, lv.Qp, lv.Qr):
+            assert M is None or isinstance(M._band, tuple)
+    before_g = ell_cuda.ell_gather_matvec_cuda.launches
+    g = torch.Generator().manual_seed(0)
+    R = torch.randn((data.shape[0], 3), dtype=torch.float64, generator=g)
+    before = (ell_cuda.ell_matvec_cuda.launches,
+              ell_cuda.ell_matvec_multi_cuda.launches)
+    z = h.apply(R[:, 0].contiguous().to(dev))
+    Z = h.apply_multi(R.to(dev))
+    torch.cuda.synchronize()
+    assert ell_cuda.ell_matvec_cuda.launches > before[0]
+    assert ell_cuda.ell_matvec_multi_cuda.launches > before[1]
+    assert (ell_cuda.ell_gather_matvec_cuda.launches > before_g) == (
+        transfer == "gather")
+    zc, Zc = hc.apply(R[:, 0].contiguous()), hc.apply_multi(R)
+    assert (z.cpu() - zc).abs().max() <= 1e-12 * zc.abs().max()
+    assert (Z.cpu() - Zc).abs().max() <= 1e-12 * Zc.abs().max()
+
+
+@pytest.mark.parametrize("matvec", ["gather", "pallas"])
+def test_amg_solves_on_the_card(dev, matvec):
+    """solve_elasticity(precond="amg") (2D, both branches) and
+    solve_poisson_ell(precond="amg") on the card, fp64: the CPU's
+    iteration counts, solutions within 1e-10 relative."""
+    from tpufem_torch.mesh.rectangle import perturbed_rectangle_mesh
+    from tpufem_torch.solve.elasticity import solve_elasticity
+    from tpufem_torch.solve.poisson import solve_poisson_ell
+
+    mesh = perturbed_rectangle_mesh(-1, 1, -1, 1, 20, 20, jitter=0.2,
+                                    seed=0)
+
+    def f(x):
+        return torch.stack([0 * x[..., 0] + 1.0, 0 * x[..., 1] - 0.5], -1)
+
+    sols = [solve_elasticity(mesh, body_force=f, tol=1e-10, matvec=matvec,
+                             precond="amg", device=d)
+            for d in (dev, "cpu")]
+    if matvec == "gather":
+        mesh = perturbed_rectangle_mesh(-3, 3, -3, 3, 40, 40, jitter=0.2,
+                                        seed=3)
+        sols += [solve_poisson_ell(mesh, tol=1e-10, precond="amg", device=d)
+                 for d in (dev, "cpu")]
+    for card, cpu in zip(sols[::2], sols[1::2]):
+        assert card.cg.converged and card.cg.iterations == cpu.cg.iterations
+        assert ((card.u.cpu() - cpu.u).abs().max()
+                <= 1e-10 * cpu.u.abs().max())
+
+
+def test_elasticity_box_on_the_card(dev):
+    """solve_elasticity_box with the vector MG on the card, fp64: the
+    CPU's iteration count, the solution within 1e-10 relative."""
+    from tpufem_torch.solve.elasticity_structured import (
+        manufactured_elasticity_3d, solve_elasticity_box)
+
+    f = manufactured_elasticity_3d(1.2, 0.8)[1]
+    sols = [solve_elasticity_box((-3.0, 3.0), 16, lam=1.2, mu=0.8,
+                                 body_force=f, dtype=torch.float64,
+                                 tol=1e-8, maxiter=200, precond="mg",
+                                 device=d) for d in (dev, "cpu")]
+    assert sols[0].cg.converged
+    assert sols[0].cg.iterations == sols[1].cg.iterations
+    assert ((sols[0].u.cpu() - sols[1].u).abs().max()
+            <= 1e-10 * sols[1].u.abs().max())
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("b", [2, 3, 4, 6])
+@pytest.mark.parametrize("k", [3, 5, 25, 64])
+@pytest.mark.parametrize("form", ["loop", "out"])
+def test_bcsr_band_run_time_forms_bit_equal(dev, monkeypatch, dtype, b, k,
+                                            form):
+    """Both run-time-K forms of B12 (a thread a row in groups of slots, one
+    at a time under two groups; b threads a row), whichever the chooser
+    would pick, equal the plain version bit for bit, on ragged tiles."""
+    from tpufem_torch.sparse import ell_cuda
+
+    monkeypatch.setattr(ell_cuda, "bcsr_band_design",
+                        lambda b_, k_, rows: form)
+    data, cols, x = _bcsr_case(dev, dtype, b, n=1037, k=k)
+    plan, data_t = ell_cuda.bcsr_band_plan(data, cols, block_rows=512)
+    d_t, rel = (torch.as_tensor(a, device=dev) for a in (data_t, plan.rel))
+    y = ell_cuda.bcsr_matvec_cuda(plan, d_t, rel, x)
+    torch.cuda.synchronize()
+    assert torch.equal(y, ell_cuda.bcsr_band_matvec_plain(plan, d_t, rel, x))

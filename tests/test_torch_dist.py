@@ -396,5 +396,6 @@ def test_dryrun_multichip_on_the_host():
     assert out["stencil_cg"]["iterations"] == 40
     assert out["dist_mg"]["iterations"] == 13
     assert out["dist_assembly"]["iterations"] == 31
+    assert out["dist_amg"]["iterations"] == 24
     assert out["dist_bcsr"]["iterations"] == 72
     assert out["dist_dynamics"]["drift"] < 1e-5

@@ -59,7 +59,10 @@ _PORT_MODULES = [
     "tpufem_torch.dist.cg", "tpufem_torch.dist.assembly",
     "tpufem_torch.dist.multigrid", "tpufem_torch.dist.ell",
     "tpufem_torch.dist.dynamics", "tpufem_torch.dist.stencil2d",
-    "tpufem_torch.dist.dryrun",
+    "tpufem_torch.dist.dryrun", "tpufem_torch.dist.amg",
+    "tpufem_torch.solve.amg", "tpufem_torch.solve.amg_block",
+    "tpufem_torch.solve.elasticity_structured",
+    "tpufem_torch.native",
     "chip_smoke",
 ]
 
@@ -71,12 +74,12 @@ _EXPORTS = [
     "VectorFunctionSpace", "triangle_rule", "tetrahedron_rule",
     "rule_for_cell", "cg", "CGResult", "ELLMatrix", "StencilMatrix",
     "WeakForm", "solve_poisson_fast", "build_poisson_multigrid",
-    "solve_elasticity", "solve_poisson_ell"]
+    "solve_elasticity", "solve_poisson_ell", "build_amg",
+    "build_block_amg", "build_dist_amg"]
 # the JAX package's other root names, with the ROADMAP item that ports each
 _NOT_PORTED = {
     "rectangle_quad_mesh": "A3", "box_hex_mesh": "A3",
-    "greedy_element_coloring": "A3", "build_amg": "A2",
-    "build_block_amg": "A2", "build_dist_amg": "A2",
+    "greedy_element_coloring": "A3",
     "newton_krylov": "A4", "smallest_eigenpairs": "A4",
     "leapfrog_wave": "A4", "solve_stokes": "A4", "minres": "A4"}
 
@@ -316,6 +319,7 @@ _DIST_NAMES = {
     "dynamics": ("leapfrog_wave_sharded",),
     "stencil2d": ("halo_exchange_grid", "grid_stencil_matvec_2d",
                   "grid_cg_sharded_2d", "solve_grid_cg_2d"),
+    "amg": ("build_dist_amg", "dist_amg_apply", "dist_amg_pcg"),
 }
 
 
@@ -334,7 +338,8 @@ def test_dist_names_keep_the_reference_signatures():
             assert shape(getattr(port, name)) == shape(getattr(ref, name)), \
                 f"{module}.{name}"
     for module, cls in (("multigrid", "DistMGLevel"),
-                        ("ell", "ELLPartition"), ("ell", "BCSRPartition")):
+                        ("ell", "ELLPartition"), ("ell", "BCSRPartition"),
+                        ("amg", "DistAMGHierarchy")):
         port = getattr(importlib.import_module(f"tpufem_torch.dist.{module}"),
                        cls)
         ref = getattr(importlib.import_module(f"tpufem.dist.{module}"), cls)

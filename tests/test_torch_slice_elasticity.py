@@ -84,8 +84,7 @@ def test_body_force_solve_matches_jax(matvec):
 
 def test_unported_options_raise():
     mesh = rectangle_mesh(0, 1, 0, 1, 3, 3)
-    for kw, exc in ((dict(precond="amg"), NotImplementedError),
-                    (dict(interpret=True), NotImplementedError),
+    for kw, exc in ((dict(interpret=True), NotImplementedError),
                     (dict(aot=True), NotImplementedError),
                     (dict(precond="ilu"), ValueError),
                     (dict(matvec="dense"), ValueError)):

@@ -110,8 +110,8 @@ def test_solve_poisson_ell_discretizes_the_model_problem():
 
 def test_unported_options_raise():
     _, mesh = _meshes(4)
-    with pytest.raises(NotImplementedError, match="A2"):
-        solve_poisson_ell(mesh, precond="amg", device="cpu")
+    # precond="amg" is ported (ROADMAP A2): it solves
+    assert solve_poisson_ell(mesh, precond="amg", device="cpu").cg.converged
     for kw in (dict(precond="ilu"), dict(matvec="csr"),
                dict(assembly_method="coo")):
         with pytest.raises(ValueError):

@@ -73,3 +73,45 @@ def test_row_alignment_allows_vector_access_only_where_rows_start(
     Y = torch.empty((n, q), dtype=dtype)
     assert ell_cuda._row_align(X.element_size(), q, X, Y) == align
     assert ell_cuda._row_align(X.element_size(), q, Y, X) == align
+
+
+@pytest.mark.parametrize("b", [2, 3, 4, 5, 6])
+@pytest.mark.parametrize("k", [1, 4, 8, 16, 25, 64, 128, 512])
+@pytest.mark.parametrize("rows", [705, 6189, 491_401])
+def test_bcsr_band_design(b, k, rows):
+    """B12 takes its unrolled instance only for b = 2, 3 with K = 8 or 16
+    (the elasticity operators); the AMG levels and transfers take b
+    threads a row for b = 2, 3 on fewer than 65,536 rows (the 982k
+    hierarchy's coarse levels), a thread a row otherwise (b = 4 to 6 and
+    the fine transfers): scripts/bcsr_amg_ab.py's fastest."""
+    design = ell_cuda.bcsr_band_design(b, k, rows)
+    if b <= 3 and k in (8, 16):
+        assert design == "unrolled"
+    else:
+        assert design == ("out" if b <= 3 and rows < 65536 else "loop")
+
+
+@pytest.mark.parametrize("rows,tile", [
+    (0, 32), (1, 32), (705, 32), (6189, 32), (54_771, 224),
+    (68_921, 288), (491_401, 384), (10 ** 7, 384)])
+def test_bcsr_loop_tiling(rows, tile):
+    """The run-time loop's block rows: whole warps, 32 to 384 (the
+    kernel's bound), two blocks per SM where the rows allow, 384 on the
+    large levels (the unrolled instance's tile)."""
+    got = ell_cuda.bcsr_loop_tiling(rows)
+    assert got == tile and got % 32 == 0 and 32 <= got <= _BAND_THREADS
+
+
+@pytest.mark.parametrize("itemsize,b,k,rows", [
+    (4, 2, 8, 128), (4, 3, 16, 32), (8, 6, 64, 4), (8, 6, 128, 2),
+    (8, 6, 256, 1), (4, 6, 128, 4)])
+def test_bcsr_gather_tiling_takes_fewer_rows_for_fat_blocks(itemsize, b, k,
+                                                            rows):
+    """B12g's tile: the most rows whose staged tile fits 24 KB, else 4
+    rows, and 2 or 1 where two buffers of 4 would not fit 227 KB (the fat
+    6 x 6 AMG levels); past one row of about 390 fp64 6 x 6 slots it
+    raises."""
+    got, smem = ell_cuda.bcsr_gather_tiling(itemsize, b, k)
+    assert got == rows and smem <= _SMEM + 1024
+    with pytest.raises(ValueError, match="fits shared memory"):
+        ell_cuda.bcsr_gather_tiling(8, 6, 400)

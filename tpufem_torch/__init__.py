@@ -17,11 +17,14 @@ Jacobi / Chebyshev PCG on the banded ELL kernel;
 (``forms.language``, ``forms.weakform``: volume forms on affine cells,
 dense, ELL and stencil assembly), unstructured linear elasticity (vector P1
 spaces, BCSR assembly, block-Jacobi PCG on the banded block kernel;
-``solve.elasticity.solve_elasticity``), the reduction and SAXPY kernels
+``solve.elasticity.solve_elasticity``), smoothed-aggregation AMG (scalar
+``solve.amg.build_amg``, block ``solve.amg_block.build_block_amg``, the
+preconditioners of ``solve_poisson_ell`` and ``solve_elasticity`` with
+``precond="amg"``; their host setup on the native library
+``tpufem_torch.native``), the reduction and SAXPY kernels
 (``ops.reduction``, ``ops.saxpy_cuda``) and the multi-device path
 (``dist``: a single-controller device mesh, the sharded halo CGs, the
-sharded fused build on kernel B8, the distributed multigrid; all of the
-JAX package's ``dist`` but its AMG).
+sharded fused build on kernel B8, the distributed multigrid and AMG).
 
 The package root exports the meshes, spaces, rules, ``cg`` and the matrix
 classes, and resolves the heavier entry points lazily, as the JAX
@@ -52,14 +55,16 @@ _LAZY = {
     "solve_elasticity": ("tpufem_torch.solve.elasticity",
                          "solve_elasticity"),
     "solve_poisson_ell": ("tpufem_torch.solve.poisson", "solve_poisson_ell"),
+    "build_amg": ("tpufem_torch.solve.amg", "build_amg"),
+    "build_dist_amg": ("tpufem_torch.dist.amg", "build_dist_amg"),
+    "build_block_amg": ("tpufem_torch.solve.amg_block", "build_block_amg"),
 }
 
 # names the JAX package exports that the port does not have yet, with the
 # ROADMAP item that brings each
 _NOT_PORTED = {
     "rectangle_quad_mesh": "A3", "box_hex_mesh": "A3",
-    "greedy_element_coloring": "A3", "build_amg": "A2",
-    "build_block_amg": "A2", "build_dist_amg": "A2",
+    "greedy_element_coloring": "A3",
     "newton_krylov": "A4", "smallest_eigenpairs": "A4",
     "leapfrog_wave": "A4", "solve_stokes": "A4", "minres": "A4",
 }

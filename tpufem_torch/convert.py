@@ -26,6 +26,11 @@ feeds both packages the same operator and the same MG hierarchy:
     ``bcsr_partition_from_numpy``: the multi-device state — a
     ``DistMGLevel`` list, an ``ELLPartition``, a ``BCSRPartition`` (their
     arrays as numpy, as the JAX package keeps them on the host).
+  * ``amg_hierarchy_from_numpy``, ``block_amg_hierarchy_from_numpy``,
+    ``dist_amg_hierarchy_from_numpy``: a JAX-built AMG hierarchy (each
+    level's operator and transfer matrices as (data, cols), inv_diag,
+    lmax, emb, the interval scales, coarse_inv and the scalar config), so
+    that one hierarchy's cycle can be applied in both packages.
 
 The port rebuilds each structured plan from its StructuredInfo and checks
 it against the given store grid and offsets; a banded ELL plan is checked
@@ -51,7 +56,9 @@ __all__ = ["system_from_numpy", "const_level_from_numpy",
            "hierarchy_from_numpy", "ell_from_numpy", "band_plan_from_numpy",
            "bcsr_from_numpy", "bcsr_band_plan_from_numpy",
            "stencil_pattern_from_numpy", "dist_levels_from_numpy",
-           "ell_partition_from_numpy", "bcsr_partition_from_numpy"]
+           "ell_partition_from_numpy", "bcsr_partition_from_numpy",
+           "amg_hierarchy_from_numpy", "block_amg_hierarchy_from_numpy",
+           "dist_amg_hierarchy_from_numpy"]
 
 
 def system_from_numpy(data, b, offsets, *, dtype=torch.float64,
@@ -287,3 +294,100 @@ def bcsr_partition_from_numpy(part) -> BCSRPartition:
         inv_diag=np.array(part.inv_diag), halo=int(part.halo), n=int(part.n),
         local_rows=int(part.local_rows), num_shards=int(part.num_shards),
         block_size=int(part.block_size))
+
+
+def _amg_fields(lv: dict, cls, matrix, dtype, device) -> dict:
+    """The port's level fields from a dict of numpy arrays: a matrix field
+    arrives as its (data, cols) pair and becomes ``matrix``; ``emb`` and
+    the gather transfers' columns become index tensors, every other array
+    a ``dtype`` tensor, scalars stay as they are."""
+    out = {}
+    for name, value in lv.items():
+        if name not in cls._fields:
+            raise ValueError(f"{cls.__name__} has no field {name!r}")
+        if value is None:
+            out[name] = None
+        elif isinstance(value, tuple):
+            out[name] = matrix(*value, dtype=dtype, device=device)
+        elif name in ("emb", "p_cols", "r_cols"):
+            out[name] = torch.as_tensor(np.array(value, dtype=np.int64),
+                                        device=device)
+        elif isinstance(value, np.ndarray):
+            out[name] = torch.as_tensor(np.array(value),
+                                        device=device).to(dtype)
+        else:
+            out[name] = value
+    return out
+
+
+def amg_hierarchy_from_numpy(levels, coarse_inv, *, smoother_degree,
+                             smoother_ratio, operator_complexity, gamma=1,
+                             dtype=torch.float64, device="cpu"):
+    """The port's ``AMGHierarchy`` (solve.amg) from a JAX-built one's
+    arrays.  ``levels``: one dict per level with the fields of
+    ``AMGLevel``, each ELL matrix (A, Qp, Qr, Rop, Pop) as its numpy
+    (data, cols) pair, each array as numpy (inv_diag, tv, emb, the gather
+    transfers), lmax / s / omega as numbers.  The matrices resolve their
+    plans as the port's own build leaves them: level operators lazily, the
+    transfer matrices on the gather form on the CPU."""
+    from tpufem_torch.solve.amg import AMGHierarchy, AMGLevel
+
+    out = []
+    for lv in levels:
+        fields = _amg_fields(lv, AMGLevel, ell_from_numpy, dtype, device)
+        for name in ("Qp", "Qr", "Rop", "Pop"):
+            M = fields.get(name)
+            if M is not None and M.data.device.type == "cpu":
+                M._band = None
+        out.append(AMGLevel(**fields))
+    return AMGHierarchy(
+        levels=tuple(out),
+        coarse_inv=torch.as_tensor(np.array(coarse_inv),
+                                   device=device).to(dtype),
+        smoother_degree=int(smoother_degree),
+        smoother_ratio=float(smoother_ratio),
+        operator_complexity=float(operator_complexity), gamma=int(gamma))
+
+
+def block_amg_hierarchy_from_numpy(levels, coarse_inv, *, smoother_degree,
+                                   smoother_ratio, operator_complexity,
+                                   gamma=1, dtype=torch.float64,
+                                   device="cpu"):
+    """The port's ``BlockAMGHierarchy`` (solve.amg_block) from a JAX-built
+    one's arrays: ``levels`` as for ``amg_hierarchy_from_numpy``, with the
+    fields of ``BlockAMGLevel`` (A, Qp, Qr as BCSR (data, cols) pairs;
+    inv_diag [ns, b, b], emb, the gather transfers' blocks, lmax, m)."""
+    from tpufem_torch.solve.amg_block import (BlockAMGHierarchy,
+                                              BlockAMGLevel)
+
+    out = [BlockAMGLevel(**_amg_fields(lv, BlockAMGLevel, bcsr_from_numpy,
+                                       dtype, device)) for lv in levels]
+    return BlockAMGHierarchy(
+        levels=tuple(out),
+        coarse_inv=torch.as_tensor(np.array(coarse_inv),
+                                   device=device).to(dtype),
+        smoother_degree=int(smoother_degree),
+        smoother_ratio=float(smoother_ratio),
+        operator_complexity=float(operator_complexity), gamma=int(gamma))
+
+
+def dist_amg_hierarchy_from_numpy(h):
+    """The port's ``DistAMGHierarchy`` (dist.amg) from the JAX package's:
+    its host arrays (as numpy) and static metadata; no single-device
+    ``base``."""
+    from tpufem_torch.dist.amg import DistAMGHierarchy, _LevelStatic
+
+    def arrays(t):
+        return tuple(np.array(a) for a in t)
+
+    return DistAMGHierarchy(
+        level_arrays=tuple(arrays(t) for t in h.level_arrays),
+        static=tuple(_LevelStatic(halo=int(st.halo), s=int(st.s),
+                                  lmax=float(st.lmax), omega=float(st.omega),
+                                  local_rows=int(st.local_rows))
+                     for st in h.static),
+        fine_arrays=arrays(h.fine_arrays), fine_halo=int(h.fine_halo),
+        coarse_inv=np.array(h.coarse_inv),
+        smoother_degree=int(h.smoother_degree),
+        smoother_ratio=float(h.smoother_ratio), gamma=int(h.gamma),
+        n=int(h.n), np_rows=int(h.np_rows), num_shards=int(h.num_shards))

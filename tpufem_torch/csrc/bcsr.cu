@@ -1,7 +1,9 @@
 // BCSR (block-ELL) sparse matrix-vector product: kernel B12 on the banded
 // plan, and B12g, its absolute-column (gather) form.  Both are templates on
 // the value type T (float, double) and the block size B (2 in 2D, 3 in 3D
-// elasticity); B12 also on the window index type Idx (int16, int32).
+// elasticity, 3 to 6 on the levels and transfers of the block AMG
+// hierarchies: m = 3 rigid modes in 2D, 6 in 3D); B12 also on the window
+// index type Idx (int16, int32).
 //
 // B12 replaces tpufem/sparse/ell_pallas.py::_block_kernel and its
 // per-block delta-table twin ::_block_kernel_pb.  The banded plan of
@@ -43,6 +45,18 @@
 // the bytes bound (PERF.md).  Only the n real
 // rows are computed: their columns lie in [0, n), and the padding rows up
 // to NP are never read.
+//
+// The AMG hierarchies' levels and transfers (3 x 3 to 6 x 6 blocks, K
+// from 4 to 512 on 264 to 491,401 rows) take the run-time-K instance in
+// groups of slots loaded ahead (loop_ahead), or, for B = 2, 3 on fewer
+// than 65,536 rows, B threads a row (bcsr_spmv_out below); the wrapper
+// picks (sparse/ell_cuda.py's bcsr_band_design).  Staging a chunk of
+// slots' values and gathers through shared memory was measured slower
+// than a thread a row at every AMG shape (each thread's staging loads
+// came one after another).  On the fat-K levels of a few hundred rows the sum
+// order (each output's slots in turn) leaves each thread a chain of K / U
+// dependent loads, and torch's BSR product, which splits a row's slots,
+// is faster there (PERF.md).
 //
 // B12g replaces the gather form of the reference's BCSRMatrix
 // (tpufem/sparse/bcsr.py:152-154, XLA's gather and reduce; the Pallas
@@ -112,6 +126,21 @@ constexpr int kBandAhead = TPUFEM_BCSR_AHEAD > 0
                                ? TPUFEM_BCSR_AHEAD
                                : 16 / static_cast<int>(sizeof(T));
 constexpr int kBandMaxThreads = 384;
+
+// The run-time-K instance (K = 0): slots loaded a group ahead of their
+// sums, as many as about 128 32-bit registers of values and gathered x
+// hold (b = 2, 3 fp32: 8; b = 6 fp32: 3, fp64: 1), at most 8.  The AMG
+// levels' fat K (up to 512 slots on a few hundred rows) left one slot's
+// dependent index and x loads at a time in flight on a thread: at the n
+// = 40 box's 6 x 6 level of 4,288 rows and K = 64, 0.1321 ms one slot at a
+// time, 0.0878 in groups of 3 (scripts/bcsr_amg_ab.py, PERF.md).
+// TPUFEM_BCSR_LOOP_AHEAD (spmv_probe.cuh) sets it in probe builds.
+template <typename T, int B>
+__host__ __device__ constexpr int loop_ahead() {
+  if (TPUFEM_BCSR_LOOP_AHEAD > 0) return TPUFEM_BCSR_LOOP_AHEAD;
+  const int u = 128 / ((B * B + B) * static_cast<int>(sizeof(T) / 4));
+  return u < 1 ? 1 : (u > 8 ? 8 : u);
+}
 
 // Keeps the compiler from moving loads across it: the loads issued ahead
 // stay ahead (without it the compiler sinks them to their uses, and the
@@ -194,7 +223,38 @@ bcsr_spmv(const T* __restrict__ data, const Idx* __restrict__ idx,
       }
     }
   } else {
-    for (int s = 0; s < l.k; ++s) {
+    // groups of U slots: their columns, values and gathers loaded first,
+    // then summed in slot order; the last k % U slots one at a time.  K <
+    // 0: groups of one (k under two groups, where the groups' registers
+    // would only cost occupancy; the fence still helps, PERF.md)
+    constexpr int U = K < 0 ? 1 : loop_ahead<T, B>();
+    int s = 0;
+    for (; s + U <= l.k; s += U) {
+      int gc[U];
+      T gv[U][B][B];
+      T gx[U][B];
+#pragma unroll
+      for (int u = 0; u < U; ++u) gc[u] = column(s + u);
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int c = 0; c < B; ++c)
+#pragma unroll
+          for (int d = 0; d < B; ++d) gv[u][c][d] = value(s + u, c, d);
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int d = 0; d < B; ++d) gx[u][d] = gather(gc[u], d);
+      keep_order();  // the group's loads stay issued before its sums
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int d = 0; d < B; ++d)
+#pragma unroll
+          for (int c = 0; c < B; ++c)
+            acc[c] = add_rn(acc[c], mul_rn(gv[u][c][d], gx[u][d]));
+    }
+    for (; s < l.k; ++s) {
       const int cs = column(s);
 #pragma unroll
       for (int d = 0; d < B; ++d) {
@@ -220,9 +280,13 @@ int launch_band(const void* data, const void* idx, const void* x, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instance for l.k (8 and 16 unrolled, any other at run time), in
-// blocks of tile_rows block rows (one thread each, at most 384).  Columns
-// must fit an int.
+// The instance for l.k (8 and 16 unrolled for B = 2 and 3, any other K and
+// every K of B = 4 to 6 at run time, in groups of loop_ahead slots: the
+// AMG hierarchies' transfers and coarse levels, whose B^2 values a slot
+// and run-time K would not fit the registers of the unrolled form), in
+// blocks of tile_rows block rows (one thread each, at most 384; the
+// wrapper's bcsr_loop_tiling gives the run-time instance fewer rows a
+// block where the rows are few).  Columns must fit an int.
 template <typename T, typename Idx, int B>
 int launch(const void* data, const void* idx, const void* x, void* y,
            const BcsrLayout& l, int tile_rows, void* stream) {
@@ -231,11 +295,96 @@ int launch(const void* data, const void* idx, const void* x, void* y,
     return static_cast<int>(cudaErrorInvalidValue);
   if (l.rows == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (l.k == 8)
-    return launch_band<T, Idx, B, 8>(data, idx, x, y, l, tile_rows, s);
-  if (l.k == 16)
-    return launch_band<T, Idx, B, 16>(data, idx, x, y, l, tile_rows, s);
+  if constexpr (B <= 3) {
+    if (l.k == 8)
+      return launch_band<T, Idx, B, 8>(data, idx, x, y, l, tile_rows, s);
+    if (l.k == 16)
+      return launch_band<T, Idx, B, 16>(data, idx, x, y, l, tile_rows, s);
+  }
+  if (l.k < 2 * loop_ahead<T, B>())
+    return launch_band<T, Idx, B, -1>(data, idx, x, y, l, tile_rows, s);
   return launch_band<T, Idx, B, 0>(data, idx, x, y, l, tile_rows, s);
+}
+
+// B threads a row: thread (r, c) of a block of tile_rows * B threads sums
+// output c of block row r (consecutive threads on consecutive rows of one
+// c: each (slot, c, d) value plane read coalesced), in the plain version's
+// order (slot, then d), in groups of out_ahead slots whose column, B
+// values and B gathers are loaded before their sums.  A thread holds 2B + 1
+// values a slot, not B^2 + B, so more slots fit its registers, and B times
+// the threads run: the wrapper's form for B = 2, 3 on fewer than 65,536
+// rows (the 982k hierarchy's coarse levels and transfers: its 705-row K =
+// 512 level 0.1470 ms a thread a row one slot at a time, 0.0952 in groups,
+// 0.0626 so; scripts/bcsr_amg_ab.py).  At B = 6 its B^2 gathers a row made
+// it slower than a thread a row in groups.
+template <typename T, int B>
+__host__ __device__ constexpr int out_ahead() {
+  const int u = 128 / (2 * B * static_cast<int>(sizeof(T) / 4) + 1);
+  return u < 1 ? 1 : (u > 16 ? 16 : u);
+}
+
+template <typename T, typename Idx, int B>
+__global__ void __launch_bounds__(kBandMaxThreads)
+bcsr_spmv_out(const T* __restrict__ data, const Idx* __restrict__ idx,
+              const T* __restrict__ x, T* __restrict__ y, BcsrLayout l,
+              int tile_rows) {
+  constexpr int U = out_ahead<T, B>();
+  const int r = threadIdx.x % tile_rows;
+  const int c = threadIdx.x / tile_rows;
+  const long long i = static_cast<long long>(blockIdx.x) * tile_rows + r;
+  if (i >= l.rows) return;
+  const long long base = window_base(i, l.block_rows);
+  const Idx* __restrict__ ip = idx + i * l.i_row;
+  const T* __restrict__ dp = data + i * l.d_row + c * B * l.d_comp;
+  T acc = T(0);
+  int s = 0;
+  for (; s + U <= l.k; s += U) {
+    int gc[U];
+    T gv[U][B];
+    T gx[U][B];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      gc[u] = static_cast<int>(base + ip[(s + u) * l.i_slot]);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int d = 0; d < B; ++d)
+        gv[u][d] = dp[(s + u) * l.d_slot + d * l.d_comp];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int d = 0; d < B; ++d)
+        gx[u][d] = x[d * l.x_comp + static_cast<long long>(gc[u]) * l.x_node];
+    keep_order();  // the group's loads stay issued before its sums
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int d = 0; d < B; ++d) acc = add_rn(acc, mul_rn(gv[u][d], gx[u][d]));
+  }
+  for (; s < l.k; ++s) {
+    const long long col = base + ip[s * l.i_slot];
+#pragma unroll
+    for (int d = 0; d < B; ++d)
+      acc = add_rn(acc, mul_rn(dp[s * l.d_slot + d * l.d_comp],
+                               x[d * l.x_comp + col * l.x_node]));
+  }
+  y[c * l.y_comp + i * l.y_node] = acc;
+}
+
+template <typename T, typename Idx, int B>
+int launch_out(const void* data, const void* idx, const void* x, void* y,
+               const BcsrLayout& l, int tile_rows, void* stream) {
+  if (l.rows < 0 || l.rows > INT_MAX || l.k < 1 || l.block_rows < 1 ||
+      tile_rows < 1 || tile_rows * B > kBandMaxThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (l.rows == 0) return static_cast<int>(cudaSuccess);
+  const auto blocks =
+      static_cast<unsigned>((l.rows + tile_rows - 1) / tile_rows);
+  bcsr_spmv_out<T, Idx, B><<<blocks, tile_rows * B, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(data), static_cast<const Idx*>(idx),
+      static_cast<const T*>(x), static_cast<T*>(y), l, tile_rows);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // -- B12g: the gather form -------------------------------------------------
@@ -520,8 +669,58 @@ TPUFEM_BCSR_ENTRY(tpufem_bcsr_spmv_f32_i16_b3, float, int16_t, 3)
 TPUFEM_BCSR_ENTRY(tpufem_bcsr_spmv_f32_i32_b3, float, int32_t, 3)
 TPUFEM_BCSR_ENTRY(tpufem_bcsr_spmv_f64_i16_b3, double, int16_t, 3)
 TPUFEM_BCSR_ENTRY(tpufem_bcsr_spmv_f64_i32_b3, double, int32_t, 3)
+TPUFEM_BCSR_ENTRY(tpufem_bcsr_spmv_f32_i16_b4, float, int16_t, 4)
+TPUFEM_BCSR_ENTRY(tpufem_bcsr_spmv_f32_i32_b4, float, int32_t, 4)
+TPUFEM_BCSR_ENTRY(tpufem_bcsr_spmv_f64_i16_b4, double, int16_t, 4)
+TPUFEM_BCSR_ENTRY(tpufem_bcsr_spmv_f64_i32_b4, double, int32_t, 4)
+TPUFEM_BCSR_ENTRY(tpufem_bcsr_spmv_f32_i16_b5, float, int16_t, 5)
+TPUFEM_BCSR_ENTRY(tpufem_bcsr_spmv_f32_i32_b5, float, int32_t, 5)
+TPUFEM_BCSR_ENTRY(tpufem_bcsr_spmv_f64_i16_b5, double, int16_t, 5)
+TPUFEM_BCSR_ENTRY(tpufem_bcsr_spmv_f64_i32_b5, double, int32_t, 5)
+TPUFEM_BCSR_ENTRY(tpufem_bcsr_spmv_f32_i16_b6, float, int16_t, 6)
+TPUFEM_BCSR_ENTRY(tpufem_bcsr_spmv_f32_i32_b6, float, int32_t, 6)
+TPUFEM_BCSR_ENTRY(tpufem_bcsr_spmv_f64_i16_b6, double, int16_t, 6)
+TPUFEM_BCSR_ENTRY(tpufem_bcsr_spmv_f64_i32_b6, double, int32_t, 6)
 
 #undef TPUFEM_BCSR_ENTRY
+
+// B12, B threads a row (bcsr_spmv_out): the B12 arguments; blocks of
+// tile_rows block rows, tile_rows * B threads.
+#define TPUFEM_BCSR_OUT_ENTRY(NAME, T, IDX, B)                               \
+  int NAME(const void* data, const void* idx, const void* x, void* y,        \
+           long long rows, int k, long long d_row, long long d_slot,         \
+           long long d_comp, long long i_row, long long i_slot,              \
+           long long block_rows, long long x_comp, long long x_node,         \
+           long long y_comp, long long y_node, int tile_rows,                \
+           void* stream) {                                                   \
+    const BcsrLayout l{rows,       k,      d_row,  d_slot, d_comp, i_row,    \
+                       i_slot,     block_rows, x_comp, x_node, y_comp,       \
+                       y_node};                                              \
+    return launch_out<T, IDX, B>(data, idx, x, y, l, tile_rows, stream);     \
+  }
+
+TPUFEM_BCSR_OUT_ENTRY(tpufem_bcsr_out_f32_i16_b2, float, int16_t, 2)
+TPUFEM_BCSR_OUT_ENTRY(tpufem_bcsr_out_f32_i32_b2, float, int32_t, 2)
+TPUFEM_BCSR_OUT_ENTRY(tpufem_bcsr_out_f64_i16_b2, double, int16_t, 2)
+TPUFEM_BCSR_OUT_ENTRY(tpufem_bcsr_out_f64_i32_b2, double, int32_t, 2)
+TPUFEM_BCSR_OUT_ENTRY(tpufem_bcsr_out_f32_i16_b3, float, int16_t, 3)
+TPUFEM_BCSR_OUT_ENTRY(tpufem_bcsr_out_f32_i32_b3, float, int32_t, 3)
+TPUFEM_BCSR_OUT_ENTRY(tpufem_bcsr_out_f64_i16_b3, double, int16_t, 3)
+TPUFEM_BCSR_OUT_ENTRY(tpufem_bcsr_out_f64_i32_b3, double, int32_t, 3)
+TPUFEM_BCSR_OUT_ENTRY(tpufem_bcsr_out_f32_i16_b4, float, int16_t, 4)
+TPUFEM_BCSR_OUT_ENTRY(tpufem_bcsr_out_f32_i32_b4, float, int32_t, 4)
+TPUFEM_BCSR_OUT_ENTRY(tpufem_bcsr_out_f64_i16_b4, double, int16_t, 4)
+TPUFEM_BCSR_OUT_ENTRY(tpufem_bcsr_out_f64_i32_b4, double, int32_t, 4)
+TPUFEM_BCSR_OUT_ENTRY(tpufem_bcsr_out_f32_i16_b5, float, int16_t, 5)
+TPUFEM_BCSR_OUT_ENTRY(tpufem_bcsr_out_f32_i32_b5, float, int32_t, 5)
+TPUFEM_BCSR_OUT_ENTRY(tpufem_bcsr_out_f64_i16_b5, double, int16_t, 5)
+TPUFEM_BCSR_OUT_ENTRY(tpufem_bcsr_out_f64_i32_b5, double, int32_t, 5)
+TPUFEM_BCSR_OUT_ENTRY(tpufem_bcsr_out_f32_i16_b6, float, int16_t, 6)
+TPUFEM_BCSR_OUT_ENTRY(tpufem_bcsr_out_f32_i32_b6, float, int32_t, 6)
+TPUFEM_BCSR_OUT_ENTRY(tpufem_bcsr_out_f64_i16_b6, double, int16_t, 6)
+TPUFEM_BCSR_OUT_ENTRY(tpufem_bcsr_out_f64_i32_b6, double, int32_t, 6)
+
+#undef TPUFEM_BCSR_OUT_ENTRY
 
 // B12g: y = A x on row-major data [nr, k, B, B], int32 cols [nr, k] and
 // node-major x, y [nr * B] (contiguous), in tiles of tile_rows rows over a
@@ -537,6 +736,12 @@ TPUFEM_BCSR_GATHER_ENTRY(tpufem_bcsr_gather_f32_b2, float, 2)
 TPUFEM_BCSR_GATHER_ENTRY(tpufem_bcsr_gather_f64_b2, double, 2)
 TPUFEM_BCSR_GATHER_ENTRY(tpufem_bcsr_gather_f32_b3, float, 3)
 TPUFEM_BCSR_GATHER_ENTRY(tpufem_bcsr_gather_f64_b3, double, 3)
+TPUFEM_BCSR_GATHER_ENTRY(tpufem_bcsr_gather_f32_b4, float, 4)
+TPUFEM_BCSR_GATHER_ENTRY(tpufem_bcsr_gather_f64_b4, double, 4)
+TPUFEM_BCSR_GATHER_ENTRY(tpufem_bcsr_gather_f32_b5, float, 5)
+TPUFEM_BCSR_GATHER_ENTRY(tpufem_bcsr_gather_f64_b5, double, 5)
+TPUFEM_BCSR_GATHER_ENTRY(tpufem_bcsr_gather_f32_b6, float, 6)
+TPUFEM_BCSR_GATHER_ENTRY(tpufem_bcsr_gather_f64_b6, double, 6)
 
 #undef TPUFEM_BCSR_GATHER_ENTRY
 

@@ -1,7 +1,8 @@
 // The build-time probes of the banded SpMV kernels, B12 (bcsr.cu) and B10
-// (ell.cu), in one place.  Only scripts/spmv_ablation.py sets them (-D...
-// in load_library's flags) to build probe copies; the defaults here are the
-// shipped designs, measured fastest in that script's sweep.
+// (ell.cu), in one place.  Only scripts/spmv_ablation.py and
+// scripts/bcsr_amg_ab.py set them (-D... in load_library's flags) to build
+// probe copies; the defaults here are the shipped designs, measured
+// fastest in those scripts' sweeps.
 #pragma once
 
 // B12: slots whose columns and values are loaded ahead of the one being
@@ -14,6 +15,13 @@
 // 0 leaves it out.
 #ifndef TPUFEM_BCSR_ORDER
 #define TPUFEM_BCSR_ORDER 1
+#endif
+
+// B12's run-time-K instance: slots loaded a group ahead of their sums.
+// 0: by the block size and type (kLoopAhead in bcsr.cu); 1: none.  Set by
+// scripts/bcsr_amg_ab.py.
+#ifndef TPUFEM_BCSR_LOOP_AHEAD
+#define TPUFEM_BCSR_LOOP_AHEAD 0
 #endif
 
 // B10: slots a group on the banded plan.

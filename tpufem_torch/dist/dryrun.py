@@ -1,9 +1,9 @@
 """The multi-device dry run of the port: ``dryrun_multichip(n_shards)``,
 the counterpart of the JAX package's ``__graft_entry__.dryrun_multichip``.
 
-It runs the reference's stages 1, 2, 3, 5 and 6 at their sizes and with
-their asserts, from the port's modules, on a mesh of ``n_shards`` shards
-(on the card unless ``device="cpu"``):
+It runs the reference's six stages at their sizes and with their asserts,
+from the port's modules, on a mesh of ``n_shards`` shards (on the card
+unless ``device="cpu"``):
 
   1. 2D P1 Poisson (n = 4 x shards per side, fp32): assembly, Dirichlet
      elimination, identity-row padding, the sharded halo CG to 1e-5;
@@ -12,13 +12,15 @@ their asserts, from the port's modules, on a mesh of ``n_shards`` shards
   3. general geometry (n = 14, perturbed interior, fp32): the sharded
      fused build (kernel B8, one launch per shard) feeding the sharded
      halo CG to 1e-5;
+  4. distributed AMG (48 x 48 perturbed mesh, fp32): RCM, the sharded
+     interval hierarchy (``coarse_n=120``) and its W-cycle PCG to 1e-8
+     within 100 iterations;
   5. 2D elasticity (12 x 12, fp32): BCSR assembly and the node-stripe
      block-Jacobi CG to 1e-9;
   6. 20 leapfrog steps of stage 1's operator, fp32 energy drift below
      1e-5.
 
-Stage 4 (distributed AMG, ``tpufem/dist/amg.py``) waits for the port of
-AMG (ROADMAP A2).  Stage 1's element batch is assembled on the mesh's
+Stage 1's element batch is assembled on the mesh's
 first device (the reference shards it and lets XLA insert the assembly's
 collectives).  Returns each stage's numbers.
 """
@@ -40,6 +42,7 @@ def dryrun_multichip(n_shards: int, device=None) -> dict:
     from tpufem_torch.dist.partition import pad_rows
     from tpufem_torch.fem.elements import P1Triangle
     from tpufem_torch.fem.quadrature import triangle_rule
+    from tpufem_torch.mesh.adjacency import ell_pattern
     from tpufem_torch.mesh.rectangle import rectangle_mesh
     from tpufem_torch.solve.bc import apply_dirichlet_stencil
     from tpufem_torch.solve.poisson import model_problem_2d
@@ -141,10 +144,51 @@ def dryrun_multichip(n_shards: int, device=None) -> dict:
           f"cg iters={res4.iterations}, "
           f"relres={float(res4.residual_norm):.2e}")
 
+    # ---- distributed unstructured AMG: perturbed mesh -> RCM -> sharded
+    # interval hierarchy -> W-cycle PCG (transfers shard-local by the
+    # stripe-height invariant, matvecs halo-exchange)
+    from tpufem_torch.assemble.ell import assemble_ell
+    from tpufem_torch.dist.amg import build_dist_amg, dist_amg_pcg
+    from tpufem_torch.mesh.adjacency import reverse_cuthill_mckee
+    from tpufem_torch.mesh.core import Mesh as FemMesh
+    from tpufem_torch.mesh.rectangle import perturbed_rectangle_mesh
+    from tpufem_torch.solve.bc import apply_dirichlet_ell
+
+    n5 = 48
+    mesh5 = perturbed_rectangle_mesh(-3.0, 3.0, -3.0, 3.0, n5, n5,
+                                     jitter=0.25, seed=0)
+    pat5 = ell_pattern(mesh5.conn, mesh5.num_nodes, pad_to=8)
+    perm5 = reverse_cuthill_mckee(pat5.cols)
+    inv5 = np.empty_like(perm5)
+    inv5[perm5] = np.arange(perm5.size, dtype=perm5.dtype)
+    mesh5 = FemMesh(coords=np.ascontiguousarray(mesh5.coords[perm5]),
+                    conn=inv5[mesh5.conn].astype(mesh5.conn.dtype),
+                    node_flags=np.ascontiguousarray(mesh5.node_flags[perm5]),
+                    cell_type=mesh5.cell_type)
+    pat5 = ell_pattern(mesh5.conn, mesh5.num_nodes, pad_to=8)
+    ec5 = torch.as_tensor(mesh5.element_coords(), dtype=torch.float32,
+                          device=home)
+    A5 = assemble_ell(pat5, p1_stiffness(ec5, element))
+    b5 = assemble_vector(mesh5.conn, element_load(ec5, element, rule, f),
+                         mesh5.num_nodes)
+    A5, b5 = apply_dirichlet_ell(
+        A5, b5, torch.as_tensor(mesh5.node_flags != 0, device=home))
+    h5 = build_dist_amg(A5.data, A5.cols, n_shards, coarse_n=120)
+    x5, res5 = dist_amg_pcg(h5, b5, dmesh, tol=1e-8, maxiter=100)
+    assert res5.converged, float(res5.residual_norm)
+    assert bool(torch.isfinite(x5).all())
+    out["dist_amg"] = dict(dofs=mesh5.num_nodes,
+                           levels=len(h5.level_arrays),
+                           iterations=res5.iterations,
+                           relres=float(res5.residual_norm))
+    print(f"dryrun_multichip dist-AMG: {mesh5.num_nodes} dofs "
+          f"(perturbed unstructured, RCM, {len(h5.level_arrays)} levels), "
+          f"W-cycle PCG iters={res5.iterations}, "
+          f"relres={float(res5.residual_norm):.2e}")
+
     # ---- distributed vector-block (BCSR) elasticity: node-stripe halo CG
     from tpufem_torch.dist.ell import distributed_bcsr_solve
     from tpufem_torch.fem.space import VectorFunctionSpace
-    from tpufem_torch.mesh.adjacency import ell_pattern
     from tpufem_torch.solve.elasticity import elasticity_forms
     from tpufem_torch.sparse.bcsr import apply_dirichlet_bcsr, assemble_bcsr
 

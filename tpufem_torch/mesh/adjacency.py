@@ -6,8 +6,13 @@ entries, is precomputed here once; the device then performs one
 scatter-add with the precomputed flat slot indices, or a
 gather-by-permutation + sorted segment sum.
 
-Only the numpy paths are ported: ``use_native`` is accepted and ignored
-(the JAX package's C++ host library, ``tpufem/native``, is not ported yet).
+The native host library (``tpufem_torch.native``, the JAX package's C++
+source built at first use) takes the paths the reference gives it:
+``reverse_cuthill_mckee`` with ``use_native=True`` (the default) and
+``ell_pattern`` with ``with_sort_plan=False``.  The numpy code stays the
+executable specification; the native one equals it exactly.  Where the
+library cannot be built, those calls raise (the reference falls back to
+numpy without a word); ``use_native=False`` runs the numpy version.
 """
 from __future__ import annotations
 
@@ -28,11 +33,14 @@ def reverse_cuthill_mckee(cols: np.ndarray, *,
     precondition of the banded ELL kernel (sparse.ell_cuda).  BFS runs a
     whole level per step, ordering each level by (first parent's rank,
     degree); the start of each component is pseudo-peripheral (George-Liu).
-    Self-loop padding entries are ignored.  ``use_native`` is ignored.
+    Self-loop padding entries are ignored.  ``use_native=True`` runs the
+    native library's exact copy (and raises if it cannot be built).
     """
-    del use_native
     cols = np.asarray(cols)
     n, K = cols.shape
+    if use_native:
+        from tpufem_torch import native
+        return native.reverse_cuthill_mckee(cols)
     rows = np.repeat(np.arange(n, dtype=np.int64), K)
     c = cols.reshape(-1).astype(np.int64)
     m = rows != c                        # drop self/padding entries
@@ -183,8 +191,26 @@ def ell_pattern(conn: np.ndarray, num_nodes: int, pad_to: int | None = None,
     entry's slot, and, since slot order equals key order, the argsort is
     the ``method="sort"`` plan (numpy's default introsort: not stable, but
     deterministic).
+
+    With ``with_sort_plan=False`` the native library's row counting sort
+    (O(nnz)) builds the pattern instead, as in the reference; its
+    ``perm``, ``sorted_slots`` and ``unique_keys`` are then None.
     """
     npe = conn.shape[1]
+    if not with_sort_plan:
+        from tpufem_torch import native
+        guess = pad_to or (2 * npe + 2)
+        cols, lengths, diag_pos, slots = native.ell_pattern2(
+            conn, num_nodes, width_guess=guess)
+        K = cols.shape[1]
+        if pad_to is not None and K % pad_to:
+            K = ((K + pad_to - 1) // pad_to) * pad_to
+            cols, lengths, diag_pos, slots = native.ell_pattern2(
+                conn, num_nodes, width_guess=K)
+        return ELLPattern(cols=cols, row_lengths=lengths, slots=slots,
+                          perm=None, sorted_slots=None, diag_pos=diag_pos,
+                          unique_keys=None,
+                          nnz=int(lengths.astype(np.int64).sum()))
     c64 = conn.astype(np.int64)
     keys = (np.broadcast_to(c64[:, :, None], (c64.shape[0], npe, npe))
             * num_nodes

@@ -1,5 +1,5 @@
-"""Linear elasticity solver: vector elements + BCSR + block-Jacobi PCG, as
-in tpufem.solve.elasticity.
+"""Linear elasticity solver: vector elements + BCSR + block-Jacobi or block
+AMG PCG, as in tpufem.solve.elasticity.
 
 The weak form is the standard small-strain one,
 
@@ -7,8 +7,9 @@ The weak form is the standard small-strain one,
 
 stated through the weak-form frontend; assembly lands in the BCSR block
 format (one dense dim x dim block per node pair), whose SpMV is kernel B12
-(sparse.ell_cuda) on the card.  The solver runs on the card unless the
-caller passes ``device="cpu"``.
+(sparse.ell_cuda) on the card; ``precond="amg"`` preconditions with the
+block smoothed-aggregation AMG of solve.amg_block.  The solver runs on the
+card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -78,7 +79,8 @@ def solve_elasticity(mesh: Mesh, *, lam: float = 1.0, mu: float = 1.0,
                      precond: Optional[str] = None,
                      interpret: bool = False, aot: bool = False,
                      device="cuda") -> ElasticitySolution:
-    """Assemble and solve the elasticity system with block-Jacobi PCG.
+    """Assemble and solve the elasticity system with block-Jacobi or
+    block-AMG PCG.
 
     ``body_force``: callable on torch points x[..., dim] -> f[..., dim]
     (None: f = 0).  ``bc_values``: Dirichlet displacement per DOF (None:
@@ -88,21 +90,21 @@ def solve_elasticity(mesh: Mesh, *, lam: float = 1.0, mu: float = 1.0,
     solution comes back in the original DOF order.  ``matvec="gather"``:
     CG on ``BCSRMatrix.matvec`` (B12 banded where the bandwidth allows, its
     absolute-column mode otherwise).  ``precond``: None / "jacobi" is
-    block-Jacobi; "amg" (solve/amg_block.py) is not ported yet (ROADMAP
-    A2) and raises.  ``interpret`` and ``aot`` (the TPU's interpret mode
-    and executable cache) are not ported and raise when set.  Phase walls
-    land in ``solution.walls``: host_pattern, element_matrices, assemble,
-    band_plan, solve (each ending in a synchronize on the card).
+    block-Jacobi; "amg" is the block SA hierarchy with the rigid body
+    modes (``build_block_amg(A, coords=...)``; for ``"pallas"`` over the
+    RCM-permuted system with ``coords[perm]``, its node-major cycle fed
+    through two relayouts of the component-major CG vectors, as in the
+    reference).  ``interpret`` and ``aot`` (the TPU's interpret mode and
+    executable cache) are not ported and raise when set.  Phase walls land
+    in ``solution.walls``: host_pattern, element_matrices, assemble,
+    band_plan, precond_setup (AMG; its stages in precond_setup_detail),
+    solve (each ending in a synchronize on the card).
     """
     if interpret or aot:
         raise NotImplementedError(
             "interpret= and aot= are TPU-only (Pallas interpret mode, the "
             "executable cache of utils/aot.py) and not ported")
-    if precond == "amg":
-        raise NotImplementedError(
-            'precond="amg" (the block smoothed-aggregation AMG of '
-            "solve/amg_block.py) is not ported yet (ROADMAP A2)")
-    if precond not in (None, "jacobi"):
+    if precond not in (None, "jacobi", "amg"):
         raise ValueError(f"unknown precond {precond!r}")
     if matvec not in ("gather", "pallas"):
         raise ValueError(f"unknown matvec {matvec!r}")
@@ -144,18 +146,34 @@ def solve_elasticity(mesh: Mesh, *, lam: float = 1.0, mu: float = 1.0,
         M = block_jacobi(A2.diagonal_blocks())
         t1 = _synced(device)
         walls["band_plan"] = t1 - t0
+        if precond == "amg":
+            M = _amg_setup(A2, mesh.coords, walls, device).apply
+            t1 = _synced(device)
         res = cg(A2.matvec, b2, tol=tol, maxiter=maxiter, M=M)
         walls["solve"] = _synced(device) - t1
         return ElasticitySolution(u=res.x, cg=res, space=V, A=A2,
                                   walls=walls)
 
-    mv, M, perm = banded_block_system(A2, pattern.cols,
-                                      block_rows=block_rows)
+    mv, M, perm, data_p, cols_p = banded_block_system(
+        A2, pattern.cols, block_rows=block_rows, permuted=True)
     perm_t = torch.as_tensor(perm, device=device)
     # component-major permuted rhs and solution layout
     b_cm = b2.reshape(-1, nbv)[perm_t].T.contiguous()          # [b, NR]
     t1 = _synced(device)
     walls["band_plan"] = t1 - t0
+    if precond == "amg":
+        # the hierarchy over the RCM-permuted system (min-index aggregates
+        # keep every coarse block operator banded); its cycle is
+        # node-major, the banded CG component-major: two relayouts
+        hier = _amg_setup(
+            BCSRMatrix(torch.as_tensor(data_p, device=device),
+                       torch.as_tensor(cols_p, device=device)),
+            np.asarray(mesh.coords)[perm], walls, device)
+
+        def M(r_cm):
+            return hier.apply(r_cm.T.reshape(-1)).reshape(-1, nbv).T
+
+        t1 = _synced(device)
     res = cg(mv, b_cm, tol=tol, maxiter=maxiter, M=M)
     walls["solve"] = _synced(device) - t1
     inv_t = torch.empty_like(perm_t)
@@ -164,12 +182,33 @@ def solve_elasticity(mesh: Mesh, *, lam: float = 1.0, mu: float = 1.0,
     return ElasticitySolution(u=u, cg=res, space=V, A=A2, walls=walls)
 
 
-def banded_block_system(A: BCSRMatrix, cols, *, block_rows: int = 1024):
+def _amg_setup(A: BCSRMatrix, coords, walls: dict, device):
+    """The block AMG hierarchy of A with the rigid body modes of
+    ``coords``; its wall and stage walls into ``walls``."""
+    from tpufem_torch.solve.amg_block import build_block_amg
+
+    t0 = time.perf_counter()
+    pw: dict = {}
+    hier = build_block_amg(A, coords=np.asarray(coords), walls_out=pw)
+    walls["precond_setup"] = _synced(device) - t0
+    # stage walls rounded as the reference rounds them; the hierarchy's
+    # shape (coarse_rows, levels, operator_complexity, gather) as it is
+    walls["precond_setup_detail"] = {
+        k: (round(v, 2) if isinstance(v, float)
+            and k != "operator_complexity" else v)
+        for k, v in pw.items()}
+    return hier
+
+
+def banded_block_system(A: BCSRMatrix, cols, *, block_rows: int = 1024,
+                        permuted: bool = False):
     """The ``matvec="pallas"`` operator of a BCSR system: the node pattern
     ``cols`` (host numpy) renumbered by RCM, the banded block plan on the
     matrix's device and the block-Jacobi inverses, for component-major
     [b, NR] vectors in the new order.  Returns (matvec (kernel B12), M,
-    perm) with new node i holding old node perm[i]."""
+    perm) with new node i holding old node perm[i]; with ``permuted`` also
+    the permuted host data [NR, K, b, b] and cols [NR, K] (what the AMG
+    hierarchy is built on, without a second RCM)."""
     dev = A.data.device
     perm = reverse_cuthill_mckee(cols)
     inv = np.empty_like(perm)
@@ -185,4 +224,6 @@ def banded_block_system(A: BCSRMatrix, cols, *, block_rows: int = 1024):
     def matvec(x):
         return bcsr_matvec_cuda(plan, d_dev, r_dev, x)
 
+    if permuted:
+        return matvec, M, perm, data_p, cols_p
     return matvec, M, perm

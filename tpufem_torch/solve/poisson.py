@@ -167,16 +167,16 @@ def solve_poisson_ell(mesh: Mesh, f: Optional[Callable] = None, *,
     (the same kernel in absolute-column mode) elsewhere.
 
     ``precond``: "jacobi" | "chebyshev" (degree-14 polynomial Jacobi,
-    Gershgorin lmax); None falls back to the ``precondition`` bool
-    (Jacobi).  "amg" is not ported yet (ROADMAP A2).  With "chebyshev" or
-    "jacobi" the "pallas" path primes the banded plan explicitly (any
-    bandwidth, honoring ``block_rows``).  Non-affine cells raise (the
-    weak-form path, ROADMAP A3).
+    Gershgorin lmax) | "amg" (strength-filtered greedy SA V-cycle with
+    banded-embedded transfers, solve.amg: ``build_amg(A, aggregation=
+    "greedy", strength=0.08, cycle="V")``); None falls back to the
+    ``precondition`` bool (Jacobi).  "amg" implies the RCM-reordered path,
+    whatever ``matvec`` says.  With a ``precond`` the "pallas" path primes
+    the banded plan explicitly (any bandwidth, honoring ``block_rows``),
+    and the AMG hierarchy primes each of its matrices on the card.
+    Non-affine cells raise (the weak-form path, ROADMAP A3).
     """
-    if precond == "amg":
-        raise NotImplementedError('precond="amg" (smoothed-aggregation AMG) '
-                                  "is not ported yet (ROADMAP A2)")
-    if precond not in (None, "jacobi", "chebyshev"):
+    if precond not in (None, "jacobi", "chebyshev", "amg"):
         raise ValueError(f"unknown precond {precond!r}")
     if matvec not in ("gather", "pallas"):
         raise ValueError(f"unknown matvec {matvec!r}")
@@ -194,7 +194,15 @@ def solve_poisson_ell(mesh: Mesh, f: Optional[Callable] = None, *,
     b, bc_mask = _rhs_and_bc(space, be)
     A, b = apply_dirichlet_ell(A, b, bc_mask)
 
+    if precond == "amg":
+        # aggregation needs a band-ordered system: the RCM path
+        matvec = "pallas"
+
     def _build_M(Ap):
+        if precond == "amg":
+            from tpufem_torch.solve.amg import build_amg
+            return build_amg(Ap, aggregation="greedy", strength=0.08,
+                             cycle="V").apply
         if precond == "chebyshev":
             return chebyshev(Ap.matvec, Ap.diagonal(), degree=14,
                              lmax=lambda_max_bound(Ap))

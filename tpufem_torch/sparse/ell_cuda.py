@@ -20,9 +20,13 @@ CUDA kernel gathers each column directly, so ``segmented`` and
     kernels in absolute-column mode on row-major data / cols [N, K] (the
     gather form of ``ELLMatrix``);
   * ``bcsr_matvec_cuda`` (B12, both TPU variants): y = A x for a BCSR
-    matrix of b x b blocks (b = 2, 3) on the node pattern's banded plan
-    (``bcsr_band_plan``), x and y component-major [b, n], a thread a block
-    row in tiles of ``bcsr_band_tiling`` rows;
+    matrix of b x b blocks (b = 2 to 6, ``BCSR_BLOCK_SIZES``) on the
+    node pattern's banded plan (``bcsr_band_plan``), x and y
+    component-major [b, n]: for b = 2, 3 and K = 8, 16 a thread a block
+    row, the slots unrolled, in tiles of ``bcsr_band_tiling`` rows; for
+    every other shape (the AMG levels') a run-time slot loop in groups
+    loaded ahead, a thread a row in tiles of ``bcsr_loop_tiling`` rows or
+    b threads a row (``bcsr_band_design``);
     ``bcsr_gather_matvec_cuda`` (B12g, its own kernel in csrc/bcsr.cu):
     the same product on row-major data [NR, K, b, b] / cols [NR, K] and
     node-major x (the gather form of ``BCSRMatrix``), staged through
@@ -52,7 +56,8 @@ __all__ = ["ELLBandPlan", "ell_band_plan", "auto_block_rows",
            "ell_gather_matvec_plain", "ell_gather_matvec_multi_plain",
            "bcsr_band_plan", "bcsr_matvec_cuda", "bcsr_gather_matvec_cuda",
            "bcsr_band_matvec_plain", "bcsr_gather_matvec_plain",
-           "bcsr_gather_tiling"]
+           "bcsr_gather_tiling", "BCSR_BLOCK_SIZES", "bcsr_band_design",
+           "bcsr_loop_tiling"]
 
 
 class ELLBandPlan(NamedTuple):
@@ -421,13 +426,16 @@ def _check_gather(what, data, cols, x):
     n, K = data.shape
     _expect(what + " data", data, x.dtype, (n, K), x.device)
     _expect(what + " cols", cols, torch.int32, (n, K), x.device)
-    if x.shape[0] != n:
-        raise ValueError(f"{what}: x has {x.shape[0]} rows, the matrix {n}")
+    # x holds the rows the columns reach: any count (a rectangular
+    # operator, e.g. an AMG prolongator, gathers from fewer or more rows)
+    if x.shape[0] < 1:
+        raise ValueError(f"{what}: x has no rows")
 
 
 def ell_gather_matvec_cuda(data, cols, x):
-    """y = A x on row-major data / cols [N, K] (absolute columns): the B9
-    kernel in absolute-column mode.  No host sync."""
+    """y = A x on row-major data / cols [N, K] (absolute columns into the
+    rows of x, which may number other than N): the B9 kernel in
+    absolute-column mode.  No host sync."""
     if x.device.type == "cpu":
         return ell_gather_matvec_plain(data, cols, x)
     _check_gather("ell_gather_matvec", data, cols, x)
@@ -518,22 +526,29 @@ def bcsr_gather_matvec_plain(data, cols, x):
     return y.reshape(-1)
 
 
+# the block sizes B12 and B12g are built for: 2 and 3 (2D and 3D
+# elasticity), up to 6 (the block AMG's transfers and coarse levels)
+BCSR_BLOCK_SIZES = (2, 3, 4, 5, 6)
 # data, idx, x, y, rows, k, 10 strides, tile_rows, stream
 _BCSR_ARGS = (_P, _P, _P, _P, _LL, _I) + (_LL,) * 10 + (_I, _P)
 _BCSR_ENTRY = {(t, i, b): f"tpufem_bcsr_spmv_{tn}_{iname}_b{b}"
                for t, tn in ((torch.float32, "f32"), (torch.float64, "f64"))
                for i, iname in ((torch.int16, "i16"), (torch.int32, "i32"))
-               for b in (2, 3)}
+               for b in BCSR_BLOCK_SIZES}
+# B12, B threads a row: the same arguments
+_OUT_ENTRY = {key: name.replace("spmv", "out")
+              for key, name in _BCSR_ENTRY.items()}
 # data, cols, x, y, nr, k, tile_rows, stream
 _GATHER_ARGS = (_P, _P, _P, _P, _LL, _I, _I, _P)
 _GATHER_ENTRY = {(t, b): f"tpufem_bcsr_gather_{tn}_b{b}"
                  for t, tn in ((torch.float32, "f32"), (torch.float64, "f64"))
-                 for b in (2, 3)}
+                 for b in BCSR_BLOCK_SIZES}
 
 
 def _bcsr_lib():
     return load_library("bcsr.cu", {
         **{e: _BCSR_ARGS for e in _BCSR_ENTRY.values()},
+        **{e: _BCSR_ARGS for e in _OUT_ENTRY.values()},
         **{e: _GATHER_ARGS for e in _GATHER_ENTRY.values()}})
 
 
@@ -550,22 +565,55 @@ def bcsr_band_tiling() -> int:
     return 384
 
 
+_SMS = 132                     # streaming multiprocessors of the H100 SXM
+# the "out" form: block rows a block (B threads each), and the rows under
+# which it is taken
+_OUT_ROWS = 32
+_OUT_MAX_ROWS = 65536
+
+
+def bcsr_band_design(b: int, k: int, rows: int) -> str:
+    """B12's form for ``rows`` block rows of b x b blocks and k slots:
+    "unrolled" (b = 2, 3 with K = 8 or 16, the elasticity operators: a
+    thread a row, the slots unrolled and loaded ahead), "out" (b threads a
+    row, a run-time slot loop in groups loaded ahead: b = 2, 3 on fewer
+    than 65,536 rows, the 982k hierarchy's coarse levels and transfers) or
+    "loop" (a thread a row, the run-time slot loop in groups: every other
+    shape, b = 4 to 6 among them, where b threads a row measured slower).
+    The picks are ``scripts/bcsr_amg_ab.py``'s fastest (PERF.md)."""
+    if b <= 3 and k in (8, 16):
+        return "unrolled"
+    return "out" if b <= 3 and rows < _OUT_MAX_ROWS else "loop"
+
+
+def bcsr_loop_tiling(rows: int) -> int:
+    """Block rows a block of B12's run-time-K instance: 384, or fewer
+    (down to 32, whole warps) where the rows are few, so that the blocks
+    fill two per SM of the card's 132 (the AMG's coarse levels: a few
+    hundred to a few thousand rows; measured, PERF.md)."""
+    per_block = -(-int(rows) // (2 * _SMS))
+    return max(32, min(384, -(-per_block // 32) * 32))
+
+
 def _bcsr_launch(what, data, idx, x, y, rows, k, d_strides, i_strides,
                  block_rows):
     """One launch of B12 on the banded plan: ``rows`` block rows of ``k``
     slots; d_strides (row, slot, component) of data, i_strides (row, slot)
     of the indices; x and y 2-D [b, rows-or-more] views (component,
-    node)."""
+    node).  The instance and its tile by ``bcsr_band_design``."""
     b = data.shape[1]
-    entry = _BCSR_ENTRY.get((data.dtype, idx.dtype, b))
+    design = bcsr_band_design(b, k, rows)
+    entry = (_OUT_ENTRY if design == "out" else _BCSR_ENTRY).get(
+        (data.dtype, idx.dtype, b))
     if entry is None:
         raise TypeError(f"{what}: takes fp32/fp64 values, int16/int32 "
-                        f"indices and b in (2, 3), got ({data.dtype}, "
-                        f"{idx.dtype}, b={b})")
+                        f"indices and b in {BCSR_BLOCK_SIZES}, got "
+                        f"({data.dtype}, {idx.dtype}, b={b})")
     if x.dtype != data.dtype or x.device != data.device:
         raise ValueError(f"{what}: x must be {data.dtype} on {data.device}, "
                          f"got {x.dtype} {x.device}")
-    tile_rows = bcsr_band_tiling()
+    tile_rows = {"unrolled": bcsr_band_tiling, "out": lambda: _OUT_ROWS,
+                 "loop": lambda: bcsr_loop_tiling(rows)}[design]()
     with torch.cuda.device(x.device):
         status = getattr(_bcsr_lib(), entry)(
             data.data_ptr(), idx.data_ptr(), x.data_ptr(), y.data_ptr(),
@@ -608,6 +656,7 @@ def bcsr_matvec_cuda(plan: ELLBandPlan, data_dev, rel_dev, x, *,
     _bcsr_launch(what, data_dev, rel_dev, x, y, plan.n, K,
                  (1, b * b * NP, NP), (1, NP), plan.block_rows)
     bcsr_matvec_cuda.launches += 1
+    bcsr_matvec_cuda.launches_by_block[b] += 1
     if per_block:
         bcsr_matvec_cuda.launches_per_block += 1
     return y
@@ -615,6 +664,8 @@ def bcsr_matvec_cuda(plan: ELLBandPlan, data_dev, rel_dev, x, *,
 
 bcsr_matvec_cuda.launches = 0
 bcsr_matvec_cuda.launches_per_block = 0
+# the launches by block size b (the AMG hierarchies' 3 x 3 and 6 x 6)
+bcsr_matvec_cuda.launches_by_block = dict.fromkeys(BCSR_BLOCK_SIZES, 0)
 
 
 _GATHER_MAX_THREADS = 384
@@ -637,22 +688,27 @@ def bcsr_gather_tiling(itemsize: int, b: int, k: int):
     slots: (tile_rows, shared memory bytes of its ring of two buffers).
 
     The most rows (128 down to 4, b threads a row) whose staged values and
-    columns fit ``_GATHER_STAGE``; past that size, the fewest rows, while
-    the two buffers fit a block's 227 KB.  Raises ValueError where they do
-    not (k beyond several hundred)."""
-    rows = 4
+    columns fit ``_GATHER_STAGE``; past that size 4 rows, or 2 or 1 where
+    the two buffers of 4 do not fit a block's 227 KB (the fat-K, 6 x 6
+    coarse levels of a block AMG hierarchy: 1 row of K = 128 fp64 blocks
+    stages 37 KB).  Raises ValueError where not even one row fits (k
+    beyond about 390 fp64 6 x 6 slots)."""
+    def stage(r):
+        return (_span_region(r * k * b * b * itemsize)
+                + _span_region(r * k * 4))
+
+    rows = None
     for r in (128, 64, 32, 16, 8, 4):
-        stage = (_span_region(r * k * b * b * itemsize)
-                 + _span_region(r * k * 4))
-        if r * b <= _GATHER_MAX_THREADS and stage <= _GATHER_STAGE:
+        if r * b <= _GATHER_MAX_THREADS and stage(r) <= _GATHER_STAGE:
             rows = r
             break
-    smem = 2 * (_span_region(rows * k * b * b * itemsize)
-                + _span_region(rows * k * 4))
-    if smem > _SMEM_PER_BLOCK:
+    if rows is None:
+        rows = next((r for r in (4, 2, 1)
+                     if 2 * stage(r) <= _SMEM_PER_BLOCK), None)
+    if rows is None:
         raise ValueError(f"B12g: no tile of {k} slots of {b} x {b} blocks "
                          f"of {itemsize}-byte values fits shared memory")
-    return rows, smem
+    return rows, 2 * stage(rows)
 
 
 def bcsr_gather_matvec_cuda(data, cols, x):
@@ -672,8 +728,8 @@ def bcsr_gather_matvec_cuda(data, cols, x):
     _expect(what + " x", x, x.dtype, (nr * b,), x.device)
     entry = _GATHER_ENTRY.get((x.dtype, b))
     if entry is None:
-        raise TypeError(f"{what}: takes fp32/fp64 values and b in (2, 3), "
-                        f"got {x.dtype}, b={b}")
+        raise TypeError(f"{what}: takes fp32/fp64 values and b in "
+                        f"{BCSR_BLOCK_SIZES}, got {x.dtype}, b={b}")
     rows, _ = bcsr_gather_tiling(x.element_size(), b, K)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
