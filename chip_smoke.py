@@ -182,6 +182,40 @@
      package's CPU count and nodal rms error, and the weak-form ELL
      assembly of the 1000 x 1000 perturbed mesh within 1e-5 of the
      closed-form P1 assembly (fp32; quadrature against closed form);
+   - p2: P2 triangles on rectangle_mesh(-3,3,-3,3,500,500) (1,002,001
+     DOFs, fp64), the mixed Dirichlet (|x| = 3) / Neumann (|y| = 3)
+     problem of tests/test_boundary.py: WeakForm(format="ell") with the
+     boundary load, apply_dirichlet_ell, RCM + reorder_ell, build_amg
+     (greedy, strength 0.08, coarse_n=300), PCG to 1e-12: the JAX
+     package's CPU count within 1 and its rel L2 error within 1% (JAX_A3);
+     then tests/amg_systems.py's 103,041-DOF p2_system(160): <= 40
+     iterations and within 1 of the JAX count (BENCH_NOTES.md:490:
+     18-19); B9 and B9g (the Dirichlet correction) must launch;
+   - p2_tet_robin: P2 tets, the pure Robin problem du/dn + u = g on every
+     facet of box_mesh(-3,3,...,n,n,n) (no Dirichlet row), RCM, the same
+     AMG, PCG to 1e-10: at n = 30 (226,981 DOFs) the JAX count within 1
+     and its error within 1%, at n = 50 (1,030,301 DOFs) an error at or
+     under n = 30's; the fine level rides B9 (build_amg primes any band;
+     the RCM band is printed against _AUTO_BAND_MAX); B9 must launch;
+   - quad_hex: solve_poisson_ell(precond="amg", tol=1e-10, fp64) on
+     perturbed_quad_mesh(-3,3,-3,3,1000,1000, jitter=0.25, seed=5)
+     (1,002,001 rows) and box_hex_mesh at n = 100 (1,030,301 rows), each
+     at the JAX count within 1 and its error within 1%; B9 and B9g must
+     launch;
+   - coo_matfree: assemble_coo on rectangle_mesh(-3,3,-3,3,1000,10000)
+     (20,000,000 triangles, examples/generic_assembly_20m.py's scale,
+     fp32) into pattern_unique_keys: max |row sum| / max |a| < 1e-5, within
+     1e-4 of max |a| of assemble_ell on the same pattern, a second run bit
+     for bit; on the unstructured path's RCM-ordered mesh the matrix-free
+     operators (poisson_operator both ways, element_operator) within 1e-5
+     of B9's product, each twice bit for bit, a 10-iteration fixed CG on
+     each within 1e-4 of the ELL one, their times beside B9's;
+     greedy_element_coloring on the 125 x 125 and 250 x 250 meshes of the
+     same generator, no node shared within a color; B9 must launch.
+     After each of these paths, B9 (and B9g where the band exceeds
+     _AUTO_BAND_MAX) is timed at the path's fine operator beside its
+     bound and a torch.sparse CSR product (under "shapes"), and 10 AMG-PCG
+     iterations are profiled;
    - assembly, n=96 fp32: examples/poisson_3d_multigrid.py composed from
      the port with its stiffness from B13 (mesh, structured_plan(mesh),
      element_coords_bt_embedded, B13 launched exactly once, the host-layout
@@ -1694,6 +1728,14 @@ def _paths(dev, records):
               lambda: _drive_elasticity_box(dev), ())
     _run_path("weakform", counters, records, lambda: _drive_weakform(dev),
               ("B9", "B9g"))
+    _run_path("p2", counters, records, lambda: _drive_p2(dev, records),
+              ("B9", "B9g"))
+    _run_path("p2_tet_robin", counters, records,
+              lambda: _drive_p2_tet_robin(dev, records), ("B9",))
+    _run_path("quad_hex", counters, records,
+              lambda: _drive_quad_hex(dev, records), ("B9", "B9g"))
+    _run_path("coo_matfree", counters, records,
+              lambda: _drive_coo_matfree(dev, records, keep), ("B9",))
     _run_path("assembly", counters, records,
               lambda: _drive_assembly(dev, main), ("B13", "K2", "B4"))
     _run_path("reduction", counters, records,
@@ -2054,6 +2096,7 @@ def _drive_unstructured(dev, keep):
         return cg_fixed(A.matvec, b, 10, M=M)
 
     keep["unstructured"] = (A, b, ue, mesh0)
+    keep["unstructured_mesh"] = mesh
     return lambda: _per_iteration("unstructured", pcg10)
 
 
@@ -2902,6 +2945,609 @@ def _drive_weakform(dev):
     check(A_wf.data.shape == A_p1.data.shape and dA <= 1e-5 and db <= 1e-5,
           f"weakform at 1M rows: matrix {dA:.3e}, rhs {db:.3e}")
 
+
+
+# -- the weak-form frontend: P2, boundary terms, Q1 cells, COO, matrix-free --
+
+# The JAX package's own CPU numbers on the same systems (float64, the XLA
+# gather products), from scripts/weakform_jax_reference.py:
+#   python scripts/weakform_jax_reference.py <case> <n>
+# p2 500: the 1,002,001-DOF mixed Dirichlet / Neumann P2 system, AMG-PCG
+# to 1e-12; p2_dirichlet 160: tests/amg_systems.py's 103,041-DOF
+# p2_system, AMG-PCG to 1e-9; quad 1000 and hex 100: the full sizes;
+# p2_tet_robin 30: the JAX package's eager CPU assembly of P2 tets holds
+# 9.3 GB of host memory there, and its element intermediates grow as n^3
+# (about 43 GB at the full size, n = 50, which is gated at or under the
+# n = 30 error).
+JAX_A3 = {
+    "p2": {"n": 500, "iterations": 31, "rel_l2_error": 3.3155634807627187e-10},
+    "p2_dirichlet": {"n": 160, "iterations": 18,
+                     "rel_l2_error": 9.839361120458458e-10},
+    "p2_tet_robin": {"n": 30, "iterations": 30,
+                     "rel_l2_error": 2.107809545451627e-05},
+    "quad": {"n": 1000, "iterations": 40,
+             "rel_l2_error": 8.276420355490981e-07},
+    "hex": {"n": 100, "iterations": 14,
+            "rel_l2_error": 0.0001652443178493883},
+}
+N_P2, P2_DOFS = 500, 1_002_001
+N_P2_TET, P2_TET_DOFS = 50, 1_030_301
+N_QUAD, N_HEX = 1000, 100
+QUAD_ROWS, HEX_ROWS = 1_002_001, 1_030_301
+N_COO_X, N_COO_Y = 10_000, 1000      # examples/generic_assembly_20m.py
+COO_ELEMENTS, COO_NODES = 20_000_000, 10_011_001
+COLOR_SIZES = (125, 250)
+A3_MAXITER = 500
+
+
+def _a3_gate(name, key, its, err, n):
+    """The JAX package's count within 1 iteration and its error within 1%
+    (relative) on the same system."""
+    ref = JAX_A3[key]
+    check(ref["n"] == n, f"{name}: the JAX record is at n={ref['n']}, "
+                         f"not {n}")
+    print(f"# {name} n={n}: {its} iterations (JAX on the CPU: "
+          f"{ref['iterations']}), rel L2 error {err:.6e} (JAX: "
+          f"{ref['rel_l2_error']:.6e}, {err / ref['rel_l2_error']:.5f} of "
+          "it)")
+    check(abs(its - ref["iterations"]) <= 1,
+          f"{name}: {its} iterations, JAX {ref['iterations']}")
+    check(abs(err - ref["rel_l2_error"]) <= 0.01 * ref["rel_l2_error"],
+          f"{name}: rel L2 error {err:.4e}, JAX {ref['rel_l2_error']:.4e}")
+
+
+def _rcm_amg(A, b, timer, walls):
+    """RCM + reorder_ell (tests/amg_systems.py's p2_system), the greedy
+    strength-0.08 AMG with coarse_n=300: (A_p, b_p, perm, hierarchy)."""
+    import torch
+
+    from tpufem_torch.mesh.adjacency import reverse_cuthill_mckee
+    from tpufem_torch.solve.amg import build_amg
+    from tpufem_torch.sparse.ell import ELLMatrix, reorder_ell
+
+    dev = b.device
+    with timer("rcm"):
+        perm = reverse_cuthill_mckee(A.cols.cpu().numpy())
+        data_p, cols_p = reorder_ell(A.data, A.cols, perm)
+        A_p = ELLMatrix(torch.as_tensor(data_p, device=dev),
+                        torch.as_tensor(cols_p, device=dev))
+        perm_t = torch.as_tensor(perm, device=dev)
+        b_p = b[perm_t]
+        torch.cuda.synchronize()
+    with timer("amg_setup"):
+        hier = build_amg(A_p, aggregation="greedy", strength=0.08,
+                         coarse_n=300, walls_out=walls)
+        torch.cuda.synchronize()
+    return A_p, b_p, perm_t, hier
+
+
+def _band_of(M):
+    import numpy as np
+
+    cols = M.cols.cpu().numpy().astype(np.int64)
+    return int(np.abs(cols - np.arange(cols.shape[0])[:, None]).max())
+
+
+def _time_ell_shape(records, name, A_p):
+    """B9 at the path's finest operator (its banded plan), timed beside its
+    bound and a torch.sparse CSR product; B9g (the absolute-column form)
+    on the same matrix where the band is wider than the automatic rule
+    takes (_AUTO_BAND_MAX)."""
+    import torch
+
+    from tpufem_torch.sparse import ell as ell_mod
+    from tpufem_torch.sparse import ell_cuda as ec
+
+    plan, d_t, rel = A_p._band
+    n, k = A_p.data.shape
+    dt = str(A_p.dtype).replace("torch.", "")
+    gen = torch.Generator(device=A_p.data.device).manual_seed(15)
+    x = torch.randn(n, generator=gen, device=A_p.data.device,
+                    dtype=A_p.dtype)
+    bw = _band_of(A_p)
+    label = f"{name} {n} rows K={k} {dt} band {bw} R={plan.block_rows}"
+    _compare(records, "B9", label,
+             lambda: ec.ell_matvec_cuda(plan, d_t, rel, x),
+             lambda: ec.ell_band_matvec_plain(plan, d_t, rel, x),
+             timed=True, shapes=True, exact=True,
+             work=([d_t[:, :n], rel[:, :n], x], 2 * k * n, dt),
+             library=_library_ell(A_p.data, A_p.cols, x))
+    if bw > ell_mod._AUTO_BAND_MAX:
+        _compare(records, "B9g", f"{name} {n} rows K={k} {dt} band {bw} "
+                                 "absolute columns",
+                 lambda: ec.ell_gather_matvec_cuda(A_p.data, A_p.cols, x),
+                 lambda: ec.ell_gather_matvec_plain(A_p.data, A_p.cols, x),
+                 timed=True, shapes=True,
+                 work=([A_p.data, A_p.cols, x], 2 * k * n, dt),
+                 library=_library_ell(A_p.data, A_p.cols, x))
+    del x
+    torch.cuda.empty_cache()
+
+
+def _amg_after(records, name, A_p, b_p, hier):
+    from tpufem_torch.solve.cg import cg_fixed
+
+    def after():
+        _time_ell_shape(records, name, A_p)
+        _per_iteration(name, lambda: cg_fixed(A_p.matvec, b_p, 10,
+                                              M=hier.apply))
+
+    return after
+
+
+def _p2_neumann(n, dev, timer, walls):
+    """The mixed Dirichlet (|x| = 3) / Neumann (|y| = 3) P2 problem of
+    tests/test_boundary.py on rectangle_mesh(-3,3,-3,3,n,n): WeakForm ELL
+    assembly with the boundary load, apply_dirichlet_ell, RCM, AMG-PCG.
+    Returns (V, u, cg result, A_p, b_p, hier)."""
+    import numpy as np
+    import torch
+
+    from tpufem_torch.fem.facets import boundary_facets
+    from tpufem_torch.fem.space import FunctionSpace
+    from tpufem_torch.forms.language import Coefficient, dot, grad
+    from tpufem_torch.forms.weakform import WeakForm
+    from tpufem_torch.mesh.adjacency import ell_pattern
+    from tpufem_torch.mesh.rectangle import rectangle_mesh
+    from tpufem_torch.solve.bc import apply_dirichlet_ell
+    from tpufem_torch.solve.cg import cg
+    from tpufem_torch.solve.poisson import model_problem_2d
+
+    f = model_problem_2d()[0]
+    with timer("host_mesh"):
+        mesh = rectangle_mesh(-3, 3, -3, 3, n, n)
+    with timer("edges"):
+        V = FunctionSpace(mesh, degree=2)
+    with timer("facets"):
+        facets = boundary_facets(mesh)
+    with timer("pattern"):
+        pat = ell_pattern(V.dof_conn, V.num_dofs, pad_to=8,
+                          with_sort_plan=False)
+    g = Coefficient(lambda xq: -6.0 * (9.0 - xq[..., 0] ** 2))
+    with timer("assemble"):
+        wf = WeakForm(V, device=dev).build(
+            lambda u, v: dot(grad(u), grad(v)),
+            lambda v: Coefficient(f) * v)
+        wf.build_boundary(rhs=lambda v: g * v,
+                          where=lambda c: np.abs(c[:, 1]) > 3 - 1e-9)
+        A, b = wf.assemble(format="ell", pattern=pat)
+        bc = torch.as_tensor(np.abs(V.scalar_dof_coords[:, 0]) > 3 - 1e-9,
+                             device=dev)
+        A, b = apply_dirichlet_ell(A, b, bc)
+        torch.cuda.synchronize()
+    print(f"# p2 n={n}: {V.num_dofs} DOFs, {mesh.num_elements} triangles, "
+          f"{facets.num_facets} boundary facets, ELL width {pat.width}")
+    A_p, b_p, perm_t, hier = _rcm_amg(A, b, timer, walls)
+    with timer("solve"):
+        res = cg(A_p.matvec, b_p, tol=1e-12, maxiter=A3_MAXITER,
+                 M=hier.apply)
+        torch.cuda.synchronize()
+    u = torch.empty_like(res.x)
+    u[perm_t] = res.x
+    return V, u, res, A_p, b_p, hier
+
+
+def _drive_p2(dev, records):
+    """P2 triangles with a Neumann term at 1,002,001 DOFs (fp64), gated
+    against the JAX package's CPU count and error on the same system; then
+    the 103,041-DOF pure-Dirichlet p2_system(160) cell (<= 40 iterations;
+    the JAX record BENCH_NOTES.md:490: 18-19)."""
+    import torch
+
+    from tpufem_torch.solve.poisson import model_problem_2d
+    from tpufem_torch.utils.timing import PhaseTimer
+
+    exact = model_problem_2d()[1]
+    timer, walls = PhaseTimer(), {}
+    t0 = time.perf_counter()
+    V, u, res, A_p, b_p, hier = _p2_neumann(N_P2, dev, timer, walls)
+    wall = time.perf_counter() - t0
+    check(V.num_dofs == P2_DOFS, f"p2: {V.num_dofs} DOFs")
+    _print_hierarchy("p2", walls, timer.report()["amg_setup"])
+    err = _rel_err(u, torch.as_tensor(exact(V.scalar_dof_coords),
+                                      device=dev))
+    print(f"# p2 AMG-PCG to 1e-12: {res.iterations} iterations, relres "
+          f"{res.residual_norm.item():.3e}, RCM band {_band_of(A_p)}; wall "
+          f"{wall:.2f} s; phases (s, wall clock ending in a synchronize): "
+          + json.dumps({k: round(v, 4) for k, v in timer.report().items()}))
+    check(res.converged, "p2: not converged")
+    _a3_gate("p2", "p2", res.iterations, err, N_P2)
+
+    # the 103,041-DOF reference cell: tests/amg_systems.py's p2_system(160)
+    import numpy as np
+
+    from tpufem_torch.fem.space import FunctionSpace
+    from tpufem_torch.forms.language import SpatialCoordinate, dot, grad
+    from tpufem_torch.forms.weakform import WeakForm
+    from tpufem_torch.mesh.rectangle import rectangle_mesh
+    from tpufem_torch.solve.bc import apply_dirichlet_ell
+    from tpufem_torch.solve.cg import cg
+
+    t0 = time.perf_counter()
+    V2 = FunctionSpace(rectangle_mesh(-3, 3, -3, 3, 160, 160), degree=2)
+    X = SpatialCoordinate(V2)
+    fx = 36 - 2 * (X[0] ** 2 + X[1] ** 2)
+    A2, b2 = WeakForm(V2, device=dev).build(
+        lambda u_, v: dot(grad(u_), grad(v)), lambda v: fx * v).assemble(
+        format="ell")
+    A2, b2 = apply_dirichlet_ell(A2, b2, torch.as_tensor(V2.dof_flags,
+                                                         device=dev))
+    A2p, b2p, perm2, hier2 = _rcm_amg(A2, b2, PhaseTimer(), {})
+    res2 = cg(A2p.matvec, b2p, tol=1e-9, maxiter=100, M=hier2.apply)
+    torch.cuda.synchronize()
+    ref = JAX_A3["p2_dirichlet"]
+    print(f"# p2 reference cell p2_system(160): {V2.num_dofs} DOFs, "
+          f"{res2.iterations} iterations to 1e-9 (gate <= 40; the JAX "
+          f"record BENCH_NOTES.md:490: 18-19; the JAX package's CPU run: "
+          f"{ref['iterations']}), levels "
+          f"{[lv.A.shape[0] for lv in hier2.levels]}, "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(V2.num_dofs == 103_041 and res2.converged
+          and res2.iterations <= 40, f"p2 cell: {res2.iterations}")
+    check(abs(res2.iterations - ref["iterations"]) <= 1,
+          f"p2 cell: {res2.iterations} iterations, JAX {ref['iterations']}")
+    del A2, b2, A2p, b2p, hier2
+    return _amg_after(records, "p2", A_p, b_p, hier)
+
+
+def _robin_data(xq):
+    """du/dn on the faces of (-3, 3)^3 of u = (9-x^2)(9-y^2)(9-z^2), where
+    u = 0: the Robin data du/dn + u."""
+    import torch
+
+    x, y, z = xq[..., 0], xq[..., 1], xq[..., 2]
+    on_x = x.abs() > 3 - 1e-9
+    on_y = y.abs() > 3 - 1e-9
+    return torch.where(on_x, -6.0 * (9 - y ** 2) * (9 - z ** 2),
+                       torch.where(on_y, -6.0 * (9 - x ** 2) * (9 - z ** 2),
+                                   -6.0 * (9 - x ** 2) * (9 - y ** 2)))
+
+
+def _p2_tet_robin(n, dev, timer, walls):
+    """The pure Robin problem du/dn + u = g on every facet of
+    box_mesh(-3,3,...,n,n,n), P2 tets, no Dirichlet row: WeakForm ELL
+    assembly, RCM, AMG-PCG to 1e-10.  Returns (V, u, res, A_p, b_p,
+    hier)."""
+    import torch
+
+    from tpufem_torch.fem.facets import boundary_facets
+    from tpufem_torch.fem.space import FunctionSpace
+    from tpufem_torch.forms.language import Coefficient, dot, grad
+    from tpufem_torch.forms.weakform import WeakForm
+    from tpufem_torch.mesh.adjacency import ell_pattern
+    from tpufem_torch.mesh.box import box_mesh
+    from tpufem_torch.solve.cg import cg
+    from tpufem_torch.solve.poisson import model_problem_3d
+
+    f = model_problem_3d()[0]
+    with timer("host_mesh"):
+        mesh = box_mesh(-3, 3, -3, 3, -3, 3, n, n, n)
+    with timer("edges"):
+        V = FunctionSpace(mesh, degree=2)
+    with timer("facets"):
+        facets = boundary_facets(mesh)
+    with timer("pattern"):
+        pat = ell_pattern(V.dof_conn, V.num_dofs, pad_to=16,
+                          with_sort_plan=False)
+    with timer("assemble"):
+        wf = WeakForm(V, device=dev).build(
+            lambda u, v: dot(grad(u), grad(v)),
+            lambda v: Coefficient(f) * v)
+        wf.build_boundary(lhs=lambda u, v: u * v,
+                          rhs=lambda v: Coefficient(_robin_data) * v)
+        A, b = wf.assemble(format="ell", pattern=pat)
+        torch.cuda.synchronize()
+    print(f"# p2_tet_robin n={n}: {V.num_dofs} DOFs, {mesh.num_elements} "
+          f"tetrahedra, {facets.num_facets} boundary facets, ELL width "
+          f"{pat.width}")
+    A_p, b_p, perm_t, hier = _rcm_amg(A, b, timer, walls)
+    with timer("solve"):
+        res = cg(A_p.matvec, b_p, tol=1e-10, maxiter=A3_MAXITER,
+                 M=hier.apply)
+        torch.cuda.synchronize()
+    u = torch.empty_like(res.x)
+    u[perm_t] = res.x
+    return V, u, res, A_p, b_p, hier
+
+
+def _drive_p2_tet_robin(dev, records):
+    """P2 tetrahedra with a pure Robin term: at the JAX record's n (its
+    count within 1, its error within 1%), then at 1,030,301 DOFs (n = 50;
+    error at or under the smaller size's).  Prints whether the fine level
+    rides B9 (the banded plan build_amg primes on the card, any band) and
+    whether the band exceeds _AUTO_BAND_MAX."""
+    import torch
+
+    from tpufem_torch.solve.poisson import model_problem_3d
+    from tpufem_torch.sparse import ell as ell_mod
+    from tpufem_torch.sparse import ell_cuda
+    from tpufem_torch.utils.timing import PhaseTimer
+
+    exact = model_problem_3d()[1]
+    ref = JAX_A3["p2_tet_robin"]
+    errs = {}
+    for n in (ref["n"], N_P2_TET):
+        timer, walls = PhaseTimer(), {}
+        t0 = time.perf_counter()
+        before = (ell_cuda.ell_matvec_cuda.launches,
+                  ell_cuda.ell_gather_matvec_cuda.launches)
+        V, u, res, A_p, b_p, hier = _p2_tet_robin(n, dev, timer, walls)
+        wall = time.perf_counter() - t0
+        ran = (ell_cuda.ell_matvec_cuda.launches - before[0],
+               ell_cuda.ell_gather_matvec_cuda.launches - before[1])
+        bw = _band_of(A_p)
+        _print_hierarchy(f"p2_tet_robin n={n}", walls,
+                         timer.report()["amg_setup"])
+        errs[n] = _rel_err(u, torch.as_tensor(exact(V.scalar_dof_coords),
+                                              device=dev))
+        print(f"# p2_tet_robin n={n} AMG-PCG to 1e-10: {res.iterations} "
+              f"iterations, relres {res.residual_norm.item():.3e}, rel L2 "
+              f"error {errs[n]:.6e}; RCM band {bw} ("
+              f"{'over' if bw > ell_mod._AUTO_BAND_MAX else 'within'} "
+              f"_AUTO_BAND_MAX {ell_mod._AUTO_BAND_MAX}): B9 {ran[0]} and "
+              f"B9g {ran[1]} launches in the setup and solve; wall "
+              f"{wall:.2f} s; phases (s): "
+              + json.dumps({k: round(v, 4)
+                            for k, v in timer.report().items()}))
+        check(res.converged, f"p2_tet_robin n={n}: not converged")
+        if n == ref["n"]:
+            _a3_gate("p2_tet_robin", "p2_tet_robin", res.iterations,
+                     errs[n], n)
+            del A_p, b_p, hier, V, u
+            torch.cuda.empty_cache()
+    check(V.num_dofs == P2_TET_DOFS, f"p2_tet_robin: {V.num_dofs} DOFs")
+    print(f"# p2_tet_robin n={N_P2_TET}: rel L2 error {errs[N_P2_TET]:.6e}"
+          f" <= n={ref['n']}'s {errs[ref['n']]:.6e}: "
+          f"{errs[N_P2_TET] <= errs[ref['n']]}")
+    check(errs[N_P2_TET] <= errs[ref["n"]],
+          f"p2_tet_robin: the full-size error {errs[N_P2_TET]:.4e} exceeds "
+          f"n={ref['n']}'s")
+    return _amg_after(records, "p2_tet_robin", A_p, b_p, hier)
+
+
+def _solve_capturing_amg(mesh, dev):
+    """solve_poisson_ell(mesh, precond="amg", tol=1e-10) on the card, with
+    the hierarchy it builds and the matrix it builds it from captured
+    (solve.amg.build_amg wrapped for the call): (solution, A_p, hierarchy,
+    setup walls, wall)."""
+    import torch
+
+    from tpufem_torch.solve import amg as amg_mod
+    from tpufem_torch.solve.poisson import solve_poisson_ell
+
+    seen, walls = {}, {}
+    real = amg_mod.build_amg
+
+    def capture(A, **kw):
+        t0 = time.perf_counter()
+        seen["A"], seen["hier"] = A, real(A, walls_out=walls, **kw)
+        torch.cuda.synchronize()
+        walls["setup"] = time.perf_counter() - t0
+        return seen["hier"]
+
+    amg_mod.build_amg = capture
+    try:
+        t0 = time.perf_counter()
+        sol = solve_poisson_ell(mesh, precond="amg", tol=1e-10, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        amg_mod.build_amg = real
+    return sol, seen["A"], seen["hier"], walls, wall
+
+
+def _drive_quad_hex(dev, records):
+    """solve_poisson_ell(precond="amg", tol=1e-10, fp64) on
+    perturbed_quad_mesh(-3,3,-3,3,1000,1000, jitter=0.25, seed=5)
+    (1,002,001 rows) and box_hex_mesh(-3,3,...,100,100,100) (1,030,301
+    rows), each at the JAX package's count within 1 and its error within
+    1%; then B9 (and B9g) at both fine operators and their iterations
+    profiled."""
+    import torch
+
+    from tpufem_torch.mesh.box import box_hex_mesh
+    from tpufem_torch.mesh.rectangle import perturbed_quad_mesh
+    from tpufem_torch.solve.poisson import model_problem_2d, model_problem_3d
+
+    keep = {}
+
+    def solve(name, mesh, exact):
+        sol, A_p, hier, walls, wall = _solve_capturing_amg(mesh, dev)
+        err = _rel_err(sol.u, torch.as_tensor(exact(mesh.coords),
+                                              device=dev))
+        _print_hierarchy(f"quad_hex {name}", walls, walls["setup"])
+        print(f"# quad_hex {name}: {mesh.num_nodes} rows, "
+              f"{mesh.num_elements} cells, RCM band {_band_of(A_p)}, ELL "
+              f"width {A_p.data.shape[1]}: {sol.cg.iterations} iterations, "
+              f"relres {sol.cg.residual_norm.item():.3e}, rel L2 error "
+              f"{err:.6e}, wall {wall:.2f} s (host pattern, weak-form "
+              f"kernels, RCM and the AMG setup of {walls['setup']:.2f} s "
+              "included)")
+        check(sol.cg.converged, f"quad_hex {name}: not converged")
+        keep[name] = (A_p, hier)
+        return sol.cg.iterations, err
+
+    t0 = time.perf_counter()
+    quad = perturbed_quad_mesh(-3, 3, -3, 3, N_QUAD, N_QUAD, jitter=0.25,
+                               seed=5)
+    print(f"# quad_hex quad mesh: {time.perf_counter() - t0:.2f} s (host)")
+    check(quad.num_nodes == QUAD_ROWS, f"quad: {quad.num_nodes} rows")
+    its, err = solve("quad", quad, model_problem_2d()[1])
+    _a3_gate("quad_hex quad", "quad", its, err, N_QUAD)
+    hexm = box_hex_mesh(-3, 3, -3, 3, -3, 3, N_HEX, N_HEX, N_HEX)
+    check(hexm.num_nodes == HEX_ROWS, f"hex: {hexm.num_nodes} rows")
+    its, err = solve("hex", hexm, model_problem_3d()[1])
+    _a3_gate("quad_hex hex", "hex", its, err, N_HEX)
+
+    def after():
+        from tpufem_torch.solve.cg import cg_fixed
+
+        for name in ("quad", "hex"):
+            A_p, hier = keep.pop(name)
+            b_p = A_p.matvec(torch.ones(A_p.shape[0], dtype=A_p.dtype,
+                                        device=dev))
+            _time_ell_shape(records, f"quad_hex {name}", A_p)
+            _per_iteration(f"quad_hex {name}",
+                           lambda: cg_fixed(A_p.matvec, b_p, 10,
+                                            M=hier.apply))
+            del A_p, hier, b_p
+            torch.cuda.empty_cache()
+
+    return after
+
+
+def _drive_coo_matfree(dev, records, keep):
+    """COO assembly at examples/generic_assembly_20m.py's scale (20,000,000
+    triangles, 10,011,001 nodes, fp32): assemble_coo into the pattern's
+    unique keys, its row sums (< 1e-5 of max |a|) and its agreement with
+    assemble_ell on the same pattern (1e-4 of max |a|), a second run bit
+    for bit; then on the unstructured path's RCM-ordered 1000 x 1000 mesh
+    (fp32) the matrix-free operators (poisson_operator with on_the_fly both
+    ways, element_operator) against B9's product (1e-5 relative), a
+    10-iteration fixed CG on each against the ELL one, their product times
+    beside B9's, each product twice bit for bit; and
+    greedy_element_coloring on the same generator's 125 x 125 and 250 x
+    250 meshes (no two elements of one color share a node)."""
+    import numpy as np
+    import torch
+
+    from tpufem_torch.assemble.coo import assemble_coo
+    from tpufem_torch.assemble.dense import assemble_vector
+    from tpufem_torch.assemble.ell import assemble_ell
+    from tpufem_torch.assemble.local import element_load, p1_stiffness
+    from tpufem_torch.fem.elements import P1Triangle
+    from tpufem_torch.fem.quadrature import triangle_rule
+    from tpufem_torch.mesh.adjacency import (ell_pattern,
+                                             greedy_element_coloring,
+                                             pattern_unique_keys)
+    from tpufem_torch.mesh.rectangle import (perturbed_rectangle_mesh,
+                                             rectangle_mesh)
+    from tpufem_torch.solve.bc import apply_dirichlet_ell
+    from tpufem_torch.solve.cg import cg_fixed
+    from tpufem_torch.solve.poisson import model_problem_2d
+    from tpufem_torch.sparse.matfree import element_operator, poisson_operator
+    from tpufem_torch.utils.timing import PhaseTimer, cuda_ms
+
+    el = P1Triangle()
+    timer = PhaseTimer()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with timer("host_mesh"):
+        mesh = rectangle_mesh(-3.0, 3.0, -3.0, 3.0, N_COO_Y, N_COO_X)
+    ne, nn = mesh.num_elements, mesh.num_nodes
+    check((ne, nn) == (COO_ELEMENTS, COO_NODES),
+          f"coo: {ne} elements, {nn} nodes")
+    with timer("pattern"):
+        pat = ell_pattern(mesh.conn, nn, pad_to=8, with_sort_plan=False)
+    with timer("unique_keys"):
+        keys = pattern_unique_keys(pat)
+    with timer("element_coords"):
+        ec = torch.as_tensor(mesh.element_coords(), dtype=torch.float32,
+                             device=dev)
+        conn = torch.as_tensor(mesh.conn, device=dev)
+        keys_t = torch.as_tensor(keys, device=dev)
+        torch.cuda.synchronize()
+    with timer("stiffness"):
+        Ke = p1_stiffness(ec, el)
+        del ec
+        torch.cuda.synchronize()
+    with timer("assemble_coo"):
+        vals = assemble_coo(conn, Ke, keys_t, nn)
+        torch.cuda.synchronize()
+    again = assemble_coo(conn, Ke, keys_t, nn)
+    same = torch.equal(again, vals)
+    del again
+    rows = keys_t // nn
+    scale = vals.abs().max().item()
+    row_sum = torch.zeros(nn, dtype=torch.float64, device=dev).index_add_(
+        0, rows, vals.double()).abs().max().item() / scale
+    with timer("assemble_ell"):
+        A = assemble_ell(pat, Ke)
+        torch.cuda.synchronize()
+    real = torch.as_tensor(np.arange(pat.width)[None, :]
+                           < pat.row_lengths[:, None], device=dev)
+    d_ell = (A.data[real] - vals).abs().max().item() / scale
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"# coo_matfree COO: {ne} triangles, {nn} nodes, {keys.size} "
+          f"unique entries (fp32): max |row sum| / max |a| {row_sum:.3e} "
+          f"(gate < 1e-5), max |COO - ELL| / max |a| {d_ell:.3e} (gate "
+          f"<= 1e-4), a second run bit-identical: {same}; phases (s): "
+          + json.dumps({k: round(v, 4) for k, v in timer.report().items()})
+          + f"; peak device memory {peak_gb:.3f} GB")
+    check(row_sum < 1e-5, f"coo: row sums {row_sum:.3e}")
+    check(d_ell <= 1e-4, f"coo: against assemble_ell {d_ell:.3e}")
+    check(same, "coo: a second assembly differs")
+    del vals, A, Ke, conn, keys_t, rows, real, pat, keys, mesh
+    torch.cuda.empty_cache()
+
+    # the matrix-free operators on the unstructured path's mesh
+    mesh = keep.pop("unstructured_mesh")
+    nn = mesh.num_nodes
+    pat = ell_pattern(mesh.conn, nn, pad_to=8, with_sort_plan=False)
+    ec = torch.as_tensor(mesh.element_coords(), dtype=torch.float32,
+                         device=dev)
+    Ke = p1_stiffness(ec, el)
+    A = assemble_ell(pat, Ke)
+    A.resolve_band()
+    check(isinstance(A._band, tuple), "matfree: the ELL operator has no "
+                                      "banded plan")
+    t0 = time.perf_counter()
+    ops = {"poisson_operator": poisson_operator(ec, mesh.conn, nn, el),
+           "poisson_operator(on_the_fly=True)": poisson_operator(
+               ec, mesh.conn, nn, el, on_the_fly=True),
+           "element_operator": element_operator(mesh.conn, Ke, nn)}
+    torch.cuda.synchronize()
+    print(f"# coo_matfree matrix-free setup (host node-sum plans, "
+          f"3 operators): {time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn(nn, generator=gen, device=dev)
+    y_ell = A.matvec(x)
+    ell_ms = cuda_ms(lambda: A.matvec(x), reps=REPS)
+    bc = torch.as_tensor(mesh.node_flags != 0, device=dev)
+    b = assemble_vector(mesh.conn, element_load(
+        ec, el, triangle_rule(5), model_problem_2d()[0]), nn)
+    A_bc, b_bc = apply_dirichlet_ell(A, b, bc)
+    x_ell = cg_fixed(A_bc.matvec, b_bc, 10)[0]
+    for name, op in ops.items():
+        y = op(x)
+        d = ((y - y_ell).abs().max() / y_ell.abs().max()).item()
+        rep = torch.equal(op(x), y)
+        ms = cuda_ms(lambda: op(x), reps=REPS)
+
+        def op_bc(v, op=op):
+            return torch.where(bc, v, op(torch.where(bc, 0.0, v)))
+
+        x_mf = cg_fixed(op_bc, b_bc, 10)[0]
+        dx = ((x_mf - x_ell).abs().max() / x_ell.abs().max()).item()
+        print(f"# coo_matfree {name}: max |y - y_B9| / max |y_B9| {d:.3e} "
+              f"(gate <= 1e-5), a second product bit-identical: {rep}; "
+              f"10 fixed CG iterations against the ELL ones: max rel "
+              f"difference {dx:.3e} (gate <= 1e-4); product {ms:.4f} ms "
+              f"(B9 {ell_ms:.4f} ms; CUDA events, stream queued ahead)")
+        check(d <= 1e-5 and rep, f"coo_matfree {name}: {d:.3e}, {rep}")
+        check(dx <= 1e-4, f"coo_matfree {name}: CG differs {dx:.3e}")
+    del ops, A, A_bc, Ke, ec
+    torch.cuda.empty_cache()
+    # the coloring takes 6 n - 4 rounds on the generator's element order,
+    # each over the elements left: O(n^3) host work (minutes at n = 1000);
+    # it runs on the same generator's meshes at n = 125 and 250, whose
+    # walls show the growth
+    for n in COLOR_SIZES:
+        cmesh = perturbed_rectangle_mesh(-3, 3, -3, 3, n, n, jitter=0.25,
+                                         seed=0)
+        t0 = time.perf_counter()
+        colors = greedy_element_coloring(cmesh.conn, cmesh.num_nodes)
+        wall = time.perf_counter() - t0
+        ok = True
+        for c in range(int(colors.max()) + 1):
+            nodes = cmesh.conn[colors == c].ravel()
+            ok &= np.unique(nodes).size == nodes.size
+        print(f"# coo_matfree greedy_element_coloring n={n}: "
+              f"{cmesh.num_elements} elements, {int(colors.max()) + 1} "
+              f"colors, no node shared within a color: {ok}, host wall "
+              f"{wall:.3f} s")
+        check(ok and colors.min() == 0 and (colors >= 0).all(),
+              f"coloring n={n}: a color shares a node")
 
 
 # -- generic structured assembly (B13), the reduction (B14), SAXPY (B15) ----

@@ -149,8 +149,15 @@ def test_quadrature_elements_and_space_equal_jax():
         a, b = rule_for_cell(cell, deg), jax_quad.rule_for_cell(cell, deg)
         np.testing.assert_array_equal(a.points, b.points)
         np.testing.assert_array_equal(a.weights, b.weights)
-    with pytest.raises(NotImplementedError):
-        triangle_rule(6)
+    # degree 6 raises in both packages; the tetrahedron's Duffy rule
+    # (degree >= 4) is the JAX package's
+    for rule in (triangle_rule, jax_quad.triangle_rule):
+        with pytest.raises(NotImplementedError):
+            rule(6)
+    a, b = rule_for_cell("tetrahedron", 4), jax_quad.rule_for_cell(
+        "tetrahedron", 4)
+    np.testing.assert_array_equal(a.points, b.points)
+    np.testing.assert_array_equal(a.weights, b.weights)
     for cell in ("triangle", "tetrahedron"):
         el, ref = element_for_cell(cell), jax_elements.element_for_cell(cell)
         pts = jax_quad.rule_for_cell(cell, 3).points
@@ -162,8 +169,11 @@ def test_quadrature_elements_and_space_equal_jax():
             ref.cell_type, ref.dim, ref.num_nodes)
     for cell in ("triangle", "tetrahedron", "quad", "hexahedron"):
         assert is_affine_cell(cell) == jax_elements.is_affine_cell(cell)
-    with pytest.raises(NotImplementedError):
-        element_for_cell("triangle", 2)
+    # the P2 triangle (ported) tabulates as the JAX package's
+    pts = jax_quad.rule_for_cell("triangle", 3).points
+    np.testing.assert_array_equal(
+        element_for_cell("triangle", 2).shape_grads(pts),
+        jax_elements.element_for_cell("triangle", 2).shape_grads(pts))
     ref_mesh, mesh = _pair("perturbed")
     sp, ref = FunctionSpace(mesh), JaxSpace(ref_mesh)
     np.testing.assert_array_equal(sp.dof_conn, ref.dof_conn)
@@ -172,14 +182,17 @@ def test_quadrature_elements_and_space_equal_jax():
     assert sp.num_dofs == ref.num_dofs and sp.local_dofs == ref.local_dofs
     np.testing.assert_array_equal(sp.default_quadrature().points,
                                   ref.default_quadrature().points)
-    # the vector space's node-major DOF arrays (the P2 space still raises)
+    # the vector space's node-major DOF arrays, and the P2 space's
     vs, vref = (FunctionSpace(mesh, num_components=2),
                 JaxSpace(ref_mesh, num_components=2))
     np.testing.assert_array_equal(vs.dof_conn, vref.dof_conn)
     np.testing.assert_array_equal(vs.dof_flags, vref.dof_flags)
     assert vs.num_dofs == vref.num_dofs and vs.local_dofs == vref.local_dofs
-    with pytest.raises(NotImplementedError):
-        FunctionSpace(mesh, degree=2)
+    p2, p2ref = FunctionSpace(mesh, degree=2), JaxSpace(ref_mesh, degree=2)
+    np.testing.assert_array_equal(p2.dof_conn, p2ref.dof_conn)
+    np.testing.assert_array_equal(p2.dof_flags, p2ref.dof_flags)
+    np.testing.assert_array_equal(p2.scalar_dof_coords,
+                                  p2ref.scalar_dof_coords)
 
 
 def _local(name):

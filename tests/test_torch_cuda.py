@@ -2,7 +2,9 @@
 tile shape), B3-B5 (the staged B5 over every level, tile shape and type
 pair), B5b, B7, B8, the ELL kernels B9-B11, the BCSR kernel
 B12, the fused assembly B13, the block sum B14 and SAXPY B15 against their
-plain PyTorch versions on the card.
+plain PyTorch versions on the card; the weak-form frontend's scatters
+(boundary slots, COO, matrix-free products) bit for bit across runs, and
+its entry points on B9.
 
 Every test here needs an NVIDIA GPU with nvcc (sm_90a) and skips without
 one.  This file imports neither JAX nor the JAX package, so it runs on a
@@ -1913,3 +1915,171 @@ def test_bcsr_band_run_time_forms_bit_equal(dev, monkeypatch, dtype, b, k,
     y = ell_cuda.bcsr_matvec_cuda(plan, d_t, rel, x)
     torch.cuda.synchronize()
     assert torch.equal(y, ell_cuda.bcsr_band_matvec_plain(plan, d_t, rel, x))
+
+
+def _robin_p2_form(V, L):
+    """A Robin + Neumann P2 Poisson form (boundary slots in the matrix)."""
+    def build(wf):
+        wf.build(lambda u, v: L.dot(L.grad(u), L.grad(v)),
+                 lambda v: L.Constant(1.0) * v)
+        wf.build_boundary(lhs=lambda u, v: 2.5 * u * v,
+                          rhs=lambda v: L.Coefficient(
+                              lambda p: 1.0 + p[..., 0] * p[..., 1]) * v)
+        return wf
+    return build
+
+
+@pytest.mark.parametrize("fmt", ["ell", "dense", "stencil"])
+def test_boundary_slot_scatter_on_the_card(dev, fmt):
+    """The boundary terms' slot scatter (sorted accumulation) on the card:
+    two assemblies bit for bit equal, and equal to the CPU's within fp64
+    rounding (P2 tets for ELL / dense, P1 triangles for the stencil)."""
+    from tpufem_torch.fem.space import FunctionSpace
+    from tpufem_torch.forms import language as L
+    from tpufem_torch.forms.weakform import WeakForm
+    from tpufem_torch.mesh.box import box_mesh
+    from tpufem_torch.mesh.rectangle import rectangle_mesh
+
+    if fmt == "stencil":
+        V = FunctionSpace(rectangle_mesh(-3, 3, -3, 3, 24, 20))
+    else:
+        V = FunctionSpace(box_mesh(-1, 1, -1, 1, -1, 1, 3, 4, 3), degree=2)
+    build = _robin_p2_form(V, L)
+    out = [build(WeakForm(V, device=d)).assemble(format=fmt)
+           for d in (dev, dev, "cpu")]
+
+    def data(A):
+        return A if fmt == "dense" else A.data
+
+    assert torch.equal(data(out[0][0]), data(out[1][0]))
+    assert torch.equal(out[0][1], out[1][1])
+    ref = data(out[2][0])
+    assert (data(out[0][0]).cpu() - ref).abs().max() <= \
+        1e-12 * ref.abs().max()
+    assert (out[0][1].cpu() - out[2][1]).abs().max() <= \
+        1e-12 * out[2][1].abs().max()
+
+
+def test_coo_and_matfree_on_the_card(dev):
+    """assemble_coo and the three matrix-free products on the card: each
+    twice bit for bit equal, equal to the CPU's within fp64 rounding, and
+    the products equal to B9's (the ELL assembly on the card)."""
+    from tpufem_torch.assemble.coo import assemble_coo
+    from tpufem_torch.assemble.ell import assemble_ell
+    from tpufem_torch.assemble.local import p1_stiffness
+    from tpufem_torch.fem.elements import element_for_cell
+    from tpufem_torch.mesh.adjacency import ell_pattern, pattern_unique_keys
+    from tpufem_torch.mesh.box import box_mesh
+    from tpufem_torch.mesh.rectangle import perturbed_rectangle_mesh
+    from tpufem_torch.sparse import ell_cuda
+    from tpufem_torch.sparse.matfree import element_operator, poisson_operator
+
+    for mesh in (perturbed_rectangle_mesh(-3, 3, -3, 3, 40, 30, jitter=0.2,
+                                          seed=1),
+                 box_mesh(-1, 1, -1, 1, -1, 1, 6, 5, 4)):
+        el = element_for_cell(mesh.cell_type)
+        nn = mesh.num_nodes
+        pat = ell_pattern(mesh.conn, nn, pad_to=8, with_sort_plan=False)
+        keys = pattern_unique_keys(pat)
+        x = torch.randn(nn, dtype=torch.float64,
+                        generator=torch.Generator().manual_seed(3))
+        results = {}
+        for d in (dev, "cpu"):
+            ec = torch.as_tensor(mesh.element_coords(), device=d)
+            Ke = p1_stiffness(ec, el)
+            xd = x.to(d)
+            ops = [element_operator(mesh.conn, Ke, nn),
+                   poisson_operator(ec, mesh.conn, nn, el),
+                   poisson_operator(ec, mesh.conn, nn, el, on_the_fly=True)]
+            vals = [assemble_coo(mesh.conn, Ke, keys, nn) for _ in range(2)]
+            ys = [[op(xd) for _ in range(2)] for op in ops]
+            results[str(d)] = (vals, ys)
+            if d is dev:
+                before = ell_cuda.ell_gather_matvec_cuda.launches + \
+                    ell_cuda.ell_matvec_cuda.launches
+                y_ell = assemble_ell(pat, Ke).matvec(xd)
+                assert ell_cuda.ell_gather_matvec_cuda.launches + \
+                    ell_cuda.ell_matvec_cuda.launches > before
+        (vals, ys), (cvals, cys) = results[str(dev)], results["cpu"]
+        assert torch.equal(vals[0], vals[1])
+        assert (vals[0].cpu() - cvals[0]).abs().max() <= \
+            1e-12 * cvals[0].abs().max()
+        for (y1, y2), (c1, _) in zip(ys, cys):
+            assert torch.equal(y1, y2)
+            assert (y1.cpu() - c1).abs().max() <= 1e-12 * c1.abs().max()
+            assert (y1 - y_ell).abs().max() <= 1e-12 * y_ell.abs().max()
+
+
+@pytest.mark.parametrize("cell", ["quad", "hex", "p2"])
+def test_weakform_entry_points_launch_b9_not_plain(dev, monkeypatch, cell):
+    """solve_poisson_ell on a Q1 quad / hex mesh, and a P2 Neumann system
+    solved with AMG-PCG, with CUDA tensors: B9 launches and the plain
+    versions never run (they raise here); counts and solutions equal the
+    CPU's."""
+    from tpufem_torch.sparse import ell_cuda
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card path")
+
+    def solve(device):
+        if cell == "quad":
+            from tpufem_torch.mesh.rectangle import perturbed_quad_mesh
+            from tpufem_torch.solve.poisson import solve_poisson_ell
+
+            mesh = perturbed_quad_mesh(-3, 3, -3, 3, 24, 24, jitter=0.25,
+                                       seed=5)
+            return solve_poisson_ell(mesh, precond="amg", tol=1e-10,
+                                     device=device)
+        if cell == "hex":
+            from tpufem_torch.mesh.box import box_hex_mesh
+            from tpufem_torch.solve.poisson import solve_poisson_ell
+
+            mesh = box_hex_mesh(-3, 3, -3, 3, -3, 3, 8, 8, 8)
+            return solve_poisson_ell(mesh, precond="amg", tol=1e-10,
+                                     device=device)
+        import numpy as np
+
+        from tpufem_torch.fem.space import FunctionSpace
+        from tpufem_torch.forms import language as L
+        from tpufem_torch.forms.weakform import WeakForm
+        from tpufem_torch.mesh.adjacency import reverse_cuthill_mckee
+        from tpufem_torch.mesh.rectangle import rectangle_mesh
+        from tpufem_torch.solve.amg import build_amg
+        from tpufem_torch.solve.bc import apply_dirichlet_ell
+        from tpufem_torch.solve.cg import cg
+        from tpufem_torch.sparse.ell import ELLMatrix, reorder_ell
+
+        V = FunctionSpace(rectangle_mesh(-3, 3, -3, 3, 20, 20), degree=2)
+        wf = WeakForm(V, device=device).build(
+            lambda u, v: L.dot(L.grad(u), L.grad(v)),
+            lambda v: L.Constant(1.0) * v)
+        wf.build_boundary(rhs=lambda v: L.Constant(-2.0) * v,
+                          where=lambda c: np.abs(c[:, 1]) > 3 - 1e-9)
+        A, b = wf.assemble(format="ell")
+        A, b = apply_dirichlet_ell(A, b, torch.as_tensor(
+            np.abs(V.scalar_dof_coords[:, 0]) > 3 - 1e-9, device=device))
+        perm = reverse_cuthill_mckee(A.cols.cpu().numpy())
+        data, cols = reorder_ell(A.data, A.cols, perm)
+        Ap = ELLMatrix(torch.as_tensor(data, device=device),
+                       torch.as_tensor(cols, device=device))
+        hier = build_amg(Ap, aggregation="greedy", strength=0.08,
+                         coarse_n=300)
+        res = cg(Ap.matvec, b[torch.as_tensor(perm, device=device)],
+                 tol=1e-10, maxiter=200, M=hier.apply)
+
+        class Sol:
+            pass
+
+        sol = Sol()
+        sol.cg, sol.u = res, res.x
+        return sol
+
+    cpu = solve("cpu")
+    monkeypatch.setattr(ell_cuda, "ell_band_matvec_plain", refuse)
+    monkeypatch.setattr(ell_cuda, "ell_gather_matvec_plain", refuse)
+    before = ell_cuda.ell_matvec_cuda.launches
+    card = solve(dev)
+    torch.cuda.synchronize()
+    assert ell_cuda.ell_matvec_cuda.launches > before
+    assert card.cg.converged and card.cg.iterations == cpu.cg.iterations
+    assert (card.u.cpu() - cpu.u).abs().max() <= 1e-10 * cpu.u.abs().max()

@@ -63,6 +63,8 @@ _PORT_MODULES = [
     "tpufem_torch.solve.amg", "tpufem_torch.solve.amg_block",
     "tpufem_torch.solve.elasticity_structured",
     "tpufem_torch.native",
+    "tpufem_torch.fem.facets", "tpufem_torch.assemble.coo",
+    "tpufem_torch.sparse.matfree", "tpufem_torch.forms.symbolic",
     "chip_smoke",
 ]
 
@@ -75,24 +77,27 @@ _EXPORTS = [
     "rule_for_cell", "cg", "CGResult", "ELLMatrix", "StencilMatrix",
     "WeakForm", "solve_poisson_fast", "build_poisson_multigrid",
     "solve_elasticity", "solve_poisson_ell", "build_amg",
-    "build_block_amg", "build_dist_amg"]
+    "build_block_amg", "build_dist_amg", "rectangle_quad_mesh",
+    "box_hex_mesh", "greedy_element_coloring"]
 # the JAX package's other root names, with the ROADMAP item that ports each
 _NOT_PORTED = {
-    "rectangle_quad_mesh": "A3", "box_hex_mesh": "A3",
-    "greedy_element_coloring": "A3",
     "newton_krylov": "A4", "smallest_eigenpairs": "A4",
     "leapfrog_wave": "A4", "solve_stokes": "A4", "minres": "A4"}
 
 
 def test_port_imports_no_jax():
     """Every port module and every exported name, in a fresh interpreter:
-    no JAX, and importing the package builds no kernel."""
+    no JAX, and importing the package builds no kernel; neither the
+    package (its exports included) nor chip_smoke imports SymPy (only
+    forms.symbolic does)."""
     code = (
         "import importlib, sys\n"
         "import tpufem_torch\n"
         "from tpufem_torch.ops import _build\n"
         "assert not _build._LOADED, _build._LOADED\n"
         f"for name in {_EXPORTS!r}: getattr(tpufem_torch, name)\n"
+        "import chip_smoke\n"
+        "assert 'sympy' not in sys.modules\n"
         f"for m in {_PORT_MODULES!r}: importlib.import_module(m)\n"
         "assert not _build._LOADED, _build._LOADED\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -233,6 +238,46 @@ def _members():
                                    "stencil_pattern_structured")),
         (stencil, jstencil, ("stencil_values", "assemble_stencil")))
         for name in names]
+    pairs += _a3_members()
+    return pairs
+
+
+# the weak-form frontend's modules: every name of the JAX module's __all__
+_A3_MODULES = ("fem.elements", "fem.facets", "fem.quadrature",
+               "assemble.coo", "sparse.matfree", "forms.symbolic")
+
+
+def _a3_members():
+    import importlib
+
+    from tpufem.forms import weakform as jwf
+    from tpufem.mesh import adjacency as jadj
+    from tpufem.mesh import box as jbox
+    from tpufem.mesh import rectangle as jrect
+
+    from tpufem_torch.forms import weakform as twf
+    from tpufem_torch.mesh import adjacency, box, rectangle
+
+    pairs = []
+    for name in _A3_MODULES:
+        port = importlib.import_module(f"tpufem_torch.{name}")
+        ref = importlib.import_module(f"tpufem.{name}")
+        assert set(ref.__all__) <= set(port.__all__), name
+        for n in ref.__all__:
+            if callable(getattr(ref, n)):
+                pairs.append((getattr(port, n), getattr(ref, n)))
+            else:                                  # the fp32 tables
+                np.testing.assert_array_equal(getattr(port, n),
+                                              getattr(ref, n))
+    pairs += [(getattr(mod, n), getattr(ref, n)) for mod, ref, names in (
+        (rectangle, jrect, ("rectangle_quad_mesh", "perturbed_quad_mesh")),
+        (box, jbox, ("box_hex_mesh",)),
+        (adjacency, jadj, ("greedy_element_coloring", "pattern_unique_keys",
+                           "slots_for_conn")),
+        (twf.WeakForm, jwf.WeakForm, ("build_boundary",
+                                      "boundary_element_matrices",
+                                      "boundary_element_vectors")))
+        for n in names]
     return pairs
 
 
@@ -250,6 +295,18 @@ def test_ported_members_keep_the_reference_signatures():
     from tpufem_torch.ops.reduction import pallas_block_reduce
 
     assert shape(pallas_block_reduce) == shape(jax_reduce)[:2]
+    # integrate_boundary takes torch's float64 for jnp's and adds the
+    # port's device= (the card by default)
+    import jax.numpy as jnp
+
+    from tpufem.forms.weakform import integrate_boundary as jax_ib
+
+    from tpufem_torch.forms.weakform import integrate_boundary
+
+    ours = [(n, k, jnp.float64 if d is torch.float64 else d)
+            for n, k, d in shape(integrate_boundary)]
+    assert ours[:-1] == shape(jax_ib)
+    assert ours[-1] == ("device", inspect.Parameter.KEYWORD_ONLY, "cuda")
 
 
 def test_ported_members_match_the_reference():

@@ -116,10 +116,19 @@ def test_unported_options_raise():
                dict(assembly_method="coo")):
         with pytest.raises(ValueError):
             solve_poisson_ell(mesh, device="cpu", **kw)
-    quad = Mesh(np.zeros((4, 2)), np.array([[0, 1, 2, 3]]), np.zeros(4),
-                cell_type="quad")
-    with pytest.raises(NotImplementedError, match="A3"):
-        solve_poisson_ell(quad, device="cpu")
+    # quad meshes (ported) solve as the JAX package's: the same count and
+    # solution on a 4 x 4 Q1 mesh
+    from tpufem.mesh.rectangle import rectangle_quad_mesh as jax_quad_mesh
+
+    from tpufem_torch.mesh.rectangle import rectangle_quad_mesh
+
+    sol = solve_poisson_ell(rectangle_quad_mesh(-3, 3, -3, 3, 4, 4),
+                            tol=1e-10, device="cpu")
+    ref = jax_poisson.solve_poisson_ell(jax_quad_mesh(-3, 3, -3, 3, 4, 4),
+                                        tol=1e-10)
+    assert sol.cg.converged and sol.cg.iterations == int(ref.cg.iterations)
+    u_ref = np.asarray(ref.u)
+    assert np.abs(sol.u.numpy() - u_ref).max() <= 1e-12 * np.abs(u_ref).max()
 
 
 def _jax_system(n=20):

@@ -201,10 +201,15 @@ def test_chunk_rule_and_unported_parts():
     # 6 x 6 local DOFs, 7 points, 2 x 2 values, 4 bytes: 4032 per element
     assert twf.chunk_elements(tV, wf.quadrature, torch.float32) == \
         twf._CHUNK_BYTES // 4032
-    with pytest.raises(NotImplementedError, match="A3"):
-        wf.build_boundary(rhs=lambda v: v[0])
-    with pytest.raises(NotImplementedError, match="A3"):
-        twf.integrate_boundary(tV, tl.Constant(1.0))
+    # the boundary parts (ported): a traction load and a surface measure
+    # as the JAX package's
+    jV, _ = _pair("tri", 2)
+    bf = twf.WeakForm(tV, device="cpu").build_boundary(rhs=lambda v: v[0])
+    jf = jwf.WeakForm(jV).build_boundary(rhs=lambda v: v[0])
+    _close(bf.boundary_element_vectors().numpy(),
+           jf.boundary_element_vectors())
+    _close(twf.integrate_boundary(tV, tl.Constant(1.0), device="cpu"),
+           jwf.integrate_boundary(jV, jl.Constant(1.0)))
     wf.build(lambda u, v: tl.inner(tl.grad(u), tl.grad(v)))
     with pytest.raises(ValueError, match="format"):
         wf.assemble(format="coo")

@@ -14,8 +14,12 @@ Kuhn-tetrahedron stiffness kernel ``ops.assemble_cuda``), the unstructured
 ELL path (mesh, RCM, ELL pattern and assembly, Dirichlet elimination,
 Jacobi / Chebyshev PCG on the banded ELL kernel;
 ``solve.poisson.solve_poisson_ell``), the weak-form frontend
-(``forms.language``, ``forms.weakform``: volume forms on affine cells,
-dense, ELL and stencil assembly), unstructured linear elasticity (vector P1
+(``forms.language``, ``forms.weakform``: volume and boundary forms on P1 and
+P2 simplices and Q1 quads and hexes, dense, ELL and stencil assembly;
+``fem.facets``, COO assembly ``assemble.coo``, the matrix-free operators
+``sparse.matfree``, element coloring, and the SymPy frontend
+``forms.symbolic``, which needs SymPy and is not imported here),
+unstructured linear elasticity (vector P1
 spaces, BCSR assembly, block-Jacobi PCG on the banded block kernel;
 ``solve.elasticity.solve_elasticity``), smoothed-aggregation AMG (scalar
 ``solve.amg.build_amg``, block ``solve.amg_block.build_block_amg``, the
@@ -32,10 +36,12 @@ package's root does.
 """
 from tpufem_torch.mesh.core import Mesh
 from tpufem_torch.mesh.rectangle import (rectangle_mesh, unit_square_mesh,
-                                         RectangleMesh, UnitSquareMesh)
+                                         RectangleMesh, UnitSquareMesh,
+                                         rectangle_quad_mesh)
 from tpufem_torch.mesh.box import (box_mesh, unit_cube_mesh, BoxMesh,
-                                   UnitCubeMesh)
-from tpufem_torch.mesh.adjacency import ell_pattern, node_adjacency
+                                   UnitCubeMesh, box_hex_mesh)
+from tpufem_torch.mesh.adjacency import (ell_pattern, node_adjacency,
+                                         greedy_element_coloring)
 from tpufem_torch.fem.space import FunctionSpace, VectorFunctionSpace
 from tpufem_torch.fem.quadrature import (triangle_rule, tetrahedron_rule,
                                          rule_for_cell)
@@ -63,8 +69,6 @@ _LAZY = {
 # names the JAX package exports that the port does not have yet, with the
 # ROADMAP item that brings each
 _NOT_PORTED = {
-    "rectangle_quad_mesh": "A3", "box_hex_mesh": "A3",
-    "greedy_element_coloring": "A3",
     "newton_krylov": "A4", "smallest_eigenpairs": "A4",
     "leapfrog_wave": "A4", "solve_stokes": "A4", "minres": "A4",
 }

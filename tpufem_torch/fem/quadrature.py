@@ -1,9 +1,10 @@
-"""Quadrature rules on the reference triangle and tetrahedron (host numpy),
-as in tpufem.fem.quadrature.
+"""Quadrature rules on the reference cells (host numpy), as in
+tpufem.fem.quadrature.
 
-Reference coords (r, s[, t]), last barycentric 1 - r - s[ - t]; weights
-sum to the reference cell's measure (1/2 for the triangle, 1/6 for the
-tetrahedron), so the quadrature of ``f * |det J|`` needs no extra factor.
+Simplex coords (r, s[, t]), last barycentric 1 - r - s[ - t]; weights sum
+to the reference cell's measure (1 for the segment [0, 1], 1/2 for the
+triangle, 1/6 for the tetrahedron, 1 for the unit square and cube), so the
+quadrature of ``f * |det J|`` needs no extra factor.
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ import math
 
 import numpy as np
 
-__all__ = ["QuadratureRule", "triangle_rule", "tetrahedron_rule",
+__all__ = ["QuadratureRule", "segment_rule", "triangle_rule",
+           "tetrahedron_rule", "quad_rule", "hexahedron_rule",
            "rule_for_cell",
            "TRI7_FP32_W", "TRI7_FP32_R", "TRI7_FP32_S", "TRI7_FP32_T"]
 
@@ -70,6 +72,16 @@ def _tri7_exact() -> QuadratureRule:
     return QuadratureRule(pts, w, 5, "triangle")
 
 
+def segment_rule(degree: int) -> QuadratureRule:
+    """Gauss-Legendre on [0, 1] (weights sum to 1): the facet rule of 2D
+    meshes (boundary / Neumann integrals)."""
+    n1 = max(1, (degree + 2) // 2)           # exact to 2*n1 - 1 >= degree
+    x, w = np.polynomial.legendre.leggauss(n1)
+    pts = (0.5 * (x + 1.0))[:, None]
+    return QuadratureRule(points=pts, weights=0.5 * w, degree=2 * n1 - 1,
+                          cell_type="segment")
+
+
 def triangle_rule(degree: int) -> QuadratureRule:
     """Symmetric Gauss rules on the reference triangle of degree 1-3, and
     the 7-point rule for degrees 4-5."""
@@ -90,12 +102,11 @@ def triangle_rule(degree: int) -> QuadratureRule:
         return QuadratureRule(pts, w, 3, "triangle")
     if degree <= 5:
         return _tri7_exact()
-    raise NotImplementedError(f"triangle rule of degree {degree} "
-                              "(the port has degrees 1-5)")
+    raise NotImplementedError(f"triangle rule of degree {degree}")
 
 
 def tetrahedron_rule(degree: int) -> QuadratureRule:
-    """Rules on the reference tetrahedron of degree 1-3."""
+    """Rules on the reference tetrahedron (weights sum to 1/6)."""
     if degree <= 1:
         pts = np.array([[0.25, 0.25, 0.25]], dtype=np.float64)
         w = np.array([1 / 6], dtype=np.float64)
@@ -116,15 +127,61 @@ def tetrahedron_rule(degree: int) -> QuadratureRule:
         w = np.array([-2 / 15, 3 / 40, 3 / 40, 3 / 40, 3 / 40],
                      dtype=np.float64)
         return QuadratureRule(pts, w, 3, "tetrahedron")
-    raise NotImplementedError(f"tetrahedron rule of degree {degree} "
-                              "(the port has degrees 1-3)")
+    # degree >= 4: Duffy-collapsed tensor Gauss-Legendre, exact by
+    # construction for any degree.  The map r = X, s = Y(1-X),
+    # t = Z(1-X)(1-Y) sends [0,1]^3 to the reference tet with Jacobian
+    # (1-X)^2 (1-Y); GL with n points is exact to 2n-1 >= degree+2 (the
+    # Jacobian's extra polynomial degree).  n^3 points: 64 at degree 4.
+    n1 = (degree + 4) // 2
+    x, wx = np.polynomial.legendre.leggauss(n1)
+    x = 0.5 * (x + 1.0)
+    wx = 0.5 * wx
+    X, Y, Z = np.meshgrid(x, x, x, indexing="ij")
+    W = (wx[:, None, None] * wx[None, :, None] * wx[None, None, :])
+    r = X
+    s = Y * (1.0 - X)
+    t = Z * (1.0 - X) * (1.0 - Y)
+    w = (W * (1.0 - X) ** 2 * (1.0 - Y)).reshape(-1)
+    pts = np.stack([r.reshape(-1), s.reshape(-1), t.reshape(-1)], axis=1)
+    return QuadratureRule(pts, w, degree, "tetrahedron")
+
+
+def _tensor_rule(degree: int, dim: int, cell_type: str) -> QuadratureRule:
+    """Tensor-product Gauss-Legendre on [0, 1]^dim (weights sum to 1),
+    exact for polynomials of degree <= 2*n1 - 1 per axis: the exactness
+    that tensor-product (Q1) bases need."""
+    n1 = max(1, (degree + 2) // 2)
+    x, w = np.polynomial.legendre.leggauss(n1)
+    x = 0.5 * (x + 1.0)
+    w = 0.5 * w
+    grids = np.meshgrid(*([x] * dim), indexing="ij")
+    pts = np.stack([g.reshape(-1) for g in grids], axis=1)
+    wgrids = np.meshgrid(*([w] * dim), indexing="ij")
+    weights = np.ones(pts.shape[0], dtype=np.float64)
+    for wg in wgrids:
+        weights = weights * wg.reshape(-1)
+    return QuadratureRule(pts, weights, 2 * n1 - 1, cell_type)
+
+
+def quad_rule(degree: int) -> QuadratureRule:
+    """Gauss rule on the reference square [0, 1]^2 (weights sum to 1)."""
+    return _tensor_rule(degree, 2, "quad")
+
+
+def hexahedron_rule(degree: int) -> QuadratureRule:
+    """Gauss rule on the reference cube [0, 1]^3 (weights sum to 1)."""
+    return _tensor_rule(degree, 3, "hexahedron")
 
 
 def rule_for_cell(cell_type: str, degree: int) -> QuadratureRule:
-    """The rule of ``degree`` on a simplex cell."""
+    if cell_type == "segment":
+        return segment_rule(degree)
     if cell_type == "triangle":
         return triangle_rule(degree)
     if cell_type == "tetrahedron":
         return tetrahedron_rule(degree)
-    raise NotImplementedError(f"quadrature on {cell_type!r} cells (the port "
-                              "has triangles and tetrahedra)")
+    if cell_type == "quad":
+        return quad_rule(degree)
+    if cell_type == "hexahedron":
+        return hexahedron_rule(degree)
+    raise ValueError(f"unknown cell type {cell_type!r}")

@@ -1,11 +1,12 @@
 """WeakForm: user lambdas -> element matrices and vectors -> assembled
-systems, as in tpufem.forms.weakform (its volume part).
+systems, as in tpufem.forms.weakform.
 
     V  = FunctionSpace(mesh, degree=1)
     X  = SpatialCoordinate(V)
     wf = WeakForm(V)
     wf.build(lambda u, v: dot(grad(u), grad(v)),
              lambda v: (36 - 2 * (X[0] ** 2 + X[1] ** 2)) * v)
+    wf.build_boundary(rhs=lambda v: g * v)          # Neumann data (ds)
     A, b = wf.assemble(format="ell")
 
 ``build`` stores the expression trees; evaluation binds every (trial,
@@ -20,16 +21,19 @@ only on its own coordinates, and every sum is an explicit left-to-right
 ``fsum`` (torch's reductions group rows by shape), so the chunking changes
 no bit.
 
-Ported: affine cells (triangles, tetrahedra), volume forms, the "dense",
-"ell" and "stencil" formats and ``integrate``.  Boundary terms
-(``build_boundary``, ``integrate_boundary``: they need ``fem/facets.py``)
-and tensor-product cells wait for ROADMAP A3 and raise.
+Cells: affine simplices (one Jacobian per element) and the tensor-product
+quads and hexes (the multilinear map's Jacobian at every quadrature
+point).  Boundary (ds) terms run over the boundary facets of
+``fem.facets`` (triangles, tets, quads); their slots are added into the
+assembled matrix with sorted accumulating scatters, so the sums are the
+same from run to run on the card.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from tpufem_torch.assemble.dense import assemble_dense, assemble_vector
@@ -38,10 +42,14 @@ from tpufem_torch.assemble.structured import (assemble_stencil_structured,
                                               structured_plan)
 from tpufem_torch.assemble.local import _inv_and_det
 from tpufem_torch.fem.elements import element_for_cell, is_affine_cell
+from tpufem_torch.fem.facets import (BoundaryFacets, boundary_facets,
+                                     facet_dof_conn, facet_geometry)
 from tpufem_torch.fem.quadrature import QuadratureRule, rule_for_cell
 from tpufem_torch.fem.space import FunctionSpace
 from tpufem_torch.forms.language import (Expr, TestFunction, TrialFunction,
                                          fsum)
+from tpufem_torch.sparse.ell import ELLMatrix
+from tpufem_torch.sparse.stencil import StencilMatrix
 
 __all__ = ["WeakForm", "EvalContext", "Function", "integrate",
            "integrate_boundary"]
@@ -49,14 +57,13 @@ __all__ = ["WeakForm", "EvalContext", "Function", "integrate",
 # one broadcast intermediate [A, B, chunk, Q, d, d] stays under this size
 _CHUNK_BYTES = 1 << 29
 
-_NOT_PORTED_A3 = ("boundary (facet) terms need fem/facets.py, which the "
-                  "port does not have yet (ROADMAP A3)")
-
 
 def chunk_elements(space: FunctionSpace, rule: QuadratureRule,
                    dtype) -> int:
     """Elements per evaluation: the largest broadcast intermediate of a
-    bilinear form, [nd, nd, chunk, Q, d, d], within ``_CHUNK_BYTES``."""
+    bilinear form, [nd, nd, chunk, Q, d, d], within ``_CHUNK_BYTES``.  It
+    bounds the per-point geometry's of quads and hexes too,
+    [chunk, Q, n, d, d] with n the cell's nodes or the basis' (n <= nd)."""
     nd, d = space.local_dofs, space.mesh.dim
     per_element = (nd * nd * rule.num_points * d * d
                    * torch.empty((), dtype=dtype).element_size())
@@ -154,32 +161,57 @@ def _basis_tables(space: FunctionSpace, rule: QuadratureRule, dtype, device):
 
 
 def _geometry(ecoords, dN, space: FunctionSpace, rule, dtype):
-    """gphys [NE, Q, ns, d], |detJ| [NE, Q], xq [NE, Q, d] of affine cells.
+    """gphys [NE, Q, ns, d], |detJ| [NE, Q], xq [NE, Q, d].
 
-    The P1 vertex map of a simplex has a constant Jacobian per element:
-    one inverse per element, |detJ| broadcast over Q.  All contractions
-    are broadcast-multiply-reduce, as in the reference, each sum an
-    explicit left-to-right ``fsum``.
+    Two regimes, by cell type:
+
+    * affine simplices: the P1 vertex map has a constant Jacobian per
+      element, even for a higher-order basis (P2, whose gradients vary
+      with q only through dN): one inverse per element, |detJ| broadcast
+      over Q;
+    * tensor-product cells (quad/hex): the multilinear isoparametric
+      map's Jacobian varies across the cell, so J, its inverse and |detJ|
+      are evaluated at every quadrature point.
+
+    All contractions are broadcast-multiply-reduce, as in the reference,
+    each sum an explicit left-to-right ``fsum``.
     """
     cell = space.mesh.cell_type
-    if not is_affine_cell(cell):
-        raise NotImplementedError(
-            f"{cell} cells (a Jacobian that varies over the cell) wait for "
-            "the quad/hex elements (ROADMAP A3)")
     device = ecoords.device
     geo = element_for_cell(cell, 1)
     phi_geo = _table(geo.shape_values(rule.points), dtype, device)  # [Q, npe]
     nq = rule.points.shape[0]
-    dN_geo = _table(geo.shape_grads(rule.points)[0], dtype, device)  # [npe, m]
-    # J[e, d, m] = sum_n x[e, n, d] dN_geo[n, m]
-    J = fsum(ecoords[:, :, :, None] * dN_geo[None, :, None, :], 1)
-    invJ, det = _inv_and_det(J)
-    # gphys[e, q, n, d] = sum_m dN[q, n, m] invJ[e, m, d]
-    gphys = fsum(dN[None, :, :, :, None] * invJ[:, None, None, :, :], 3)
-    adet = det.abs()[:, None].expand(ecoords.shape[0], nq)
+    if is_affine_cell(cell):
+        dN_geo = _table(geo.shape_grads(rule.points)[0], dtype,
+                        device)                                  # [npe, m]
+        # J[e, d, m] = sum_n x[e, n, d] dN_geo[n, m]
+        J = fsum(ecoords[:, :, :, None] * dN_geo[None, :, None, :], 1)
+        invJ, det = _inv_and_det(J)
+        # gphys[e, q, n, d] = sum_m dN[q, n, m] invJ[e, m, d]
+        gphys = fsum(dN[None, :, :, :, None] * invJ[:, None, None, :, :], 3)
+        adet = det.abs()[:, None].expand(ecoords.shape[0], nq)
+    else:
+        dN_geo = _table(geo.shape_grads(rule.points), dtype,
+                        device)                                  # [Q, npe, m]
+        # J[e, q, d, m] = sum_n x[e, n, d] dN_geo[q, n, m]
+        J = fsum(ecoords[:, None, :, :, None]
+                 * dN_geo[None, :, :, None, :], 2)
+        invJ, det = _inv_and_det(J)                   # [NE, Q, d, d]
+        # gphys[e, q, n, d] = sum_m dN[q, n, m] invJ[e, q, m, d]
+        gphys = fsum(dN[None, :, :, :, None] * invJ[:, :, None, :, :], 3)
+        adet = det.abs()
     # xq[e, q, d] = sum_n phi_geo[q, n] x[e, n, d]
     xq = fsum(phi_geo[None, :, :, None] * ecoords[:, None, :, :], 2)
     return gphys, adet, xq
+
+
+def _expand_phi(phi, nc):
+    """Scalar values [Q, ns] -> vector values [Q, ns*nc, nc] (phi_n * e_c,
+    node-major, component-minor)."""
+    ns = phi.shape[1]
+    eye = torch.eye(nc, dtype=phi.dtype, device=phi.device)
+    return (phi[:, :, None, None] * eye[None, None]).reshape(
+        phi.shape[0], ns * nc, nc)
 
 
 def _expand_vector_basis(phi, gphys, nc):
@@ -190,8 +222,7 @@ def _expand_vector_basis(phi, gphys, nc):
     """
     ns = phi.shape[1]
     eye = torch.eye(nc, dtype=phi.dtype, device=phi.device)
-    vphi = (phi[:, :, None, None] * eye[None, None]).reshape(
-        phi.shape[0], ns * nc, nc)
+    vphi = _expand_phi(phi, nc)
     vg = gphys[:, :, :, None, None, :] * eye[None, None, None, :, :, None]
     vg = vg.reshape(gphys.shape[0], gphys.shape[1], ns * nc, nc,
                     gphys.shape[3])
@@ -224,6 +255,10 @@ class WeakForm:
             self.quadrature = rule_for_cell(cell, deg)
         self.lhs_expr: Optional[Expr] = None
         self.rhs_expr: Optional[Expr] = None
+        self.bnd_lhs_expr: Optional[Expr] = None
+        self.bnd_rhs_expr: Optional[Expr] = None
+        self.bnd_quadrature: Optional[QuadratureRule] = None
+        self.bnd_mask = None
 
     def build(self, lhs: Optional[Callable] = None,
               rhs: Optional[Callable] = None) -> "WeakForm":
@@ -235,14 +270,26 @@ class WeakForm:
             self.rhs_expr = rhs(v)
         return self
 
-    def build_boundary(self, lhs=None, rhs=None, *, where=None):
-        raise NotImplementedError(_NOT_PORTED_A3)
+    def build_boundary(self, lhs: Optional[Callable] = None,
+                       rhs: Optional[Callable] = None, *,
+                       where: Optional[Callable] = None) -> "WeakForm":
+        """Add boundary (ds) terms: ``lhs(u, v)`` Robin-type bilinear
+        terms, ``rhs(v)`` Neumann loads / tractions.
 
-    def boundary_element_matrices(self, setup=None):
-        raise NotImplementedError(_NOT_PORTED_A3)
-
-    def boundary_element_vectors(self, setup=None):
-        raise NotImplementedError(_NOT_PORTED_A3)
+        ``where``: an optional facet filter, a callable on the facet-center
+        coordinates (numpy [NF, d]) -> bool mask, restricting the integral
+        to part of the boundary (e.g. ``lambda x: x[:, 0] > 1 - 1e-9``).
+        Gradients of trial / test functions are not available on facets
+        (FacetNormal, values and spatial coefficients are).
+        """
+        u = TrialFunction(self.space)
+        v = TestFunction(self.space)
+        if lhs is not None:
+            self.bnd_lhs_expr = lhs(u, v)
+        if rhs is not None:
+            self.bnd_rhs_expr = rhs(v)
+        self.bnd_mask = where
+        return self
 
     # -- element kernels -----------------------------------------------------
 
@@ -317,6 +364,80 @@ class WeakForm:
             raise ValueError("build() a rhs first")
         return self._evaluate(self.rhs_expr, ecoords, False)
 
+    # -- boundary (facet) kernels -------------------------------------------
+
+    def _facet_setup(self):
+        """Host precompute: facets, scalar facet DOFs, geometry, basis."""
+        space = self.space
+        mesh = space.mesh
+        facets = boundary_facets(mesh)
+        if self.bnd_mask is not None:
+            centers = np.asarray(mesh.coords)[facets.conn].mean(axis=1)
+            keep = np.asarray(self.bnd_mask(centers), bool)
+            facets = BoundaryFacets(facets.conn[keep],
+                                    facets.opposite[keep], facets.cell_type)
+        rule = self.bnd_quadrature
+        if rule is None:
+            rule = rule_for_cell(facets.cell_type,
+                                 min(2 * space.degree + 1, 5))
+        fdofs = facet_dof_conn(space, facets)            # [NF, nfd]
+        xq, detS, normal = facet_geometry(mesh.coords, facets, rule)
+        fel = element_for_cell(facets.cell_type, space.degree)
+        phi_f = fel.shape_values(rule.points)            # [Q, nfd]
+        return facets, fdofs, rule, xq, detS, normal, phi_f
+
+    def _facet_context(self, setup, *, bind_trial, bind_test):
+        _, fdofs, rule, xq, detS, normal, phi_f = setup
+        dt, dev = self.dtype, self.device
+        phi = _table(phi_f, dt, dev)
+        nc = self.space.num_components
+        bphi = phi if nc == 1 else _expand_phi(phi, nc)
+        kw = {}
+        if bind_trial:
+            kw["trial_value"] = torch.movedim(bphi, 1, 0)[:, None, None]
+        if bind_test:
+            kw["test_value"] = torch.movedim(bphi, 1, 0)[None, :, None]
+        ctx = EvalContext(
+            xq=_table(xq, dt, dev), dtype=dt, phi=phi,
+            dof_conn=torch.as_tensor(fdofs, device=dev).long(),
+            normal=_table(normal, dt, dev)[None, None, :, None, :], **kw)
+        nfd = phi.shape[1] * nc
+        return ctx, _table(detS, dt, dev), _table(rule.weights, dt, dev), nfd
+
+    def boundary_element_matrices(self, setup=None):
+        """Kf [NF, nfd, nfd] of the boundary bilinear term (Robin etc.)."""
+        if self.bnd_lhs_expr is None:
+            raise ValueError("build_boundary() a lhs first")
+        setup = setup or self._facet_setup()
+        ctx, detS, w, nfd = self._facet_context(setup, bind_trial=True,
+                                                bind_test=True)
+        res = self.bnd_lhs_expr.evaluate(ctx)
+        nf, q = detS.shape[0], w.shape[0]
+        res = res.expand(nfd, nfd, nf, q)
+        Kf = fsum(res * w[None, None, None, :], -1)
+        return (Kf * detS[None, None, :]).permute(2, 1, 0).contiguous()
+
+    def boundary_element_vectors(self, setup=None):
+        """bf [NF, nfd] of the boundary load (Neumann flux / traction)."""
+        if self.bnd_rhs_expr is None:
+            raise ValueError("build_boundary() a rhs first")
+        setup = setup or self._facet_setup()
+        ctx, detS, w, nfd = self._facet_context(setup, bind_trial=False,
+                                                bind_test=True)
+        res = self.bnd_rhs_expr.evaluate(ctx)
+        nf, q = detS.shape[0], w.shape[0]
+        res = res.expand(1, nfd, nf, q)[0]
+        bf = fsum(res * w[None, None, :], -1)
+        return (bf * detS[None, :]).T.contiguous()
+
+    def _expanded_facet_dofs(self, fdofs):
+        nc = self.space.num_components
+        if nc == 1:
+            return fdofs
+        base = fdofs.astype(np.int64) * nc
+        return (base[:, :, None] + np.arange(nc, dtype=np.int64)
+                ).reshape(base.shape[0], -1).astype(np.int32)
+
     # -- assembly ------------------------------------------------------------
 
     def assemble(self, format: str = "ell", pattern=None, pad_to=None):
@@ -324,8 +445,9 @@ class WeakForm:
         "stencil"}; "stencil" (P1 scalar spaces on structured meshes) runs
         the shift-invariant assembly into the StencilMatrix of
         ``structured_plan(mesh)`` (node order, not embedded), the storage
-        that ``solve.bc.apply_dirichlet_stencil`` takes."""
-        from tpufem_torch.mesh.adjacency import ell_pattern
+        that ``solve.bc.apply_dirichlet_stencil`` takes.  Boundary terms
+        (``build_boundary``) are added into the same storage."""
+        from tpufem_torch.mesh.adjacency import ell_pattern, slots_for_conn
 
         if format not in ("dense", "ell", "stencil"):
             raise ValueError(f"unknown format {format!r}")
@@ -344,17 +466,61 @@ class WeakForm:
         if self.rhs_expr is not None:
             be = self.element_vectors(ecoords)
             b = assemble_vector(space.dof_conn, be, space.num_dofs)
+
+        setup = fdofs_exp = Kf = None
+        if self.bnd_rhs_expr is not None or self.bnd_lhs_expr is not None:
+            setup = self._facet_setup()
+            fdofs_exp = self._expanded_facet_dofs(setup[1])
+        if self.bnd_rhs_expr is not None:
+            bf = self.boundary_element_vectors(setup)
+            b_bnd = assemble_vector(fdofs_exp, bf, space.num_dofs)
+            b = b_bnd if b is None else b + b_bnd
+        if self.bnd_lhs_expr is not None:
+            Kf = self.boundary_element_matrices(setup)
+
         if format == "dense":
-            return assemble_dense(space.dof_conn, Ke, space.num_dofs), b
+            A = assemble_dense(space.dof_conn, Ke, space.num_dofs)
+            if Kf is not None:
+                A = A + assemble_dense(fdofs_exp, Kf, space.num_dofs)
+            return A, b
         if format == "stencil":
-            plan = structured_plan(space.mesh)
-            return assemble_stencil_structured(plan, Ke), b
+            A = assemble_stencil_structured(structured_plan(space.mesh), Ke)
+            if Kf is not None:
+                nn = space.num_dofs
+                offsets = np.asarray(A.offsets, np.int64)
+                rows = fdofs_exp[:, :, None].astype(np.int64)
+                cols = fdofs_exp[:, None, :].astype(np.int64)
+                ent = (cols - rows).reshape(-1)
+                k = np.searchsorted(offsets, ent)
+                if not np.array_equal(
+                        offsets[np.minimum(k, offsets.size - 1)], ent):
+                    raise RuntimeError("boundary entry outside the stencil")
+                row_flat = np.broadcast_to(
+                    rows, np.broadcast_shapes(rows.shape, cols.shape)
+                ).reshape(-1)
+                A = StencilMatrix(_add_slots(A.data, k * nn + row_flat, Kf),
+                                  A.offsets)
+            return A, b
         if pattern is None:
             if pad_to is None:
                 pad_to = 8 if space.mesh.dim == 2 else 16
             pattern = ell_pattern(space.dof_conn, space.num_dofs,
                                   pad_to=pad_to, with_sort_plan=False)
-        return assemble_ell(pattern, Ke), b
+        A = assemble_ell(pattern, Ke)
+        if Kf is not None:
+            slots = slots_for_conn(pattern, fdofs_exp).reshape(-1)
+            A = ELLMatrix(data=_add_slots(A.data, slots, Kf), cols=A.cols,
+                          row_lengths=A.row_lengths, diag_pos=A.diag_pos)
+        return A, b
+
+
+def _add_slots(data: torch.Tensor, slots, values: torch.Tensor):
+    """data with values added at the flat slots: a sorted accumulating
+    scatter (``index_put_(accumulate=True)``), the same sums from run to
+    run on every device."""
+    idx = torch.as_tensor(slots, device=data.device).reshape(-1).long()
+    return data.reshape(-1).clone().index_put_(
+        (idx,), values.reshape(-1), accumulate=True).reshape(data.shape)
 
 
 def integrate(space: FunctionSpace, expr: Expr, *, quadrature=None,
@@ -376,5 +542,18 @@ def integrate(space: FunctionSpace, expr: Expr, *, quadrature=None,
 
 def integrate_boundary(space: FunctionSpace, expr: Expr, *, quadrature=None,
                        where=None, dtype=torch.float64, device="cuda"):
-    """∫_Γ expr ds: waits for fem/facets.py (ROADMAP A3)."""
-    raise NotImplementedError(_NOT_PORTED_A3)
+    """∫_Γ expr ds over the (optionally filtered) boundary, e.g. the total
+    flux ``integrate_boundary(V, dot(grad_of_exact, n))``, a surface area
+    or a traction resultant; a 0-d tensor.  ``expr`` may use FacetNormal,
+    Functions (by value), SpatialCoordinate and Coefficients; not
+    grad(u / v)."""
+    wf = WeakForm(space, dtype=dtype, device=device)
+    wf.bnd_quadrature = quadrature
+    wf.bnd_mask = where
+    setup = wf._facet_setup()
+    ctx, detS, w, _ = wf._facet_context(setup, bind_trial=False,
+                                        bind_test=False)
+    res = expr.evaluate(ctx)
+    nf, q = detS.shape[0], w.shape[0]
+    res = res.expand(1, 1, nf, q)[0, 0]
+    return (fsum(res * w[None, :], 1) * detS).sum()

@@ -21,7 +21,8 @@ import dataclasses
 import numpy as np
 
 __all__ = ["node_adjacency", "ELLPattern", "ell_pattern",
-           "reverse_cuthill_mckee"]
+           "greedy_element_coloring", "pattern_unique_keys",
+           "slots_for_conn", "reverse_cuthill_mckee"]
 
 
 def reverse_cuthill_mckee(cols: np.ndarray, *,
@@ -260,3 +261,62 @@ def ell_pattern(conn: np.ndarray, num_nodes: int, pad_to: int | None = None,
     return ELLPattern(cols=cols, row_lengths=lengths, slots=slots, perm=perm,
                       sorted_slots=sorted_slots, diag_pos=diag_pos,
                       unique_keys=unique_keys, nnz=int(unique_keys.size))
+
+
+def greedy_element_coloring(conn: np.ndarray, num_nodes: int) -> np.ndarray:
+    """Color elements so that no two elements of one color share a node.
+
+    Within one color every local-matrix entry scatters to a distinct
+    matrix slot, so a plain (non-atomic) accumulate is race-free.
+    Vectorized greedy: in each round every node elects its lowest-id
+    uncolored element; the elements winning all their nodes take the
+    round's color.  Returns colors [NE] int32 (0-based).
+    """
+    ne, npe = conn.shape
+    colors = np.full(ne, -1, dtype=np.int32)
+    remaining = np.arange(ne)
+    color = 0
+    while remaining.size:
+        winner = np.full(num_nodes, np.iinfo(np.int64).max, dtype=np.int64)
+        sub = conn[remaining]
+        np.minimum.at(winner, sub.ravel(), np.repeat(remaining, npe))
+        wins = (winner[sub] == remaining[:, None]).all(axis=1)
+        colors[remaining[wins]] = color
+        remaining = remaining[~wins]
+        color += 1
+    return colors
+
+
+def pattern_unique_keys(pattern: ELLPattern) -> np.ndarray:
+    """Sorted flat keys row*NN+col of the pattern's stored entries,
+    materialized from cols / row_lengths where the pattern does not hold
+    them (the native pattern's ``unique_keys`` is None): rows ascend, and
+    columns ascend within each row's real slots."""
+    if pattern.unique_keys is not None:
+        return pattern.unique_keys
+    nn, K = pattern.cols.shape
+    real = np.arange(K)[None, :] < pattern.row_lengths[:, None]
+    keys_2d = (np.arange(nn, dtype=np.int64)[:, None] * nn
+               + pattern.cols.astype(np.int64))
+    return keys_2d[real]
+
+
+def slots_for_conn(pattern: ELLPattern, conn: np.ndarray) -> np.ndarray:
+    """Flat ELL slot index of every (i, j) DOF pair of an extra
+    connectivity (e.g. boundary facets), all of whose pairs the pattern
+    already holds (facet node pairs do: they co-occur in the owner
+    element).  Returns [NC, n, n] int64 indices into data.reshape(-1)."""
+    conn = np.asarray(conn, np.int64)
+    nn, K = pattern.cols.shape
+    unique_keys = pattern_unique_keys(pattern)
+    row_start = np.zeros(nn + 1, dtype=np.int64)
+    np.cumsum(pattern.row_lengths, out=row_start[1:])
+    keys = (conn[:, :, None] * nn + conn[:, None, :]).reshape(-1)
+    u = np.searchsorted(unique_keys, keys)
+    if (u >= unique_keys.size).any() or not np.array_equal(
+            unique_keys[np.minimum(u, unique_keys.size - 1)], keys):
+        raise ValueError("connectivity pair missing from the ELL pattern")
+    rows = keys // nn
+    slots = rows * K + (u - row_start[rows])
+    n = conn.shape[1]
+    return slots.reshape(-1, n, n)

@@ -12,7 +12,8 @@ Each cube cell is split into the 6 tetrahedra sharing the main diagonal
 the triangulation is conforming and shift-invariant (a fixed 15-point
 stencil in the interior).  The arithmetic is the reference's, so the
 coordinates, connectivity and flags are bit-identical to the JAX package's.
-``box_hex_mesh`` waits for the quad/hex cells (ROADMAP A3).
+``box_hex_mesh`` keeps the node numbering and flags with one trilinear Q1
+cell per cube.
 """
 from __future__ import annotations
 
@@ -22,8 +23,8 @@ import numpy as np
 
 from tpufem_torch.mesh.core import Mesh, StructuredInfo
 
-__all__ = ["box_mesh", "unit_cube_mesh", "BoxMesh", "UnitCubeMesh",
-           "_KUHN_TETS"]
+__all__ = ["box_mesh", "box_hex_mesh", "unit_cube_mesh", "BoxMesh",
+           "UnitCubeMesh", "_KUHN_TETS"]
 
 
 def _kuhn_tets() -> np.ndarray:
@@ -77,6 +78,48 @@ def box_mesh(x0: float, x1: float, y0: float, y1: float, z0: float,
                                                        dtype=np.int64))
     return Mesh(coords=coords, conn=conn, node_flags=flags.ravel(),
                 cell_type="tetrahedron", structured=info)
+
+
+# Q1Hex node order (fem.elements.Q1Hex, VTK convention) as (di, dj, dk)
+# grid offsets in the (z, y, x) node-grid axes: bottom face CCW, then top
+_HEX_OFFSETS = np.array([
+    [0, 0, 0], [0, 0, 1], [0, 1, 1], [0, 1, 0],
+    [1, 0, 0], [1, 0, 1], [1, 1, 1], [1, 1, 0],
+], dtype=np.int64)
+
+
+def box_hex_mesh(x0: float, x1: float, y0: float, y1: float, z0: float,
+                 z1: float, nx: int, ny: int, nz: int) -> Mesh:
+    """Structured hexahedral mesh: the node numbering and flags of
+    :func:`box_mesh`, one trilinear Q1 cell per cube."""
+    if min(nx, ny, nz) < 1:
+        raise ValueError("nx, ny, nz must be >= 1")
+    nx1, ny1, nz1 = nx + 1, ny + 1, nz + 1
+    xs = x0 + (x1 - x0) / nx * np.arange(nx1, dtype=np.float64)
+    ys = y0 + (y1 - y0) / ny * np.arange(ny1, dtype=np.float64)
+    zs = z0 + (z1 - z0) / nz * np.arange(nz1, dtype=np.float64)
+    Z, Y, X = np.meshgrid(zs, ys, xs, indexing="ij")
+    coords = np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=1)
+    flags = np.zeros((nz1, ny1, nx1), dtype=np.int32)
+    flags[0, :, :] = 1
+    flags[-1, :, :] = 1
+    flags[:, 0, :] = 1
+    flags[:, -1, :] = 1
+    flags[:, :, 0] = 1
+    flags[:, :, -1] = 1
+
+    ii, jj, kk = np.meshgrid(
+        np.arange(nz, dtype=np.int64), np.arange(ny, dtype=np.int64),
+        np.arange(nx, dtype=np.int64), indexing="ij")
+    origins = np.stack([ii.ravel(), jj.ravel(), kk.ravel()], axis=1)
+    pos = origins[:, None, :] + _HEX_OFFSETS[None]      # [NC, 8, 3]
+    idx = (pos[..., 0] * ny1 + pos[..., 1]) * nx1 + pos[..., 2]
+    conn = idx.astype(np.int32)                          # [NC, 8]
+
+    info = StructuredInfo(node_grid=(nz1, ny1, nx1), cell_grid=(nz, ny, nx),
+                          type_node_offsets=_HEX_OFFSETS[None].copy())
+    return Mesh(coords=coords, conn=conn, node_flags=flags.ravel(),
+                cell_type="hexahedron", structured=info)
 
 
 def unit_cube_mesh(nx: int, ny: int, nz: int) -> Mesh:

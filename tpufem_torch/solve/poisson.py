@@ -6,7 +6,8 @@ u = Π(9 - x_d²): in 2D f = 36 - 2(x² + y²), the reference's own problem;
 in 3D its separable analogue.
 
 The solvers run element stiffness -> global assembly (dense or ELL) ->
-Dirichlet elimination -> (P)CG on any P1 simplex mesh.  They run on the
+Dirichlet elimination -> (P)CG on any P1 simplex mesh and any Q1 quad or
+hex mesh (the isoparametric weak-form kernels).  They run on the
 card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
@@ -114,11 +115,7 @@ class PoissonSolution(NamedTuple):
 
 
 def _setup(mesh: Mesh, f, dtype, device):
-    """(space, rule, ecoords, f) of a P1 solve on an affine mesh."""
-    if not is_affine_cell(mesh.cell_type):
-        raise NotImplementedError(
-            f"{mesh.cell_type} cells need the isoparametric weak-form path, "
-            "which the port does not have yet (ROADMAP A3)")
+    """(space, rule, ecoords, f) of a degree-1 solve."""
     if f is None:
         f = model_problem_2d()[0] if mesh.dim == 2 else model_problem_3d()[0]
     space = FunctionSpace(mesh, degree=1)
@@ -126,6 +123,26 @@ def _setup(mesh: Mesh, f, dtype, device):
     ecoords = torch.as_tensor(mesh.element_coords(), dtype=dtype,
                               device=device)
     return space, rule, ecoords, f
+
+
+def _poisson_local(space: FunctionSpace, ecoords, f: Callable, rule, dtype):
+    """(Ke [NE, n, n], be [NE, n]) of the Poisson form on any cell type.
+
+    Affine simplices take the closed-form P1 kernel; tensor-product cells
+    (quad/hex) go through the isoparametric WeakForm kernels, whose
+    geometry is evaluated at every quadrature point.
+    """
+    if is_affine_cell(space.mesh.cell_type):
+        return (p1_stiffness(ecoords, space.element),
+                element_load(ecoords, space.element, rule, f))
+    from tpufem_torch.forms.language import Coefficient, dot, grad
+    from tpufem_torch.forms.weakform import WeakForm
+
+    wf = WeakForm(space, quadrature=rule, dtype=dtype,
+                  device=ecoords.device).build(
+        lambda u, v: dot(grad(u), grad(v)),
+        lambda v: Coefficient(f) * v)
+    return wf.element_matrices(ecoords), wf.element_vectors(ecoords)
 
 
 def _rhs_and_bc(space: FunctionSpace, be: torch.Tensor):
@@ -139,8 +156,7 @@ def solve_poisson_dense(mesh: Mesh, f: Optional[Callable] = None, *,
                         device="cuda") -> PoissonSolution:
     """Dense-path solve (small meshes, golden tests)."""
     space, rule, ecoords, f = _setup(mesh, f, dtype, device)
-    Ke = p1_stiffness(ecoords, space.element)
-    be = element_load(ecoords, space.element, rule, f)
+    Ke, be = _poisson_local(space, ecoords, f, rule, dtype)
     A = assemble_dense(space.dof_conn, Ke, space.num_dofs)
     b, bc_mask = _rhs_and_bc(space, be)
     A, b = apply_dirichlet_dense(A, b, bc_mask)
@@ -174,7 +190,7 @@ def solve_poisson_ell(mesh: Mesh, f: Optional[Callable] = None, *,
     whatever ``matvec`` says.  With a ``precond`` the "pallas" path primes
     the banded plan explicitly (any bandwidth, honoring ``block_rows``),
     and the AMG hierarchy primes each of its matrices on the card.
-    Non-affine cells raise (the weak-form path, ROADMAP A3).
+    Quad and hex meshes take the isoparametric weak-form kernels.
     """
     if precond not in (None, "jacobi", "chebyshev", "amg"):
         raise ValueError(f"unknown precond {precond!r}")
@@ -188,8 +204,7 @@ def solve_poisson_ell(mesh: Mesh, f: Optional[Callable] = None, *,
     pattern = ell_pattern(space.dof_conn, space.num_dofs, pad_to=pad_to,
                           with_sort_plan=(assembly_method == "sort"))
 
-    Ke = p1_stiffness(ecoords, space.element)
-    be = element_load(ecoords, space.element, rule, f)
+    Ke, be = _poisson_local(space, ecoords, f, rule, dtype)
     A = assemble_ell(pattern, Ke, method=assembly_method)
     b, bc_mask = _rhs_and_bc(space, be)
     A, b = apply_dirichlet_ell(A, b, bc_mask)
