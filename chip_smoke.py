@@ -65,9 +65,14 @@
      against its plain version, bit for bit: B12 (or B12g where a matrix
      rides the gather form) on the 982,802-DOF block hierarchy (3 x 3
      transfers and levels) and the n = 40 box's (6 x 6), B9 and B10 (q =
-     3) on the 1,002,001-row scalar one; the 982k fine-level Qp (b = 3)
-     and the box's first 6 x 6 level timed beside their bounds and BSR
-     (under B12's "shapes").
+     3) on the scalar ones (unstructured_amg, p2, p2_tet_robin at n = 30
+     and 50, quad_hex's quad and hex); the 982k fine-level Qp (b = 3) and
+     the box's first 6 x 6 level timed beside their bounds and BSR (under
+     B12's "shapes"), and B9 at every scalar level operator ("# level"
+     lines: rows, K, slot planes kept, nonzeros, longest row, empty rows,
+     launches per V-cycle, B9's form, ms, the bound on the bytes its
+     nonzeros need and on its padded width; under B9's "shapes", beside a
+     torch.sparse CSR product of the nonzeros).
    - Assembly: B13 on the embedded element coordinates of the n=96 Kuhn
      box (the assembly path's shape) and of the non-cubic 5 x 4 x 6 box,
      fp32 and fp64 (its tile printed, every shape timed), bit for bit
@@ -214,8 +219,11 @@
      same generator, no node shared within a color; B9 must launch.
      After each of these paths, B9 (and B9g where the band exceeds
      _AUTO_BAND_MAX) is timed at the path's fine operator beside its
-     bound and a torch.sparse CSR product (under "shapes"), and 10 AMG-PCG
-     iterations are profiled;
+     bound on the bytes its nonzeros need (the padded width's printed
+     beside) and a torch.sparse CSR product of the padded rows (that of
+     the nonzeros printed beside; under "shapes"), every level of its
+     hierarchy is checked and timed (above), and 10 AMG-PCG iterations
+     are profiled;
    - assembly, n=96 fp32: examples/poisson_3d_multigrid.py composed from
      the port with its stiffness from B13 (mesh, structured_plan(mesh),
      element_coords_bt_embedded, B13 launched exactly once, the host-layout
@@ -380,11 +388,18 @@ _KERNELS = {
             "kernel on the blocked route)",
             "tpufem_torch/csrc/const_stencil.cu",
             "tpufem/ops/stencil_pallas.py:651"),
-    "B9": ("ell_spmv (with its B11 per_block route, "
-           "tpufem/sparse/ell_pallas.py:288)", "tpufem_torch/csrc/ell.cu",
-           "tpufem/sparse/ell_pallas.py:268"),
-    "B9g": ("ell_spmv absolute-column mode (the gather form of ELLMatrix "
-            "and the Dirichlet correction)", "tpufem_torch/csrc/ell.cu",
+    "B9": ("ell_band (with its B11 per_block route, "
+           "tpufem/sparse/ell_pallas.py:288; redesigned, the plan's form: "
+           "rows, a thread a row on the slot planes; sliced, a thread a row "
+           "on slices of 32 sorted rows; split, lanes a row summed in order "
+           "out of shared memory; the non-empty rows alone where few)",
+           "tpufem_torch/csrc/ell.cu", "tpufem/sparse/ell_pallas.py:268"),
+    "B9g": ("ell_gather, absolute columns (the gather form of ELLMatrix "
+            "and the Dirichlet correction; redesigned, by row length on "
+            "tall matrices: a thread a row in 16-byte groups, staged "
+            "through shared memory, or 4 lanes a row relaying the sum; "
+            "else lanes a row; zero values skipped)",
+            "tpufem_torch/csrc/ell.cu",
             "tpufem/sparse/ell_pallas.py:268"),
     "B10": ("ell_spmv_multi (redesigned: a thread a row, q sums in "
             "registers, the X window staged)", "tpufem_torch/csrc/ell.cu",
@@ -522,8 +537,9 @@ def _err(out, ref, dtype_name):
 def _bound(inputs, outputs, flops, dtype_name):
     """(ms, "bytes" | "operations"): the least time of a call that reads
     each input once, writes each output once and does ``flops``
-    operations of ``dtype_name``."""
-    nbytes = sum(t.numel() * t.element_size() for t in inputs + outputs)
+    operations of ``dtype_name`` (an int among the inputs: bytes read)."""
+    nbytes = sum(t if isinstance(t, int) else t.numel() * t.element_size()
+                 for t in inputs + outputs)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
     return ((bytes_ms, "bytes") if bytes_ms >= ops_ms
@@ -1199,20 +1215,29 @@ ELL_SLOTS = 8
 JAX_ELL_SMALL_ITERS = {"rect64": 119, "perturbed96": 374}
 
 
-def _library_ell(data, cols, x):
+def _library_ell(data, cols, x, nonzeros=False):
     """() -> (() -> A x) through one torch sparse CSR product: the ELL rows
     with their K entries (columns sorted within each row), int32 indices,
-    built once on the card.  x may be [n] or [n, q]."""
+    built once on the card; with ``nonzeros`` only the nonzero entries (the
+    padding of a padded level left out).  x may be [n] or [n, q]."""
     import torch
 
     def make():
         n, k = data.shape
         c, order = cols.long().sort(dim=1)
         vals = data.gather(1, order)
-        crow = torch.arange(0, n * k + 1, k, dtype=torch.int32,
-                            device=data.device)
-        A = torch.sparse_csr_tensor(crow, c.to(torch.int32).reshape(-1),
-                                    vals.reshape(-1), size=(n, n))
+        if nonzeros:
+            keep = vals != 0
+            crow = torch.zeros(n + 1, dtype=torch.int64, device=data.device)
+            crow[1:] = keep.sum(1).cumsum(0)
+            A = torch.sparse_csr_tensor(
+                crow.to(torch.int32), c[keep].to(torch.int32), vals[keep],
+                size=(n, x.shape[0]))
+        else:
+            crow = torch.arange(0, n * k + 1, k, dtype=torch.int32,
+                                device=data.device)
+            A = torch.sparse_csr_tensor(crow, c.to(torch.int32).reshape(-1),
+                                        vals.reshape(-1), size=(n, n))
         del c, order
         return lambda: A @ x
 
@@ -1252,12 +1277,14 @@ def _check_ell(dev, records):
             d_t = torch.as_tensor(plan.data_t, device=dev).to(dtype)
             rel = torch.as_tensor(plan.rel, device=dev)
             args = (plan, d_t, rel)
+            lay = ec.ell_band_prepare(*args)
             main = dtype == torch.float32 and idx == "int16"
             for per_block in ((False, True) if idx == "int16" else (False,)):
                 _compare(records, "B9", f"{n} rows {dt} {idx} rel"
                                         f"{' B11 per_block' if per_block else ''}",
                          lambda: ec.ell_matvec_cuda(*args, x,
-                                                    per_block=per_block),
+                                                    per_block=per_block,
+                                                    layout=lay),
                          lambda: ec.ell_band_matvec_plain(*args, x),
                          timed=True,
                          work=([d_t[:, :n], rel[:, :n], x], 2 * k * n, dt),
@@ -1267,13 +1294,14 @@ def _check_ell(dev, records):
                 for q in (3, 1, 8):
                     X = torch.randn((n, q), generator=gen, device=dev)
                     _compare(records, "B10", f"{n} rows fp32 int16 rel q={q}",
-                             lambda: ec.ell_matvec_multi_cuda(*args, X),
+                             lambda: ec.ell_matvec_multi_cuda(*args, X,
+                                                              layout=lay),
                              lambda: ec.ell_band_matvec_multi_plain(*args, X),
                              timed=True, exact=True, shapes=True,
                              work=([d_t[:, :n], rel[:, :n], X],
                                    2 * k * n * q, dt),
                              library=_library_ell(data, cols, X))
-            del d_t, rel
+            del d_t, rel, lay
         _compare(records, "B9g", f"{n} rows {dt} absolute columns",
                  lambda: ec.ell_gather_matvec_cuda(data, cols, x),
                  lambda: ec.ell_gather_matvec_plain(data, cols, x),
@@ -2554,14 +2582,56 @@ def _check_bcsr_levels(records, name, hier, dev, timed=()):
     torch.cuda.empty_cache()
 
 
+def _vcycle_launches(hier, dev):
+    """B9 launches of one hier.apply by operator: {id(plan): count}
+    (ELLMatrix's banded product wrapped for the call)."""
+    import torch
+
+    from tpufem_torch.sparse import ell as ell_mod
+
+    real, seen = ell_mod.ell_matvec_cuda, {}
+
+    def counting(plan, *args, **kw):
+        seen[id(plan)] = seen.get(id(plan), 0) + 1
+        return real(plan, *args, **kw)
+
+    ell_mod.ell_matvec_cuda = counting
+    try:
+        hier.apply(torch.ones(hier.levels[0].A.shape[0], device=dev,
+                              dtype=hier.levels[0].A.dtype))
+        torch.cuda.synchronize()
+    finally:
+        ell_mod.ell_matvec_cuda = real
+    return seen
+
+
+def _ell_stats(M):
+    """(nonzeros, longest row, empty rows) of an ELL matrix: a row's length
+    is the slot after its last nonzero value."""
+    import torch
+
+    nz = M.data != 0
+    slot = torch.arange(1, nz.shape[1] + 1, device=nz.device)
+    lens = (nz * slot).amax(1) if nz.shape[1] else nz.sum(1)
+    return (int(nz.sum()), int(lens.max()) if lens.numel() else 0,
+            int((lens == 0).sum()))
+
+
 def _check_ell_levels(records, name, hier, dev):
     """Every product of every level of a scalar AMG hierarchy (A, Qp, Qr):
-    B9 and B10 (q = 3) against their plain versions, bit for bit."""
+    B9 and B10 (q = 3) against their plain versions, bit for bit; B9 timed
+    at each (under B9's "shapes") beside the bound on the bytes its
+    nonzeros need (each nonzero's value and index, x and y once; the bound
+    on the padded plan printed beside) and a torch.sparse CSR product of
+    the nonzeros; the launches per V-cycle and B9's form printed."""
     import torch
 
     from tpufem_torch.sparse import ell_cuda as ec
 
     gen = torch.Generator(device=dev).manual_seed(11)
+    per_cycle = _vcycle_launches(hier, dev)
+    total_ms = 0.0
+    mem = [0, 0]                # B9's layouts, the plans' planes (bytes)
     for i, lv in enumerate(hier.levels):
         for mname in ("A", "Qp", "Qr"):
             M = getattr(lv, mname)
@@ -2571,20 +2641,48 @@ def _check_ell_levels(records, name, hier, dev):
                   f"{name} level {i} {mname}: no banded plan")
             plan, d_t, rel = M._band
             n, k = M.data.shape
+            nnz, longest, empty = _ell_stats(M)
             dt = str(M.dtype).replace("torch.", "")
             x = torch.randn(n, generator=gen, device=dev, dtype=M.dtype)
             X = torch.randn((n, 3), generator=gen, device=dev, dtype=M.dtype)
-            label = (f"{name} level {i} {mname} {n} rows K={k} {dt} "
-                     f"R={plan.block_rows}")
+            form = plan.form
+            launches = per_cycle.get(id(plan), 0)
+            label = (f"{name} level {i} {mname} {n} rows K={k} used "
+                     f"{plan.width} {dt} R={plan.block_rows}")
+            item = M.data.element_size()
+            needed = nnz * (item + rel.element_size()) + 2 * n * item
+            padded = plan.width * n * (item + rel.element_size()) \
+                + 2 * n * item
+            lay = M._band_layout(M._band)
             _compare(records, "B9", label,
-                     lambda: ec.ell_matvec_cuda(plan, d_t, rel, x),
+                     lambda: ec.ell_matvec_cuda(plan, d_t, rel, x,
+                                                layout=lay),
                      lambda: ec.ell_band_matvec_plain(plan, d_t, rel, x),
-                     exact=True)
+                     exact=True, timed=True, time_plain=False, shapes=True,
+                     work=([needed - n * item], 2 * nnz, dt),
+                     library=_library_ell(M.data, M.cols, x, nonzeros=True))
+            ms = records["B9"]["shapes"][-1]["ms"]
+            total_ms += launches * ms
+            print(f"# level {name} {i} {mname}: rows {n}, K {k}, used "
+                  f"{plan.width}, nonzeros {nnz}, longest row {longest}, "
+                  f"empty rows {empty}, launches per V-cycle {launches}, "
+                  f"form {form}, layout {lay.nbytes()} bytes beside the "
+                  f"planes' {d_t.nbytes + rel.nbytes}, B9 {ms:.4f} ms, "
+                  "needed bound "
+                  f"{needed / HBM_BYTES_PER_S * 1e3:.4f} ms, padded bound "
+                  f"{padded / HBM_BYTES_PER_S * 1e3:.4f} ms")
+            mem[0] += lay.nbytes()
+            mem[1] += d_t.nbytes + rel.nbytes
+            del lay
             _compare(records, "B10", label + " q=3",
                      lambda: ec.ell_matvec_multi_cuda(plan, d_t, rel, X),
                      lambda: ec.ell_band_matvec_multi_plain(plan, d_t, rel,
                                                             X),
                      exact=True)
+    print(f"# level {name}: B9 per V-cycle {total_ms:.4f} ms (launches x "
+          f"the timed ms, summed over the operators); B9's layouts "
+          f"{mem[0] / 1e6:.1f} MB beside the planes' {mem[1] / 1e6:.1f} MB "
+          "on the card")
     torch.cuda.empty_cache()
 
 
@@ -3030,9 +3128,11 @@ def _band_of(M):
 
 def _time_ell_shape(records, name, A_p):
     """B9 at the path's finest operator (its banded plan), timed beside its
-    bound and a torch.sparse CSR product; B9g (the absolute-column form)
-    on the same matrix where the band is wider than the automatic rule
-    takes (_AUTO_BAND_MAX)."""
+    bound on the bytes its nonzeros need (the padded plan's printed beside)
+    and a torch.sparse CSR product of the padded rows (that of the
+    nonzeros printed beside); B9g (the absolute-column form) on the same
+    matrix where the band is wider than the automatic rule takes
+    (_AUTO_BAND_MAX)."""
     import torch
 
     from tpufem_torch.sparse import ell as ell_mod
@@ -3045,30 +3145,55 @@ def _time_ell_shape(records, name, A_p):
     x = torch.randn(n, generator=gen, device=A_p.data.device,
                     dtype=A_p.dtype)
     bw = _band_of(A_p)
+    nnz = _ell_stats(A_p)[0]
+    item = A_p.data.element_size()
+
+    def bounds(index_bytes, width):
+        """The bytes the inputs need (the nonzeros and x; _bound adds y)."""
+        needed = nnz * (item + index_bytes) + 2 * n * item
+        padded = width * n * (item + index_bytes) + 2 * n * item
+        print(f"# {name} bounds: needed {needed / HBM_BYTES_PER_S * 1e3:.4f}"
+              f" ms ({nnz} nonzeros), padded "
+              f"{padded / HBM_BYTES_PER_S * 1e3:.4f} ms ({width} slots)")
+        return needed - n * item
+
     label = f"{name} {n} rows K={k} {dt} band {bw} R={plan.block_rows}"
+    lay = A_p._band_layout(A_p._band)
+    print(f"# {name}: B9's layout {lay.nbytes()} bytes beside the planes' "
+          f"{d_t.nbytes + rel.nbytes}")
     _compare(records, "B9", label,
-             lambda: ec.ell_matvec_cuda(plan, d_t, rel, x),
+             lambda: ec.ell_matvec_cuda(plan, d_t, rel, x, layout=lay),
              lambda: ec.ell_band_matvec_plain(plan, d_t, rel, x),
              timed=True, shapes=True, exact=True,
-             work=([d_t[:, :n], rel[:, :n], x], 2 * k * n, dt),
+             work=([bounds(rel.element_size(), plan.width)], 2 * nnz, dt),
              library=_library_ell(A_p.data, A_p.cols, x))
+    nz_ms = _library_ms(_library_ell(A_p.data, A_p.cols, x, nonzeros=True),
+                        ec.ell_band_matvec_plain(plan, d_t, rel, x),
+                        f"B9 {label} (CSR of the nonzeros)")
+    print(f"# {name}: CSR of the nonzeros "
+          + ("failed" if nz_ms is None else f"{nz_ms:.4f} ms"))
     if bw > ell_mod._AUTO_BAND_MAX:
         _compare(records, "B9g", f"{name} {n} rows K={k} {dt} band {bw} "
                                  "absolute columns",
                  lambda: ec.ell_gather_matvec_cuda(A_p.data, A_p.cols, x),
                  lambda: ec.ell_gather_matvec_plain(A_p.data, A_p.cols, x),
-                 timed=True, shapes=True,
-                 work=([A_p.data, A_p.cols, x], 2 * k * n, dt),
+                 timed=True, shapes=True, exact=True,
+                 work=([bounds(4, k)], 2 * nnz, dt),
                  library=_library_ell(A_p.data, A_p.cols, x))
-    del x
+    del x, lay
     torch.cuda.empty_cache()
 
 
-def _amg_after(records, name, A_p, b_p, hier):
+def _amg_after(records, name, A_p, b_p, hier, levels=None):
+    """After an AMG path: B9 at its fine operator, every level of the
+    (label, hierarchy) pairs in ``levels`` (its own hierarchy by default),
+    then 10 AMG-PCG iterations profiled."""
     from tpufem_torch.solve.cg import cg_fixed
 
     def after():
         _time_ell_shape(records, name, A_p)
+        for label, h in levels or ((name, hier),):
+            _check_ell_levels(records, label, h, A_p.data.device)
         _per_iteration(name, lambda: cg_fixed(A_p.matvec, b_p, 10,
                                               M=hier.apply))
 
@@ -3293,6 +3418,7 @@ def _drive_p2_tet_robin(dev, records):
         if n == ref["n"]:
             _a3_gate("p2_tet_robin", "p2_tet_robin", res.iterations,
                      errs[n], n)
+            small = hier               # its levels are checked after
             del A_p, b_p, hier, V, u
             torch.cuda.empty_cache()
     check(V.num_dofs == P2_TET_DOFS, f"p2_tet_robin: {V.num_dofs} DOFs")
@@ -3302,7 +3428,9 @@ def _drive_p2_tet_robin(dev, records):
     check(errs[N_P2_TET] <= errs[ref["n"]],
           f"p2_tet_robin: the full-size error {errs[N_P2_TET]:.4e} exceeds "
           f"n={ref['n']}'s")
-    return _amg_after(records, "p2_tet_robin", A_p, b_p, hier)
+    return _amg_after(records, "p2_tet_robin", A_p, b_p, hier, levels=(
+        (f"p2_tet_robin n={ref['n']}", small),
+        (f"p2_tet_robin n={N_P2_TET}", hier)))
 
 
 def _solve_capturing_amg(mesh, dev):
@@ -3387,6 +3515,7 @@ def _drive_quad_hex(dev, records):
             b_p = A_p.matvec(torch.ones(A_p.shape[0], dtype=A_p.dtype,
                                         device=dev))
             _time_ell_shape(records, f"quad_hex {name}", A_p)
+            _check_ell_levels(records, f"quad_hex {name}", hier, dev)
             _per_iteration(f"quad_hex {name}",
                            lambda: cg_fixed(A_p.matvec, b_p, 10,
                                             M=hier.apply))

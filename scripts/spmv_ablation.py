@@ -92,8 +92,7 @@ def main() -> int:
     if redesigned:
         bsig = {**{e: ec._BCSR_ARGS for e in ec._BCSR_ENTRY.values()},
                 **{e: ec._GATHER_ARGS for e in ec._GATHER_ENTRY.values()}}
-        esig = {**{e: ec._ARGS for e in ec._ENTRY.values()},
-                **{e: ec._MULTI_ARGS for e in ec._MULTI_ENTRY.values()}}
+        esig = ec.ell_signatures()
         for a in AHEAD:
             builds[f"ell ahead={a}"] = (
                 lambda a=a: load_library("ell.cu", esig, flags=(
@@ -190,8 +189,10 @@ def main() -> int:
                       + 2 * X.numel() * X.element_size())
             if q == 1:
                 x = X[:, 0].contiguous()
+                lay = ec.ell_band_prepare(plan, d_t, rel)
                 timed(f"B9 fp32 {pattern}",
-                      lambda: ec.ell_matvec_cuda(plan, d_t, rel, x),
+                      lambda: ec.ell_matvec_cuda(plan, d_t, rel, x,
+                                                 layout=lay),
                       lambda: ec.ell_band_matvec_plain(plan, d_t, rel, x),
                       nbytes, [("picked", None, None)], "", "")
                 continue

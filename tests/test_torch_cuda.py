@@ -1052,6 +1052,246 @@ def test_ell_multi_kernel_matches_plain(dev, dtype, q):
                                                  X[:, j].contiguous()), dtype)
 
 
+# AMG level shapes of B9 (rows, padded width K, longest row, share of
+# empty rows; the P2 hierarchy's levels 4 ... 1 and its restrictions, a
+# P2-tet coarse level) and ragged row counts
+_LEVEL_SHAPES = [(314, 6144, 95, 0.0), (2273, 1536, 71, 0.0),
+                 (19840, 384, 50, 0.0), (1001, 320, 195, 0.0),
+                 (146227, 96, 31, 0.0), (146227, 66, 66, 0.864),
+                 (30011, 35, 35, 0.854), (997, 24, 17, 0.5)]
+
+
+def _level_case(dev, dtype, rows, k, longest, empty, seed=0):
+    """A banded ELL matrix shaped like an AMG level: K padded slots, rows
+    of 1 ... ``longest`` nonzeros (a share ``empty`` of rows none), zeros
+    and self columns after them; the plan's planes on the card and x."""
+    from tpufem_torch.sparse import ell_cuda
+
+    g = np.random.default_rng(seed + rows)
+    band = min(rows - 1, 4 * longest)
+    cols = np.clip(np.arange(rows)[:, None] + g.integers(
+        -band, band + 1, (rows, k)), 0, rows - 1).astype(np.int32)
+    lens = g.integers(1, longest + 1, rows)
+    lens[g.random(rows) < empty] = 0
+    lens[g.integers(0, rows)] = longest
+    data = g.standard_normal((rows, k))
+    pad = np.arange(k)[None, :] >= lens[:, None]
+    data[pad] = 0
+    cols[pad] = np.broadcast_to(np.arange(rows, dtype=np.int32)[:, None],
+                                (rows, k))[pad]
+    plan = ell_cuda.ell_band_plan(data, cols)
+    d_t = torch.as_tensor(plan.data_t, device=dev).to(dtype)
+    rel = torch.as_tensor(plan.rel, device=dev)
+    x = torch.as_tensor(g.standard_normal(rows), device=dev).to(dtype)
+    return plan, d_t, rel, x, (torch.as_tensor(data, device=dev).to(dtype),
+                               torch.as_tensor(cols, device=dev))
+
+
+def _forms(plan):
+    """Every B9 form on ``plan``: a thread a row on the slot planes or on
+    slices of sorted rows, and lanes a row on the packed rows over tile
+    rows 1 ... 128, all rows and the non-empty ones alone."""
+    from tpufem_torch.sparse.ell_cuda import EllForm
+
+    compact = (False, True) if plan.row_len[:plan.n].any() else (False,)
+    return [plan._replace(form=EllForm("rows", False, 1))] + [
+        plan._replace(form=EllForm(name, c, t))
+        for name, tiles in (("sliced", (1,)),
+                            ("split", (1, 2, 4, 8, 16, 32, 64, 128)))
+        for t in tiles for c in compact]
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("shape", _LEVEL_SHAPES, ids=str)
+def test_ell_band_forms_bit_equal_on_level_shapes(dev, monkeypatch, dtype,
+                                                  shape):
+    """B9 in each form on the level shapes equals its plain version bit for
+    bit (the trimmed plan's K_used is the longest row), writes every row
+    of an output that held NaN, and repeats bit for bit; its own form is
+    among them."""
+    from tpufem_torch.sparse import ell_cuda
+
+    plan, d_t, rel, x, _ = _level_case(dev, dtype, *shape)
+    assert plan.width == shape[2] == plan.row_len.max()
+    ref = ell_cuda.ell_band_matvec_plain(plan, d_t, rel, x)
+    monkeypatch.setattr(ell_cuda, "_new_output",
+                        lambda n, **kw: torch.full((n,), float("nan"), **kw))
+    for p in [plan] + _forms(plan):
+        before = ell_cuda.ell_matvec_cuda.launches
+        y = ell_cuda.ell_matvec_cuda(p, d_t, rel, x)
+        again = ell_cuda.ell_matvec_cuda(p, d_t, rel, x)
+        torch.cuda.synchronize()
+        assert ell_cuda.ell_matvec_cuda.launches == before + 2
+        assert torch.equal(y, ref), p.form
+        assert torch.equal(again, y), p.form
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("block_rows", [512, 11008], ids=["int16", "int32"])
+def test_ell_band_forms_ragged_rows(dev, dtype, block_rows):
+    """Row counts that no tile divides, int16 and int32 windows, every
+    form, rows of length 0 and of the full width: bit for bit."""
+    from tpufem_torch.sparse import ell_cuda
+
+    for rows in (1, 3, 130, 1027, 4099):
+        g = np.random.default_rng(rows)
+        k, band = 9, min(rows - 1, 400)
+        cols = np.clip(np.arange(rows)[:, None] + g.integers(
+            -band, band + 1, (rows, k)), 0, rows - 1).astype(np.int32)
+        data = g.standard_normal((rows, k))
+        data[::3] = 0
+        data[1::3, 5:] = 0
+        plan = ell_cuda.ell_band_plan(data, cols, block_rows=block_rows)
+        d_t = torch.as_tensor(plan.data_t, device=dev).to(dtype)
+        rel = torch.as_tensor(plan.rel, device=dev)
+        x = torch.as_tensor(g.standard_normal(rows), device=dev).to(dtype)
+        ref = ell_cuda.ell_band_matvec_plain(plan, d_t, rel, x)
+        for p in _forms(plan):
+            assert torch.equal(ell_cuda.ell_matvec_cuda(p, d_t, rel, x),
+                               ref), (rows, p.form)
+
+
+@pytest.mark.parametrize("form", [("split", 3), ("split", 256),
+                                  ("nested", 4)])
+def test_ell_band_refused_form_raises(dev, form):
+    """A form the kernel does not take raises; nothing falls back."""
+    from tpufem_torch.sparse import ell_cuda
+
+    plan, d_t, rel, x, _ = _level_case(dev, torch.float64, 314, 64, 40, 0.0)
+    bad = plan._replace(form=ell_cuda.EllForm(form[0], False, form[1]))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ell_cuda.ell_matvec_cuda(bad, d_t, rel, x)
+
+
+def test_ell_band_refused_chunk_raises(dev, monkeypatch):
+    from tpufem_torch.sparse import ell_cuda
+
+    plan, d_t, rel, x, _ = _level_case(dev, torch.float64, 314, 64, 40, 0.0)
+    monkeypatch.setattr(ell_cuda, "ell_split_chunk", lambda *a: 1 << 14)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ell_cuda.ell_matvec_cuda(plan, d_t, rel, x)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_ell_multi_on_the_trimmed_plan(dev, dtype):
+    """B10 on a level's trimmed plan equals its plain version bit for
+    bit."""
+    from tpufem_torch.sparse import ell_cuda
+
+    plan, d_t, rel, _, _ = _level_case(dev, dtype, 2273, 1536, 71, 0.0)
+    X = torch.randn((plan.n, 3), generator=torch.Generator(
+        device="cpu").manual_seed(3), dtype=dtype).to(dev)
+    assert torch.equal(ell_cuda.ell_matvec_multi_cuda(plan, d_t, rel, X),
+                       ell_cuda.ell_band_matvec_multi_plain(plan, d_t, rel,
+                                                            X))
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("shape", [(1027, 80, 63, 0.0), (3001, 32, 27, 0.1),
+                                   (4099, 8, 8, 0.0), (300, 6144, 95, 0.0),
+                                   (2001, 7, 7, 0.2)],
+                         ids=str)
+def test_ell_gather_tiles_bit_equal(dev, monkeypatch, dtype, shape):
+    """B9g (absolute columns, row-major) a thread a row and over tile rows
+    1 ... 64 and slot chunks that split a row, with padding zeros: bit for
+    bit its plain version, every row written over NaN, repeats bit for
+    bit."""
+    from tpufem_torch.sparse import ell_cuda
+
+    *_, (data, cols) = _level_case(dev, dtype, *shape)
+    x = torch.randn(shape[0], generator=torch.Generator(
+        device="cpu").manual_seed(1), dtype=dtype).to(dev)
+    ref = ell_cuda.ell_gather_matvec_plain(data, cols, x)
+    monkeypatch.setattr(ell_cuda, "_new_output",
+                        lambda n, **kw: torch.full((n,), float("nan"), **kw))
+    k = shape[1]
+    tiles = [ell_cuda.ell_gather_tiling(x.element_size(), k, shape[0]),
+             (0, 0)] + [(t, c) for t in (1, 4, 16, 64) for c in (k, 7)
+                        if (t * (c | 1) * x.element_size()) <= 48 * 1024]
+    if k % 4 == 0:              # staged in chunks (0, chunk)
+        tiles += [(0, c) for c in (4, 16, 32, k)
+                  if ell_cuda.ell_stage_smem(x.element_size(), c)
+                  <= 227 * 1024]
+    tiles += [(-4, 0), (-8, 0)]     # 4 or 8 lanes a row
+    for tile in tiles:
+        monkeypatch.setattr(ell_cuda, "ell_gather_tiling",
+                            lambda *a, tile=tile: tile)
+        y = ell_cuda.ell_gather_matvec_cuda(data, cols, x)
+        again = ell_cuda.ell_gather_matvec_cuda(data, cols, x)
+        torch.cuda.synchronize()
+        assert torch.equal(y, ref), tile
+        assert torch.equal(again, y), tile
+
+
+@pytest.mark.parametrize("tile", [(256, 8), (4, 1 << 14), (3, 8), (0, 6),
+                                  (0, 1 << 14)])
+def test_ell_gather_refused_tile_raises(dev, monkeypatch, tile):
+    from tpufem_torch.sparse import ell_cuda
+
+    data, cols, x = _ell_case(dev, torch.float64)
+    monkeypatch.setattr(ell_cuda, "ell_gather_tiling", lambda *a: tile)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ell_cuda.ell_gather_matvec_cuda(data, cols, x)
+
+
+def test_ell_gather_staged_refuses_ragged_rows(dev, monkeypatch):
+    """B9g's staged form takes rows of whole groups of 4 slots: a row of
+    7 raises (nothing falls back)."""
+    from tpufem_torch.sparse import ell_cuda
+
+    *_, (data, cols) = _level_case(dev, torch.float64, 2001, 7, 7, 0.2)
+    x = torch.ones(2001, dtype=torch.float64, device=dev)
+    monkeypatch.setattr(ell_cuda, "ell_gather_tiling", lambda *a: (0, 4))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ell_cuda.ell_gather_matvec_cuda(data, cols, x)
+
+
+def test_ell_stale_layout_raises(dev):
+    """A prepared layout is taken while its plan and arrays are as they
+    were; after they change it raises."""
+    from tpufem_torch.sparse import ell_cuda
+
+    plan, d_t, rel, x, _ = _level_case(dev, torch.float64, 2273, 1536, 71,
+                                       0.0)
+    lay = ell_cuda.ell_band_prepare(plan, d_t, rel)
+    assert torch.equal(ell_cuda.ell_matvec_cuda(plan, d_t, rel, x,
+                                                layout=lay),
+                       ell_cuda.ell_band_matvec_plain(plan, d_t, rel, x))
+    d_t.mul_(2.0)
+    with pytest.raises(ValueError, match="layout"):
+        ell_cuda.ell_matvec_cuda(plan, d_t, rel, x, layout=lay)
+
+
+@pytest.mark.parametrize("form", ["rows", "sliced", "split"])
+def test_ell_layout_freed_with_its_matrix(dev, form):
+    """B9's layout on the card goes with its ELLMatrix: after each of four
+    matrices is built, used and dropped, the card's allocated memory is
+    where it was after the first (which may also free what came before
+    it)."""
+    import gc
+
+    from tpufem_torch.sparse import ell_cuda
+    from tpufem_torch.sparse.ell import ELLMatrix
+
+    *_, x, (data, cols) = _level_case(dev, torch.float64, 146227, 96, 31,
+                                      0.0)
+    after = []
+    for _ in range(4):
+        A = ELLMatrix(data, cols)
+        A.prime_band_plan()
+        plan, d_t, rel = A._band
+        A._band = (plan._replace(form=ell_cuda.EllForm(form, False, 8)),
+                   d_t, rel)
+        y = A.matvec(x)
+        torch.cuda.synchronize()
+        assert A._layout is not None and A._layout.fits(*A._band)
+        assert torch.equal(y, ell_cuda.ell_band_matvec_plain(*A._band, x))
+        del A, y, plan, d_t, rel
+        gc.collect()
+        after.append(torch.cuda.memory_allocated(dev))
+    assert after[1:] == after[:1] * 3
+
+
 @pytest.mark.parametrize("kw", [dict(), dict(precond="chebyshev",
                                              matvec="pallas")],
                          ids=["jacobi-banded", "chebyshev-pallas"])

@@ -48,7 +48,7 @@ from tpufem_torch.mesh.core import StructuredInfo
 from tpufem_torch.solve.multigrid import ConstMGLevel, MGLevel
 from tpufem_torch.sparse.bcsr import BCSRMatrix
 from tpufem_torch.sparse.ell import ELLMatrix
-from tpufem_torch.sparse.ell_cuda import ELLBandPlan
+from tpufem_torch.sparse.ell_cuda import ELLBandPlan, band_rows
 from tpufem_torch.sparse.stencil import StencilMatrix, StencilPattern
 
 __all__ = ["system_from_numpy", "const_level_from_numpy",
@@ -170,6 +170,7 @@ def band_plan_from_numpy(rel, data_t, *, n, np_rows, block_rows, d_lists,
         rel=rel, data_t=data_t, n=n, np_rows=NP, block_rows=R,
         d_lists=tuple(tuple(int(v) for v in d) for d in d_lists), width=K,
         dtab=None if dtab is None else np.asarray(dtab),
+        **dict(zip(("row_len", "form"), band_rows(data_t, n))),
         segments=None if segments is None else tuple(
             (int(s), int(e), tuple(tuple(int(v) for v in d) for d in dl))
             for s, e, dl in segments))

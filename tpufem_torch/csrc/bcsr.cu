@@ -142,14 +142,6 @@ __host__ __device__ constexpr int loop_ahead() {
   return u < 1 ? 1 : (u > 8 ? 8 : u);
 }
 
-// Keeps the compiler from moving loads across it: the loads issued ahead
-// stay ahead (without it the compiler sinks them to their uses, and the
-// slots' loads no longer overlap).  TPUFEM_BCSR_ORDER=0 leaves it out
-// (scripts/spmv_ablation.py's probe).
-__device__ __forceinline__ void keep_order() {
-  if (TPUFEM_BCSR_ORDER) asm volatile("" ::: "memory");
-}
-
 // Thread r of a block of tile_rows threads computes block row
 // i = blockIdx.x * tile_rows + r and all B of its outputs.  It loads its
 // first P slots' columns and values, then sums the slots in order, each

@@ -1,8 +1,8 @@
 // The build-time probes of the banded SpMV kernels, B12 (bcsr.cu) and B10
-// (ell.cu), in one place.  Only scripts/spmv_ablation.py and
-// scripts/bcsr_amg_ab.py set them (-D... in load_library's flags) to build
-// probe copies; the defaults here are the shipped designs, measured
-// fastest in those scripts' sweeps.
+// (ell.cu), in one place, and the compiler fence they and B9 share.  Only
+// scripts/spmv_ablation.py and scripts/bcsr_amg_ab.py set them (-D... in
+// load_library's flags) to build probe copies; the defaults here are the
+// shipped designs, measured fastest in those scripts' sweeps.
 #pragma once
 
 // B12: slots whose columns and values are loaded ahead of the one being
@@ -28,3 +28,11 @@
 #ifndef TPUFEM_ELL_AHEAD
 #define TPUFEM_ELL_AHEAD 2
 #endif
+
+// Keeps the compiler from moving loads across it: the loads issued ahead
+// stay ahead (without it the compiler sinks them to their uses, and the
+// slots' loads no longer overlap).  TPUFEM_BCSR_ORDER=0 leaves it out
+// (scripts/spmv_ablation.py's probe).
+__device__ __forceinline__ void keep_order() {
+  if (TPUFEM_BCSR_ORDER) asm volatile("" ::: "memory");
+}

@@ -30,7 +30,8 @@ from tpufem_torch.solve.bc import apply_dirichlet_dense, apply_dirichlet_ell
 from tpufem_torch.solve.cg import CGResult, cg
 from tpufem_torch.solve.precond import chebyshev, jacobi, lambda_max_bound
 from tpufem_torch.sparse.ell import ELLMatrix, reorder_ell
-from tpufem_torch.sparse.ell_cuda import ell_band_plan, ell_matvec_cuda
+from tpufem_torch.sparse.ell_cuda import (ell_band_plan, ell_band_prepare,
+                                          ell_matvec_cuda)
 
 __all__ = ["RhsFunction", "model_problem_2d", "model_problem_2d_planes",
            "model_problem_3d", "model_problem_3d_planes", "PoissonSolution",
@@ -253,7 +254,8 @@ def solve_poisson_ell(mesh: Mesh, f: Optional[Callable] = None, *,
             inv_d = torch.as_tensor(np.where(diag != 0, 1.0 / diag, 1.0),
                                     dtype=b_p.dtype, device=dev)
             M = lambda r: r * inv_d
-        mv = lambda v: ell_matvec_cuda(plan, d_t, r_t, v)
+        lay = ell_band_prepare(plan, d_t, r_t) if d_t.is_cuda else None
+        mv = lambda v: ell_matvec_cuda(plan, d_t, r_t, v, layout=lay)
     res = cg(mv, b_p, tol=tol, maxiter=maxiter, M=M)
     inv = torch.empty_like(perm_t)
     inv[perm_t] = torch.arange(perm_t.numel(), device=dev)

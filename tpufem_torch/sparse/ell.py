@@ -7,9 +7,10 @@ own row with value 0, so no product needs a mask.
 ``matvec`` dispatches as the reference's does: when the matrix is banded
 (bandwidth <= ``_AUTO_BAND_MAX``, true of RCM-ordered meshes) the banded
 plan is built once and cached, and every product runs the banded kernel
-(B9, sparse.ell_cuda); otherwise the gather form runs, which on a CUDA
-tensor is the same kernel in absolute-column mode.  On a CPU tensor both
-forms run their plain PyTorch versions.  The reference's pytree protocol,
+(B9, sparse.ell_cuda) on the layout the matrix prepares once on the card
+and holds beside the plan; otherwise the gather form runs, which on a
+CUDA tensor is the same kernel in absolute-column mode.  On a CPU tensor
+both forms run their plain PyTorch versions.  The reference's pytree protocol,
 its compile-time evaluation and its ``TPUFEM_BAND_DISPATCH`` switch exist
 for ``jit`` or for the TPU's interpret mode on the CPU, and are not
 ported.
@@ -23,6 +24,7 @@ import torch
 
 from tpufem_torch.sparse.ell_cuda import (_numpy, auto_block_rows,
                                           ell_band_plan,
+                                          ell_band_prepare,
                                           ell_gather_matvec_cuda,
                                           ell_gather_matvec_multi_cuda,
                                           ell_matvec_cuda,
@@ -74,6 +76,8 @@ class ELLMatrix:
         # banded cache: (plan, data_t, rel) on data's device | None once
         # resolved; "unresolved" until the first product
         self._band = "unresolved"
+        # B9's layout of the banded cache on the card (ell_band_prepare)
+        self._layout = None
 
     @property
     def shape(self):
@@ -122,14 +126,25 @@ class ELLMatrix:
         dev = self.data.device
         self._band = (plan, torch.as_tensor(plan.data_t, device=dev),
                       torch.as_tensor(plan.rel, device=dev))
+        if dev.type == "cuda":
+            self._band_layout(self._band)
         return self
+
+    def _band_layout(self, band):
+        """B9's layout of the banded cache ``band`` on the card, prepared
+        once and again only where the cache or its arrays changed."""
+        lay = self._layout
+        if lay is None or not lay.fits(*band):
+            lay = self._layout = ell_band_prepare(*band)
+        return lay
 
     def matvec(self, x):
         band = self._resolve_band()
         if band is not None:
             plan, data_t, rel = band
-            return _Linear.apply(
-                x, lambda v: ell_matvec_cuda(plan, data_t, rel, v))
+            lay = self._band_layout(band) if x.is_cuda else None
+            return _Linear.apply(x, lambda v: ell_matvec_cuda(
+                plan, data_t, rel, v, layout=lay))
         return _Linear.apply(x, lambda v: ell_matvec(self.data, self.cols, v))
 
     def __matmul__(self, x):
@@ -141,8 +156,10 @@ class ELLMatrix:
         band = self._resolve_band()
         if band is not None:
             plan, data_t, rel = band
-            return _Linear.apply(
-                X, lambda V: ell_matvec_multi_cuda(plan, data_t, rel, V))
+            lay = (self._band_layout(band)
+                   if X.is_cuda and X.shape[1] == 1 else None)
+            return _Linear.apply(X, lambda V: ell_matvec_multi_cuda(
+                plan, data_t, rel, V, layout=lay))
         return _Linear.apply(
             X, lambda V: ell_matvec_multi(self.data, self.cols, V))
 
