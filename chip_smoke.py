@@ -45,8 +45,10 @@
      its B11 route (per_block), the absolute-column (gather) mode, B10
      with q = 3, 1 and 8 on the banded plan and q = 3 in absolute mode
      (each B10 case bit for bit its plain version's, every timed shape
-     listed under the record's "shapes"); the library call is a
-     torch.sparse CSR product.
+     listed under the record's "shapes"; B10's absolute-column form is
+     the record B10g, also held bit for bit in fp64 at q = 8 on the modal
+     path's operator and timed there); the library call is a torch.sparse
+     CSR product.
    - BCSR, at the elasticity paths' shapes (random data and patterns from
      a seeded generator): B12 on 491,401 block rows (b = 2, K = 8, half
      bandwidth 701) in fp32 and fp64 with int16 (R = 1024, and its
@@ -207,6 +209,30 @@
      (1,002,001 rows) and box_hex_mesh at n = 100 (1,030,301 rows), each
      at the JAX count within 1 and its error within 1%; B9 and B9g must
      launch;
+   - nonlinear: examples/nonlinear_poisson.py at its default size
+     composed from the port (rectangle_mesh(-3,3,-3,3,512,512), 263,169
+     DOFs, fp32: the ELL stiffness, element_nonlinear_load for u³, Jacobi,
+     newton_krylov with tol 1e-6, maxiter 40 from 0; each inner product is
+     the forward-mode tangent of the residual): converged, the Newton and
+     inner CG counts within 1 and 10% of the JAX package's CPU run
+     (JAX_NONLINEAR), rel L2 error <= 2e-5; B9 must launch;
+   - wave: examples/wave_equation.py --cells 1000 --periods 1 (1,002,001
+     DOFs, fp32; the weak form's ELL stiffness, the lumped mass,
+     stable_dt's step, leapfrog_wave): energy drift <= 5e-3,
+     period-return error within 10% of the JAX package's CPU run of the
+     same script (JAX_WAVE; its fp32 assembly's rounding sets it,
+     scripts/wave_operator_swap.py), and
+     <= 2e-3 for the same steps on the stiffness and mass assembled in
+     fp64 and cast to fp32; one B9 launch per step plus the start, the
+     steps printed beside the TPU's 2212; then fp64 at --cells 64 and
+     1000: drift <= 1e-10; B9 must launch;
+   - modal: examples/modal_analysis.py --n 1000 (the unstructured path's
+     RCM-ordered mesh, 1,002,001 DOFs; the fp64 assembly cast to fp32,
+     build_amg(strength=0.08), k = 5, buffer 3, 20 inner AMG-PCG
+     iterations in lockstep, 25 outer steps, mixed precision): the
+     eigenvalues within 5e-3 + 40/n² of pi² (i² + j²) / 36, max residual
+     <= 1e-2; B10 must launch on the banded plan at q = 8 and B10g in
+     fp64 at q = 8 and q = 5;
    - coo_matfree: assemble_coo on rectangle_mesh(-3,3,-3,3,1000,10000)
      (20,000,000 triangles, examples/generic_assembly_20m.py's scale,
      fp32) into pattern_unique_keys: max |row sum| / max |a| < 1e-5, within
@@ -404,6 +430,10 @@ _KERNELS = {
     "B10": ("ell_spmv_multi (redesigned: a thread a row, q sums in "
             "registers, the X window staged)", "tpufem_torch/csrc/ell.cu",
             "tpufem/sparse/ell_pallas.py:275"),
+    "B10g": ("ell_gather_multi, absolute columns (B10's kernel in "
+             "absolute-column mode: the gather form's multi-column product, "
+             "the mixed-precision modal path's fp64 residuals)",
+             "tpufem_torch/csrc/ell.cu", "tpufem/sparse/ell_pallas.py:275"),
     "B12": ("bcsr_spmv (with its per_block route, "
             "tpufem/sparse/ell_pallas.py:582; redesigned: slots unrolled and "
             "loaded ahead)", "tpufem_torch/csrc/bcsr.cu",
@@ -446,6 +476,7 @@ def _counters():
             "B9": (ell_cuda.ell_matvec_cuda, "launches"),
             "B9g": (ell_cuda.ell_gather_matvec_cuda, "launches"),
             "B10": (ell_cuda.ell_matvec_multi_cuda, "launches"),
+            "B10g": (ell_cuda.ell_gather_matvec_multi_cuda, "launches"),
             "B12": (ell_cuda.bcsr_matvec_cuda, "launches"),
             "B12g": (ell_cuda.bcsr_gather_matvec_cuda, "launches"),
             "B13": (assemble_cuda.assemble_stencil_cuda, "launches"),
@@ -1309,7 +1340,7 @@ def _check_ell(dev, records):
                  library=(_library_ell(data, cols, x)
                           if dtype == torch.float32 else None))
         X = torch.randn((n, 3), generator=gen, device=dev, dtype=dtype)
-        _compare(records, "B10", f"{n} rows {dt} absolute columns q=3",
+        _compare(records, "B10g", f"{n} rows {dt} absolute columns q=3",
                  lambda: ec.ell_gather_matvec_multi_cuda(data, cols, X),
                  lambda: ec.ell_gather_matvec_multi_plain(data, cols, X),
                  exact=True, timed=dtype == torch.float32, shapes=True,
@@ -1762,6 +1793,11 @@ def _paths(dev, records):
               lambda: _drive_p2_tet_robin(dev, records), ("B9",))
     _run_path("quad_hex", counters, records,
               lambda: _drive_quad_hex(dev, records), ("B9", "B9g"))
+    _run_path("nonlinear", counters, records,
+              lambda: _drive_nonlinear(dev), ("B9",))
+    _run_path("wave", counters, records, lambda: _drive_wave(dev), ("B9",))
+    _run_path("modal", counters, records,
+              lambda: _drive_modal(dev, records, keep), ("B10", "B10g"))
     _run_path("coo_matfree", counters, records,
               lambda: _drive_coo_matfree(dev, records, keep), ("B9",))
     _run_path("assembly", counters, records,
@@ -3521,6 +3557,432 @@ def _drive_quad_hex(dev, records):
                                             M=hier.apply))
             del A_p, hier, b_p
             torch.cuda.empty_cache()
+
+    return after
+
+
+# -- the physics solvers (ROADMAP A4a-c) -------------------------------------
+
+# examples/nonlinear_poisson.py's default: rectangle_mesh(-3,3,-3,3,512,512)
+# (263,169 DOFs), fp32, Jacobi, tol 1e-6, maxiter 40, from x0 = 0.  The JAX
+# package's own CPU run of the same script (fp32, XLA gather products):
+#   python scripts/physics_jax_reference.py nonlinear 512
+# prints 6 Newton steps, 580 inner CG iterations, relres 2.6996e-07 and a
+# rel L2 error of 7.2152e-06 (the TPU's phase 9: 6, 580 and 7.2e-6).
+N_NONLINEAR = 512
+NONLINEAR_DOFS = 263_169
+JAX_NONLINEAR = {"newton": 6, "inner": 580, "relres": 2.6996e-07,
+                 "error": 7.2152e-06}
+# examples/wave_equation.py --cells 1000 --periods 1 (1,002,001 DOFs, fp32:
+# the TPU's run had x64 off; BENCH_NOTES.md:809-812: 2212 steps, energy
+# drift 1.56e-3, period-return error 8e-4, 4305 steps/s); the fp64 case at
+# --cells 64 (tests/test_dynamics.py pins the drift near 1e-12).  The JAX
+# package's own CPU run of the same script in fp32, and of its steps on the
+# stiffness and mass assembled in fp64 and cast to fp32:
+#   python scripts/physics_jax_reference.py wave 1000
+# (2212 steps; drift 5.6260e-03 and 5.6946e-03, period-return error
+# 2.5935e-03 and 3.9545e-06).  scripts/wave_operator_swap.py steps either
+# package's fp32 and cast operators with the port's leapfrog_wave: the
+# return error follows the operator (its fp32 assembly leaves interior row
+# sums near 6e-7 where the cast's are 0), the drift follows the stepping's
+# fp32 energy dots.  The fp32 return error is so held to the JAX CPU run's,
+# not to the 2e-3 target, which the cast case keeps.
+WAVE_CELLS, WAVE_CELLS_FP64 = 1000, 64
+WAVE_DOFS = 1_002_001
+JAX_WAVE = {"steps": 2212, "drift": 5.6260e-03, "ret": 2.5935e-03,
+            "cast_drift": 5.6946e-03, "cast_ret": 3.9545e-06}
+# examples/modal_analysis.py --n 1000: k = 5, buffer 3, 20 inner AMG-PCG
+# iterations, 25 outer steps, mixed precision (BENCH_NOTES.md:1042-1049,
+# the TPU's G2: eigenvalue error 0.26%, max residual 3.1e-3)
+N_MODAL = 1000
+MODAL_K, MODAL_BUFFER, MODAL_INNER, MODAL_OUTER = 5, 3, 20, 25
+
+
+def _drive_nonlinear(dev):
+    """examples/nonlinear_poisson.py at its default size, composed from the
+    port: -Δu + u³ = f on (-3,3)² (exact solution (9-x²)(9-y²)), the ELL
+    stiffness, the semilinear load through element_nonlinear_load, Jacobi,
+    newton_krylov (tol 1e-6, maxiter 40) from 0 in fp32.  Gates: converged,
+    the Newton and inner CG counts of the JAX package's CPU run within 1
+    and 10%, rel L2 error <= 2e-5; the inner CG's products run B9 (on the
+    primal and the tangent of each dual residual)."""
+    import torch
+
+    from tpufem_torch.assemble.dense import assemble_vector
+    from tpufem_torch.assemble.ell import assemble_ell
+    from tpufem_torch.assemble.local import (element_load,
+                                             element_nonlinear_load,
+                                             p1_stiffness)
+    from tpufem_torch.fem.elements import P1Triangle
+    from tpufem_torch.fem.quadrature import triangle_rule
+    from tpufem_torch.mesh.adjacency import ell_pattern
+    from tpufem_torch.mesh.rectangle import rectangle_mesh
+    from tpufem_torch.solve.cg import cg_fixed
+    from tpufem_torch.solve.newton import _tangent_map, newton_krylov
+    from tpufem_torch.sparse import ell_cuda
+
+    def exact(x):
+        return (9.0 - x[..., 0] ** 2) * (9.0 - x[..., 1] ** 2)
+
+    def f(x):
+        return 36.0 - 2.0 * (x[..., 0] ** 2 + x[..., 1] ** 2) + exact(x) ** 3
+
+    t0 = time.perf_counter()
+    n = N_NONLINEAR
+    mesh = rectangle_mesh(-3.0, 3.0, -3.0, 3.0, n, n)
+    nn = mesh.num_nodes
+    pat = ell_pattern(mesh.conn, nn, pad_to=8, with_sort_plan=False)
+    t_host = time.perf_counter() - t0
+    check(nn == NONLINEAR_DOFS, f"nonlinear: {nn} DOFs")
+    el, rule = P1Triangle(), triangle_rule(5)
+    t0 = time.perf_counter()
+    ec = torch.as_tensor(mesh.element_coords(), dtype=torch.float32,
+                         device=dev)
+    conn = torch.as_tensor(mesh.conn, device=dev).long()
+    A = assemble_ell(pat, p1_stiffness(ec, el))
+    b = assemble_vector(conn, element_load(ec, el, rule, f), nn)
+    bc = torch.as_tensor(mesh.node_flags != 0, device=dev)
+    d = A.diagonal()
+    inv_d = torch.where(bc, 1.0, torch.where(d != 0, 1.0 / d, 1.0))
+    A.resolve_band()
+    torch.cuda.synchronize()
+    t_asm = time.perf_counter() - t0
+    check(isinstance(A._band, tuple), "nonlinear: no banded plan")
+
+    def M(r):
+        return r * inv_d
+
+    def residual(u):
+        ui = torch.where(bc, 0.0, u)
+        nl = assemble_vector(conn, element_nonlinear_load(
+            ec, el, rule, ui[conn], lambda w: w ** 3), nn)
+        return torch.where(bc, u, A.matvec(ui) + nl - b)
+
+    def solve():
+        t0 = time.perf_counter()
+        out = newton_krylov(residual, torch.zeros(nn, dtype=torch.float32,
+                                                  device=dev),
+                            tol=1e-6, maxiter=40, M=M)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # the first solve pays the process's one-time costs (torch scripts its
+    # forward-mode decompositions at the first dual level); the second is
+    # the one timed, as the example times its second, compiled run
+    cold, cold_wall = solve()
+    b9 = ell_cuda.ell_matvec_cuda.launches
+    res, wall = solve()
+    b9 = ell_cuda.ell_matvec_cuda.launches - b9
+    check((cold.iterations, cold.inner_iterations)
+          == (res.iterations, res.inner_iterations)
+          and torch.equal(cold.x, res.x),
+          "nonlinear: a second solve differs from the first")
+    ue = torch.as_tensor(exact(mesh.coords), device=dev)
+    err = _rel_err(res.x, ue)
+    jax = JAX_NONLINEAR
+    print(f"# nonlinear (n={n}, {nn:,} DOFs, fp32, Jacobi, tol 1e-6): "
+          f"{res.iterations} Newton steps (JAX CPU {jax['newton']}), "
+          f"{res.inner_iterations} inner CG iterations (JAX CPU "
+          f"{jax['inner']}), relres {res.residual_norm.item():.4e} (JAX CPU "
+          f"{jax['relres']:.4e}), converged {res.converged}, rel L2 error "
+          f"{err:.4e} (JAX CPU {jax['error']:.4e}, TPU 7.2e-6); solve wall "
+          f"{wall:.3f} s (the first, cold solve {cold_wall:.3f} s, the same "
+          f"x bit for bit), "
+          f"{1e3 * wall / max(res.inner_iterations, 1):.4f} ms per inner "
+          f"iteration with the line searches; B9 launches {b9}; host mesh "
+          f"and pattern {t_host:.2f} s, assembly and plan {t_asm:.2f} s")
+    check(res.converged, "nonlinear: not converged")
+    check(abs(res.iterations - jax["newton"]) <= 1,
+          f"nonlinear: {res.iterations} Newton steps, JAX {jax['newton']}")
+    check(abs(res.inner_iterations - jax["inner"]) <= 0.1 * jax["inner"],
+          f"nonlinear: {res.inner_iterations} inner iterations, JAX "
+          f"{jax['inner']}")
+    check(err <= 2e-5, f"nonlinear: rel L2 error {err:.3e} > 2e-5")
+
+    x = res.x
+
+    def after():
+        # the inner CG at the solution: each iteration one dual residual
+        # (the primal paid again beside the tangent) and the Jacobi sweep
+        jmv = _tangent_map(residual, x)
+        r = residual(x)
+        _per_iteration("nonlinear", lambda: cg_fixed(jmv, -r, 10, M=M))
+
+    return after
+
+
+def _wave_case(cells, dtype, dev, cast=False):
+    """examples/wave_equation.py --cells ``cells`` composed from the port:
+    the unit square's P1 stiffness from the weak form (ELL), the lumped
+    mass, stable_dt's step, leapfrog_wave over one period of the (1,1)
+    standing mode; with ``cast`` the stiffness and the mass are assembled
+    in fp64 and cast to ``dtype``.  Returns its numbers and a closure that
+    reruns it for a given number of steps."""
+    import numpy as np
+    import torch
+
+    from tpufem_torch.fem.space import FunctionSpace
+    from tpufem_torch.forms.language import dot, grad
+    from tpufem_torch.forms.weakform import WeakForm
+    from tpufem_torch.mesh.rectangle import unit_square_mesh
+    from tpufem_torch.solve.dynamics import (leapfrog_wave, lumped_mass,
+                                             stable_dt)
+    from tpufem_torch.sparse import ell_cuda
+    from tpufem_torch.sparse.ell import ELLMatrix
+
+    t0 = time.perf_counter()
+    mesh = unit_square_mesh(cells, cells)
+    V = FunctionSpace(mesh, degree=1)
+    asm = torch.float64 if cast else dtype
+    K, _ = WeakForm(V, dtype=asm, device=dev).build(
+        lambda u, v: dot(grad(u), grad(v))).assemble(format="ell")
+    mL = lumped_mass(V, asm, device=dev)
+    if cast:
+        K = ELLMatrix(K.data.to(dtype), K.cols, K.row_lengths, K.diag_pos)
+        mL = mL.to(dtype)
+    mask = torch.as_tensor(V.dof_flags, device=dev)
+    c = mesh.coords
+    u0 = torch.where(mask, 0.0, torch.as_tensor(
+        np.sin(np.pi * c[:, 0]) * np.sin(np.pi * c[:, 1]), dtype=dtype,
+        device=dev))
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+
+    omega = np.sqrt(2.0) * np.pi
+    period = 2 * np.pi / omega
+    t0 = time.perf_counter()
+    dt_cap = stable_dt(K.matvec, mL)
+    t_dt = time.perf_counter() - t0
+    steps = int(np.ceil(period / dt_cap))
+    dt = period / steps
+    v0 = torch.zeros_like(u0)
+    b9 = ell_cuda.ell_matvec_cuda.launches
+    t0 = time.perf_counter()
+    res = leapfrog_wave(K.matvec, mL, u0, v0, dt, steps, bc_mask=mask)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b9 = ell_cuda.ell_matvec_cuda.launches - b9
+    e = res.energy.double()
+    drift = ((e - e[0]).abs().max() / e[0].abs()).item()
+    ret = (torch.linalg.vector_norm((res.u - u0).double())
+           / torch.linalg.vector_norm(u0.double())).item()
+    return dict(dofs=V.num_dofs, steps=steps, dt=dt, drift=drift, ret=ret,
+                wall=wall, b9=b9, t_build=t_build, t_dt=t_dt,
+                banded=isinstance(K._band, tuple),
+                run=lambda s: leapfrog_wave(K.matvec, mL, u0, v0, dt, s,
+                                            bc_mask=mask))
+
+
+def _drive_wave(dev):
+    """examples/wave_equation.py --cells 1000 --periods 1 in fp32 (1,002,001
+    DOFs): stable_dt sets the step (printed beside the TPU's 2212), energy
+    drift <= 5e-3 and the period-return error within 10% of the JAX
+    package's CPU run of the same script (JAX_WAVE: its fp32 assembly's
+    rounding sets it); the same steps on the stiffness and mass assembled
+    in fp64 and cast to fp32: drift <= 5e-3, return error <= 2e-3; then
+    fp64 at --cells 64 and 1000: drift <= 1e-10.  B9 launches once per
+    step plus the start in each."""
+    import torch
+
+    kind = torch.cuda.get_device_name(0)
+    jax = JAX_WAVE
+    cases = {"fp32": _wave_case(WAVE_CELLS, torch.float32, dev),
+             "fp64 assembly cast to fp32": _wave_case(
+                 WAVE_CELLS, torch.float32, dev, cast=True),
+             f"fp64 cells {WAVE_CELLS_FP64}": _wave_case(
+                 WAVE_CELLS_FP64, torch.float64, dev),
+             "fp64": _wave_case(WAVE_CELLS, torch.float64, dev)}
+    for name, w in cases.items():
+        print(f"# wave {name} ({w['dofs']:,} DOFs): {w['steps']} steps of dt "
+              f"{w['dt']:.4e}, energy drift {w['drift']:.3e}, period-return "
+              f"error {w['ret']:.3e}, wall {w['wall']:.3f} s, "
+              f"{w['steps'] / w['wall']:.1f} steps/s on {kind}; B9 launches "
+              f"{w['b9']}; weak-form build and lumped mass {w['t_build']:.2f} "
+              f"s, stable_dt {w['t_dt']:.2f} s")
+        check(w["banded"], f"wave {name}: no banded plan")
+        check(w["b9"] == w["steps"] + 1,
+              f"wave {name}: {w['b9']} B9 launches for {w['steps']} steps")
+    w, wc = cases["fp32"], cases["fp64 assembly cast to fp32"]
+    print(f"# wave fp32 beside the references: steps {w['steps']} (TPU 2212, "
+          f"JAX CPU {jax['steps']}), drift {w['drift']:.3e} (JAX CPU "
+          f"{jax['drift']:.3e}, TPU 1.56e-3), period-return error "
+          f"{w['ret']:.3e} (JAX CPU {jax['ret']:.3e}, TPU 8e-4; the 2e-3 "
+          f"target {'met' if w['ret'] <= 2e-3 else 'NOT met'}, gated at 1.1 "
+          f"x JAX CPU; on the fp64 "
+          f"assembly cast {wc['ret']:.3e}, JAX CPU {jax['cast_ret']:.3e}), "
+          f"{w['steps'] / w['wall']:.1f} steps/s (TPU 4305, not a target)")
+    check(w["dofs"] == WAVE_DOFS, f"wave: {w['dofs']} DOFs")
+    check(w["drift"] <= 5e-3, f"wave: energy drift {w['drift']:.3e}")
+    check(w["ret"] <= 1.1 * jax["ret"],
+          f"wave: period-return error {w['ret']:.3e}, JAX CPU "
+          f"{jax['ret']:.3e}")
+    check(wc["drift"] <= 5e-3 and wc["ret"] <= 2e-3,
+          f"wave cast: drift {wc['drift']:.3e}, return {wc['ret']:.3e}")
+    for name in (f"fp64 cells {WAVE_CELLS_FP64}", "fp64"):
+        check(cases[name]["drift"] <= 1e-10,
+              f"wave {name}: energy drift {cases[name]['drift']:.3e}")
+    run = w["run"]
+    return lambda: _per_iteration("wave", lambda: run(10))
+
+
+def _drive_modal(dev, records, keep):
+    """examples/modal_analysis.py --n 1000 composed from the port: the
+    unstructured path's RCM-ordered perturbed mesh (1,002,001 DOFs), the
+    fp64 ELL stiffness with its Dirichlet rows eliminated and the lumped
+    mass (unit mass on the constrained rows), the fp32 cast on its banded
+    plan, build_amg(strength=0.08) on it, and the mixed-precision subspace
+    iteration: k = 5, buffer 3, 20 inner AMG-PCG iterations in lockstep
+    (cg_fixed_block over B10 at q = 8, the V-cycle's apply_multi), 3
+    refinement rounds with fp64 residuals (B10's absolute-column form on
+    the fp64 values), 25 outer steps.  Gates: the eigenvalues within 5e-3
+    + 40 / n² of pi² (i² + j²) / 36 (the example's), max residual <= 1e-2;
+    B10 banded at q = 8 and absolute in fp64 at q = 8 and q = 5."""
+    import numpy as np
+    import torch
+
+    from tpufem_torch.assemble.dense import assemble_vector
+    from tpufem_torch.assemble.ell import assemble_ell
+    from tpufem_torch.assemble.local import element_mass, p1_stiffness
+    from tpufem_torch.fem.elements import P1Triangle
+    from tpufem_torch.fem.quadrature import triangle_rule
+    from tpufem_torch.mesh.adjacency import ell_pattern
+    from tpufem_torch.solve.amg import build_amg
+    from tpufem_torch.solve.bc import apply_dirichlet_ell
+    from tpufem_torch.solve.cg import cg_fixed_block
+    from tpufem_torch.solve.eigen import subspace_stepper
+    from tpufem_torch.sparse import ell_cuda
+    from tpufem_torch.sparse.ell import ELLMatrix, ell_matvec_multi
+    from tpufem_torch.utils.timing import PhaseTimer, cuda_ms
+
+    mesh = keep["unstructured_mesh"]
+    nn = mesh.num_nodes
+    check(nn == ELL_ROWS, f"modal: {nn} DOFs")
+    timer = PhaseTimer()
+    el = P1Triangle()
+    with timer("pattern"):
+        pat = ell_pattern(mesh.conn, nn, pad_to=8, with_sort_plan=False)
+    with timer("assemble_fp64"):
+        ec = torch.as_tensor(mesh.element_coords(), dtype=torch.float64,
+                             device=dev)
+        bc = torch.as_tensor(mesh.node_flags != 0, device=dev)
+        A, _ = apply_dirichlet_ell(assemble_ell(pat, p1_stiffness(ec, el)),
+                                   torch.zeros(nn, dtype=torch.float64,
+                                               device=dev), bc)
+        mL = assemble_vector(mesh.conn, element_mass(
+            ec, el, triangle_rule(5)).sum(-1), nn)
+        mL = torch.where(bc, 1.0, mL)
+        del ec
+        data64 = A.data
+        A32 = ELLMatrix(data64.float(), A.cols, A.row_lengths, A.diag_pos)
+        A32.resolve_band()
+        torch.cuda.synchronize()
+    check(isinstance(A32._band, tuple), "modal: no banded plan")
+    walls = {}
+    with timer("amg_setup"):
+        hier = build_amg(A32, strength=0.08, walls_out=walls)
+        torch.cuda.synchronize()
+    _print_hierarchy("modal", walls, timer.report()["amg_setup"])
+    check(walls["gather"] == [], f"modal: a matrix rode the gather form: "
+                                 f"{walls['gather']}")
+
+    widths = {"banded": {}, "hi": {}}
+
+    def seen(kind, q):
+        widths[kind][q] = widths[kind].get(q, 0) + 1
+
+    def mv_multi(X):
+        seen("banded", X.shape[1])
+        return A32.matvec_multi(X)
+
+    def hi_multi(X):
+        seen("hi", X.shape[1])
+        return ell_matvec_multi(data64, A32.cols, X)
+
+    q = MODAL_K + MODAL_BUFFER
+    X0, step, finish = subspace_stepper(
+        A32.matvec, nn, MODAL_K, lumped_mass=mL, M=hier.apply, bc_mask=bc,
+        inner_iters=MODAL_INNER, outer_iters=MODAL_OUTER,
+        buffer=MODAL_BUFFER, dtype=torch.float32, matvec_multi=mv_multi,
+        M_multi=hier.apply_multi, matvec_hi_multi=hi_multi, device=dev)
+    b10 = (ell_cuda.ell_matvec_multi_cuda.launches,
+           ell_cuda.ell_gather_matvec_multi_cuda.launches)
+    with timer("solve"):
+        X = X0
+        for _ in range(MODAL_OUTER):
+            X = step(X)
+        res = finish(X)
+        torch.cuda.synchronize()
+    b10 = (ell_cuda.ell_matvec_multi_cuda.launches - b10[0],
+           ell_cuda.ell_gather_matvec_multi_cuda.launches - b10[1])
+    lam = res.eigenvalues.cpu().numpy()
+    exact = np.array(sorted(np.pi ** 2 / 36 * (i * i + j * j)
+                            for i in range(1, 6)
+                            for j in range(1, 6)))[:MODAL_K]
+    lam_err = float(np.abs(lam - exact).max() / exact.max())
+    max_res = res.residual_norms.max().item()
+    gate = 5e-3 + 40.0 / (N_MODAL * N_MODAL)
+    phases = timer.report()
+    print(f"# modal (n={N_MODAL}, {nn:,} DOFs, k={MODAL_K}, buffer "
+          f"{MODAL_BUFFER}, {MODAL_INNER} inner AMG-PCG iterations in "
+          f"lockstep, {MODAL_OUTER} outer steps, mixed precision): "
+          f"eigenvalues {np.round(lam, 8).tolist()} (exact "
+          f"{np.round(exact, 8).tolist()}), rel eigenvalue error "
+          f"{lam_err:.4e} (gate {gate:.4e}; TPU G2 2.6e-3), max residual "
+          f"{max_res:.4e} (TPU 3.1e-3); solve wall {phases['solve']:.3f} s "
+          f"({1e3 * phases['solve'] / MODAL_OUTER:.2f} ms per outer step); "
+          f"B10 banded launches {b10[0]} (products of the block CG by "
+          f"width: {widths['banded']}), B10 absolute (fp64) launches "
+          f"{b10[1]} (by width: {widths['hi']}); phases (s) "
+          + json.dumps({k: round(v, 4) for k, v in phases.items()}))
+    check(lam_err <= gate, f"modal: rel eigenvalue error {lam_err:.3e} > "
+                           f"{gate:.3e}")
+    check(max_res <= 1e-2, f"modal: max residual {max_res:.3e} > 1e-2")
+    check(widths["banded"].get(q, 0) > 0 and b10[0] > 0,
+          f"modal: B10 banded never ran at q = {q}")
+    check(widths["hi"].get(q, 0) > 0 and widths["hi"].get(MODAL_K, 0) > 0
+          and b10[1] == sum(widths["hi"].values()),
+          f"modal: B10 absolute at q = {q} / {MODAL_K}: {widths['hi']}, "
+          f"{b10[1]} launches")
+
+    def after():
+        gen = torch.Generator(device=dev).manual_seed(13)
+        Xq = torch.randn((nn, q), generator=gen, device=dev,
+                         dtype=torch.float64)
+        cols = A32.cols
+        k = cols.shape[1]
+        # the bound on the bytes the nonzeros need (each nonzero's value
+        # and index, X and Y once), the padded plan's printed beside
+        nnz = int((data64 != 0).sum())
+        xy = 2 * nn * q * 8
+        needed, padded = nnz * (8 + 4) + xy, k * nn * (8 + 4) + xy
+        print(f"# modal B10g bounds: needed "
+              f"{needed / HBM_BYTES_PER_S * 1e3:.4f} ms ({nnz} nonzeros, "
+              f"{needed / 1e6:.1f} MB), padded "
+              f"{padded / HBM_BYTES_PER_S * 1e3:.4f} ms ({k} slots, "
+              f"{padded / 1e6:.1f} MB)")
+        label = f"modal {nn} rows fp64 absolute columns q={q}"
+
+        def kernel():
+            return ell_cuda.ell_gather_matvec_multi_cuda(data64, cols, Xq)
+
+        _compare(records, "B10g", label, kernel,
+                 lambda: ell_cuda.ell_gather_matvec_multi_plain(data64, cols,
+                                                                Xq),
+                 exact=True, timed=True, shapes=True,
+                 work=([needed - nn * q * 8], 2 * nnz * q, "float64"),
+                 library=_library_ell(data64, cols, Xq, nonzeros=True))
+        ref = kernel()
+        pad_ms = _library_ms(_library_ell(data64, cols, Xq), ref,
+                             f"B10g {label} (CSR of the padded rows)")
+        reps = [cuda_ms(kernel, reps=REPS) for _ in range(3)]
+        print("# modal B10g: CSR of the padded rows "
+              + ("failed" if pad_ms is None else f"{pad_ms:.4f} ms")
+              + "; three more device timings of the kernel (ms) "
+              + ", ".join(f"{t:.4f}" for t in reps))
+        del ref
+        B = (mL[:, None] * X).float()
+        _per_iteration("modal", lambda: cg_fixed_block(
+            A32.matvec_multi, B, 10, M_multi=hier.apply_multi))
 
     return after
 

@@ -4,7 +4,8 @@ pair), B5b, B7, B8, the ELL kernels B9-B11, the BCSR kernel
 B12, the fused assembly B13, the block sum B14 and SAXPY B15 against their
 plain PyTorch versions on the card; the weak-form frontend's scatters
 (boundary slots, COO, matrix-free products) bit for bit across runs, and
-its entry points on B9.
+its entry points on B9; the physics solvers on B9 (the dual products of
+Newton-Krylov) and B10 (the modal path's fp64 absolute-column form).
 
 Every test here needs an NVIDIA GPU with nvcc (sm_90a) and skips without
 one.  This file imports neither JAX nor the JAX package, so it runs on a
@@ -2323,3 +2324,170 @@ def test_weakform_entry_points_launch_b9_not_plain(dev, monkeypatch, cell):
     assert ell_cuda.ell_matvec_cuda.launches > before
     assert card.cg.converged and card.cg.iterations == cpu.cg.iterations
     assert (card.u.cpu() - cpu.u).abs().max() <= 1e-10 * cpu.u.abs().max()
+
+
+def test_ell_dual_product_launches_b9_twice(dev):
+    """The forward-mode product (Newton's Jacobian-vector product): a dual
+    x runs B9 on the primal and on the tangent, each bit for bit its plain
+    version's."""
+    import torch.autograd.forward_ad as fwad
+
+    from tpufem_torch.sparse import ell_cuda
+    from tpufem_torch.sparse.ell import ELLMatrix
+
+    data, cols, x = _ell_case(dev, torch.float64)
+    t = torch.randn(x.shape[0], generator=torch.Generator(
+        device="cpu").manual_seed(1), dtype=x.dtype).to(dev)
+    A = ELLMatrix(data, cols).resolve_band()
+    plan, d_t, rel = A._band
+    before = ell_cuda.ell_matvec_cuda.launches
+    with fwad.dual_level():
+        y = fwad.unpack_dual(A.matvec(fwad.make_dual(x, t)))
+    torch.cuda.synchronize()
+    assert ell_cuda.ell_matvec_cuda.launches == before + 2
+    assert torch.equal(y.primal, ell_cuda.ell_band_matvec_plain(
+        plan, d_t, rel, x))
+    assert torch.equal(y.tangent, ell_cuda.ell_band_matvec_plain(
+        plan, d_t, rel, t))
+
+
+@pytest.mark.parametrize("q", [8, 5])
+def test_ell_gather_multi_fp64_at_the_modal_widths(dev, q):
+    """B10's absolute-column form in fp64 at the modal path's q = 8 (the
+    refinement's residuals) and q = 5 (its finish), bit for bit."""
+    from tpufem_torch.sparse import ell_cuda
+
+    data, cols, _ = _ell_case(dev, torch.float64, n=20001, band=150)
+    X = torch.randn((20001, q), generator=torch.Generator(
+        device="cpu").manual_seed(q), dtype=torch.float64).to(dev)
+    before = ell_cuda.ell_gather_matvec_multi_cuda.launches
+    Y = ell_cuda.ell_gather_matvec_multi_cuda(data, cols, X)
+    torch.cuda.synchronize()
+    assert ell_cuda.ell_gather_matvec_multi_cuda.launches == before + 1
+    assert torch.equal(Y, ell_cuda.ell_gather_matvec_multi_plain(data, cols,
+                                                                 X))
+
+
+def test_physics_solvers_on_the_card_match_the_cpu(dev, monkeypatch):
+    """newton_krylov, leapfrog_wave and the mixed subspace iteration on
+    the card (B9, B10 banded and absolute; the plain products refused)
+    against the same calls on the CPU: Newton and inner counts equal, x
+    within 1e-10; the wave within 1e-12; the fp64 Rayleigh-Ritz values of
+    the fp64 lockstep steps' subspace within 1e-10, the mixed steps'
+    eigenvalues within 8 eps32; one B9 launch per step plus one."""
+    from tpufem_torch.assemble.dense import assemble_vector
+    from tpufem_torch.assemble.ell import assemble_ell
+    from tpufem_torch.assemble.local import (element_load, element_mass,
+                                             element_nonlinear_load,
+                                             p1_stiffness)
+    from tpufem_torch.fem.elements import P1Triangle
+    from tpufem_torch.fem.quadrature import triangle_rule
+    from tpufem_torch.mesh.adjacency import ell_pattern
+    from tpufem_torch.mesh.rectangle import rectangle_mesh
+    from tpufem_torch.solve.bc import apply_dirichlet_ell
+    from tpufem_torch.solve.dynamics import leapfrog_wave
+    from tpufem_torch.solve.eigen import subspace_stepper
+    from tpufem_torch.solve.newton import newton_krylov
+    from tpufem_torch.solve.precond import jacobi
+    from tpufem_torch.sparse import ell_cuda
+    from tpufem_torch.sparse.ell import ELLMatrix, ell_matvec_multi
+
+    mesh = rectangle_mesh(-3, 3, -3, 3, 24, 24)
+    nn = mesh.num_nodes
+    el, rule = P1Triangle(), triangle_rule(5)
+    pat = ell_pattern(mesh.conn, nn, pad_to=8, with_sort_plan=False)
+
+    def exact(x):
+        return (9.0 - x[..., 0] ** 2) * (9.0 - x[..., 1] ** 2)
+
+    def system(device):
+        ec = torch.as_tensor(mesh.element_coords(), device=device)
+        conn = torch.as_tensor(mesh.conn, device=device).long()
+        A = assemble_ell(pat, p1_stiffness(ec, el))
+        b = assemble_vector(conn, element_load(
+            ec, el, rule, lambda x: 36.0 - 2.0 * (x[..., 0] ** 2
+                                                  + x[..., 1] ** 2)
+            + exact(x) ** 3), nn)
+        bc = torch.as_tensor(mesh.node_flags != 0, device=device)
+        mL = assemble_vector(conn, element_mass(ec, el, rule).sum(-1), nn)
+        return ec, conn, A, b, bc, mL
+
+    def run(device):
+        ec, conn, A, b, bc, mL = system(device)
+
+        def residual(u):
+            ui = torch.where(bc, 0.0, u)
+            nl = assemble_vector(conn, element_nonlinear_load(
+                ec, el, rule, ui[conn], lambda w: w ** 3), nn)
+            return torch.where(bc, u, A.matvec(ui) + nl - b)
+
+        inv = torch.where(bc, 1.0, 1.0 / A.diagonal())
+        nk = newton_krylov(residual, torch.zeros(nn, dtype=torch.float64,
+                                                 device=device),
+                           tol=1e-10, M=lambda r: r * inv)
+        Ab, _ = apply_dirichlet_ell(A, torch.zeros_like(b), bc)
+        u0 = torch.where(bc, 0.0, torch.as_tensor(np.sin(
+            np.pi * (mesh.coords[:, 0] + 3) / 6) * np.sin(
+            np.pi * (mesh.coords[:, 1] + 3) / 6), device=device))
+        b9 = ell_cuda.ell_matvec_cuda.launches
+        wave = leapfrog_wave(Ab.matvec, mL, u0, torch.zeros_like(u0), 0.02,
+                             50, bc_mask=bc)
+        b9 = ell_cuda.ell_matvec_cuda.launches - b9
+        mL1 = torch.where(bc, 1.0, mL)
+        A32 = ELLMatrix(Ab.data.float(), Ab.cols, Ab.row_lengths,
+                        Ab.diag_pos)
+        _, step, finish = subspace_stepper(
+            A32.matvec, nn, 3, lumped_mass=mL1, M=jacobi(A32), bc_mask=bc,
+            inner_iters=15, buffer=3, dtype=torch.float32,
+            matvec_multi=A32.matvec_multi,
+            matvec_hi_multi=lambda X: ell_matvec_multi(Ab.data, Ab.cols, X),
+            device=device)
+        X = torch.as_tensor(np.where(
+            (mesh.node_flags != 0)[:, None], 0.0, np.random.default_rng(
+                0).standard_normal((nn, 6))), device=device)
+        X64 = X
+        _, step64, _ = subspace_stepper(
+            Ab.matvec, nn, 3, lumped_mass=mL1, M=jacobi(Ab), bc_mask=bc,
+            inner_iters=15, buffer=3, matvec_multi=Ab.matvec_multi,
+            device=device)
+        for _ in range(3):
+            X, X64 = step(X), step64(X64)
+        return nk, wave, b9, X64, finish(X), Ab, mL1
+
+    cpu = run("cpu")
+    for plain in ("ell_band_matvec_plain", "ell_band_matvec_multi_plain",
+                  "ell_gather_matvec_plain", "ell_gather_matvec_multi_plain"):
+        monkeypatch.setattr(ell_cuda, plain, _refuse_plain)
+    before = (ell_cuda.ell_matvec_multi_cuda.launches,
+              ell_cuda.ell_gather_matvec_multi_cuda.launches)
+    card = run(dev)
+    torch.cuda.synchronize()
+    assert ell_cuda.ell_matvec_multi_cuda.launches > before[0]
+    assert ell_cuda.ell_gather_matvec_multi_cuda.launches > before[1]
+    (nk, wave, b9, X, fin, Ab, mL), (nkc, wavec, _, Xc, finc, _, _) = (
+        card, cpu)
+    assert nk.converged and nk.iterations == nkc.iterations
+    assert nk.inner_iterations == nkc.inner_iterations
+    assert (nk.x.cpu() - nkc.x).abs().max() <= 1e-10 * nkc.x.abs().max()
+    assert b9 == 51
+    for a, c in zip(wave, wavec):
+        assert (a.cpu() - c).abs().max() <= 1e-12 * c.abs().max()
+    D, m = Ab.to_dense().cpu().double().numpy(), mL.cpu().numpy()
+
+    def ritz64(Y):
+        Y = Y.cpu().numpy()
+        G = np.linalg.cholesky(Y.T @ (m[:, None] * Y))
+        Gi = np.linalg.inv(G)
+        return np.linalg.eigvalsh(Gi @ (Y.T @ D @ Y) @ Gi.T)
+
+    # the fp64 lockstep steps' subspaces give the same Ritz values; the
+    # mixed ones, whose fp32 inner solves round differently on the card,
+    # agree at fp32 resolution (tests/test_torch_eigen.py's)
+    lam, lamc = ritz64(X), ritz64(Xc)
+    assert np.abs(lam - lamc).max() <= 1e-10 * np.abs(lamc).max()
+    assert (fin.eigenvalues.cpu() - finc.eigenvalues).abs().max() <= \
+        8 * np.finfo(np.float32).eps * finc.eigenvalues.abs().max()
+
+
+def _refuse_plain(*args, **kw):
+    raise AssertionError("a plain version ran on the card")

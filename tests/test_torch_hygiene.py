@@ -65,6 +65,8 @@ _PORT_MODULES = [
     "tpufem_torch.native",
     "tpufem_torch.fem.facets", "tpufem_torch.assemble.coo",
     "tpufem_torch.sparse.matfree", "tpufem_torch.forms.symbolic",
+    "tpufem_torch.solve.newton", "tpufem_torch.solve.dynamics",
+    "tpufem_torch.solve.eigen",
     "chip_smoke",
 ]
 
@@ -78,11 +80,10 @@ _EXPORTS = [
     "WeakForm", "solve_poisson_fast", "build_poisson_multigrid",
     "solve_elasticity", "solve_poisson_ell", "build_amg",
     "build_block_amg", "build_dist_amg", "rectangle_quad_mesh",
-    "box_hex_mesh", "greedy_element_coloring"]
+    "box_hex_mesh", "greedy_element_coloring", "newton_krylov",
+    "smallest_eigenpairs", "leapfrog_wave"]
 # the JAX package's other root names, with the ROADMAP item that ports each
-_NOT_PORTED = {
-    "newton_krylov": "A4", "smallest_eigenpairs": "A4",
-    "leapfrog_wave": "A4", "solve_stokes": "A4", "minres": "A4"}
+_NOT_PORTED = {"solve_stokes": "A4", "minres": "A4"}
 
 
 def test_port_imports_no_jax():
@@ -239,6 +240,36 @@ def _members():
         (stencil, jstencil, ("stencil_values", "assemble_stencil")))
         for name in names]
     pairs += _a3_members()
+    pairs += _a4_members()
+    return pairs
+
+
+# the physics solvers' modules (A4a-c): every name of the JAX module's
+# __all__, and the block CG and the semilinear load beside them
+_A4_MODULES = ("solve.newton", "solve.dynamics", "solve.eigen")
+
+
+def _a4_members():
+    import importlib
+
+    from tpufem.assemble import local as jlocal
+    from tpufem.solve import cg as jcg
+
+    from tpufem_torch.assemble import local
+    from tpufem_torch.solve import cg
+
+    pairs = [(cg.cg_fixed_block, jcg.cg_fixed_block),
+             (local.element_nonlinear_load, jlocal.element_nonlinear_load)]
+    for name in _A4_MODULES:
+        port = importlib.import_module(f"tpufem_torch.{name}")
+        ref = importlib.import_module(f"tpufem.{name}")
+        assert port.__all__ == ref.__all__, name
+        for n in ref.__all__:
+            p, r = getattr(port, n), getattr(ref, n)
+            if isinstance(r, type):                 # the result tuples
+                assert p._fields == r._fields, n
+            else:
+                pairs.append((p, r))
     return pairs
 
 
@@ -282,12 +313,27 @@ def _a3_members():
 
 
 def test_ported_members_keep_the_reference_signatures():
+    import jax.numpy as jnp
+
     def shape(fn):
         return [(p.name, p.kind, p.default)
                 for p in inspect.signature(fn).parameters.values()]
 
+    def as_ref(fn, require_device=False):
+        """The port's parameters with torch's float64 for jnp's, the
+        port's trailing device= (the card by default) checked and left
+        out; with ``require_device`` it must be there."""
+        ours = [(n, k, jnp.float64 if d is torch.float64 else d)
+                for n, k, d in shape(fn)]
+        assert not require_device or ours[-1][0] == "device", \
+            fn.__qualname__
+        if ours and ours[-1][0] == "device":
+            assert ours.pop() == ("device", inspect.Parameter.KEYWORD_ONLY,
+                                  "cuda"), fn.__qualname__
+        return ours
+
     for port, ref in _members():
-        assert shape(port) == shape(ref), port.__qualname__
+        assert as_ref(port) == shape(ref), port.__qualname__
     # B14 under the reference's name: its data arguments and default block
     # (interpret= is the TPU's and is not ported)
     from tpufem.ops.reduction import pallas_block_reduce as jax_reduce
@@ -295,18 +341,22 @@ def test_ported_members_keep_the_reference_signatures():
     from tpufem_torch.ops.reduction import pallas_block_reduce
 
     assert shape(pallas_block_reduce) == shape(jax_reduce)[:2]
-    # integrate_boundary takes torch's float64 for jnp's and adds the
-    # port's device= (the card by default)
-    import jax.numpy as jnp
-
+    # integrate_boundary and the physics solvers' entry points that place
+    # their results take torch's float64 for jnp's and add the port's
+    # device= (keyword-only, the card by default)
     from tpufem.forms.weakform import integrate_boundary as jax_ib
+    from tpufem.solve import dynamics as jdyn
+    from tpufem.solve import eigen as jeig
 
     from tpufem_torch.forms.weakform import integrate_boundary
+    from tpufem_torch.solve import dynamics, eigen
 
-    ours = [(n, k, jnp.float64 if d is torch.float64 else d)
-            for n, k, d in shape(integrate_boundary)]
-    assert ours[:-1] == shape(jax_ib)
-    assert ours[-1] == ("device", inspect.Parameter.KEYWORD_ONLY, "cuda")
+    for port, ref in ((integrate_boundary, jax_ib),
+                      (dynamics.lumped_mass, jdyn.lumped_mass),
+                      (eigen.subspace_stepper, jeig.subspace_stepper),
+                      (eigen.smallest_eigenpairs, jeig.smallest_eigenpairs)):
+        assert as_ref(port, require_device=True) == shape(ref), \
+            port.__qualname__
 
 
 def test_ported_members_match_the_reference():

@@ -28,7 +28,10 @@ preconditioners of ``solve_poisson_ell`` and ``solve_elasticity`` with
 ``tpufem_torch.native``), the reduction and SAXPY kernels
 (``ops.reduction``, ``ops.saxpy_cuda``) and the multi-device path
 (``dist``: a single-controller device mesh, the sharded halo CGs, the
-sharded fused build on kernel B8, the distributed multigrid and AMG).
+sharded fused build on kernel B8, the distributed multigrid and AMG), and
+the physics solvers: matrix-free Newton-Krylov (``solve.newton``),
+explicit leapfrog dynamics (``solve.dynamics``) and modal analysis by
+subspace iteration (``solve.eigen``, on ``solve.cg.cg_fixed_block``).
 
 The package root exports the meshes, spaces, rules, ``cg`` and the matrix
 classes, and resolves the heavier entry points lazily, as the JAX
@@ -64,14 +67,15 @@ _LAZY = {
     "build_amg": ("tpufem_torch.solve.amg", "build_amg"),
     "build_dist_amg": ("tpufem_torch.dist.amg", "build_dist_amg"),
     "build_block_amg": ("tpufem_torch.solve.amg_block", "build_block_amg"),
+    "newton_krylov": ("tpufem_torch.solve.newton", "newton_krylov"),
+    "smallest_eigenpairs": ("tpufem_torch.solve.eigen",
+                            "smallest_eigenpairs"),
+    "leapfrog_wave": ("tpufem_torch.solve.dynamics", "leapfrog_wave"),
 }
 
 # names the JAX package exports that the port does not have yet, with the
 # ROADMAP item that brings each
-_NOT_PORTED = {
-    "newton_krylov": "A4", "smallest_eigenpairs": "A4",
-    "leapfrog_wave": "A4", "solve_stokes": "A4", "minres": "A4",
-}
+_NOT_PORTED = {"solve_stokes": "A4", "minres": "A4"}
 
 
 def __getattr__(name):

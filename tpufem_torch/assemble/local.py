@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["affine_geometry", "p1_stiffness", "element_mass",
-           "element_load", "map_points"]
+           "element_load", "element_nonlinear_load", "map_points"]
 
 _REF_VOLUME = {"triangle": 0.5, "tetrahedron": 1.0 / 6.0}
 
@@ -88,6 +88,23 @@ def map_points(ecoords: torch.Tensor, element, rule) -> torch.Tensor:
     """Physical coordinates of the quadrature points, [NE, Q, dim]."""
     phi = _table(element.shape_values(rule.points), ecoords)
     return (phi[None, :, :, None] * ecoords[:, None, :, :]).sum(2)
+
+
+def element_nonlinear_load(ecoords: torch.Tensor, element, rule, u_local,
+                           g) -> torch.Tensor:
+    """State-dependent load b_e[i] = sum_q w_q phi_i(q) g(u(x_q)) |det J|:
+    the element vector of a semilinear term ``∫ g(u) v``, the local DOFs
+    ``u_local [NE, n]`` interpolated to the quadrature points.  Plain
+    tensor operations, so a forward-mode dual ``u_local`` carries the
+    Gateaux derivative ∫ g'(u) w v (what Newton's Jacobian needs)."""
+    phi = _table(element.shape_values(rule.points), ecoords)
+    w = _table(rule.weights, ecoords)
+    _, adet = affine_geometry(ecoords, element)
+    uq = (phi[None, :, :] * u_local[:, None, :]).sum(-1)   # [NE, Q]
+    gq = g(uq)
+    wphi = w[:, None] * phi                                # [Q, n]
+    be = (gq[:, :, None] * wphi[None, :, :]).sum(1)        # [NE, n]
+    return be * adet[:, None]
 
 
 def element_load(ecoords: torch.Tensor, element, rule, f) -> torch.Tensor:

@@ -10,6 +10,8 @@ back per ``check_every`` block, ``cg_fixed`` none at all.
 final pass).  Without them the dots run over the flattened vectors, as the
 reference's ``jnp.vdot`` does, so the vectors may have any shape (the
 elasticity solve iterates on a component-major [b, n] block).
+``cg_fixed_block`` runs q independent chains in lockstep on [n, q] blocks,
+its scalars length-q vectors.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-__all__ = ["CGResult", "cg", "cg_fixed"]
+__all__ = ["CGResult", "cg", "cg_fixed", "cg_fixed_block"]
 
 
 class CGResult(NamedTuple):
@@ -139,3 +141,38 @@ def cg_fixed(matvec: Callable, b: torch.Tensor, iters: int, *,
         p = z + _safe_div(rz_new, rz) * p
         rz = rz_new
     return x, r
+
+
+def cg_fixed_block(matvec_multi: Callable, B: torch.Tensor, iters: int, *,
+                   M_multi: Optional[Callable] = None, x0=None):
+    """Fixed-iteration PCG on q right-hand sides in lockstep, no host sync.
+
+    q INDEPENDENT chains share every product: ``matvec_multi`` maps
+    X [n, q] -> A X (e.g. ``ELLMatrix.matvec_multi``, B10 on the banded
+    plan), the dots are column-wise ([q]).  This is not block CG: each
+    column is exactly the iterate ``cg_fixed`` gives for it.  A column
+    whose rz or pAp vanishes freezes (alpha, beta guarded to 0).
+
+    Returns ``(X, R)``: iterates and (unpreconditioned) residuals [n, q].
+    """
+    if M_multi is None:
+        M_multi = lambda R: R
+
+    def cdot(U, V):
+        return (U * V).sum(dim=0)                       # [q]
+
+    X = torch.zeros_like(B) if x0 is None else x0
+    R = B - matvec_multi(X)
+    Z = M_multi(R)
+    rz = cdot(R, Z)
+    P = Z
+    for _ in range(int(iters)):
+        AP = matvec_multi(P)
+        alpha = _safe_div(rz, cdot(P, AP))
+        X = X + alpha * P
+        R = R - alpha * AP
+        Z = M_multi(R)
+        rz_new = cdot(R, Z)
+        P = Z + _safe_div(rz_new, rz) * P
+        rz = rz_new
+    return X, R
