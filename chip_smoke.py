@@ -242,7 +242,21 @@
      of B9's product, each twice bit for bit, a 10-iteration fixed CG on
      each within 1e-4 of the ELL one, their times beside B9's;
      greedy_element_coloring on the 125 x 125 and 250 x 250 meshes of the
-     same generator, no node shared within a color; B9 must launch.
+     same generator, no node shared within a color; B9 must launch;
+   - stokes: examples/stokes_cavity.py through solve_stokes (the
+     regularized lid, fp32, the scalar-AMG velocity preconditioner, tol
+     1e-6, check_every 4): n = 180 (260,642 + 32,761 DOFs) at the JAX
+     package's CPU count exactly (JAX_STOKES) and its centerline u_x
+     minimum within 1e-3; then the TPU's n = 360 (1,039,682 + 130,321
+     DOFs): converged, relres <= 1e-6, the TPU's 128 iterations within 8
+     (two batches), the JAX n = 180 centerline minimum within 1e-3; the
+     scalar-system, AMG-setup and solve walls; B9 must launch (every
+     level of the velocity hierarchy is then checked and timed, and 10
+     MINRES iterations profiled);
+   - stokes_small: the same cavity at n = 48 in fp64 to 1e-8 with
+     "jacobi" and "amg": the JAX package's CPU counts exactly, u and p
+     within 1e-6 relative of its solution (JAX_STOKES_SMALL: norms,
+     sampled DOFs, projections); B9 must launch.
      After each of these paths, B9 (and B9g where the band exceeds
      _AUTO_BAND_MAX) is timed at the path's fine operator beside its
      bound on the bytes its nonzeros need (the padded width's printed
@@ -1508,9 +1522,9 @@ def _run_path(name, counters, records, drive, must_launch):
         after()
 
 
-def _per_iteration(name, pcg10, iters=10, reps=5):
-    """Per MG-PCG iteration of a 10-iteration run (``iters``: the run's
-    iterations): the time as issued (CUDA events around the run; host
+def _per_iteration(name, pcg10, iters=10, reps=5, solver="pcg"):
+    """Per iteration of a 10-iteration run of ``solver`` (``iters``: the
+    run's iterations): the time as issued (CUDA events around the run; host
     launch overhead included), the device busy time (the run's kernel
     durations summed, torch.profiler) and the kernel launches.  Events with
     the stream queued ahead would overstate the device time of a run with
@@ -1532,14 +1546,15 @@ def _per_iteration(name, pcg10, iters=10, reps=5):
     busy_us = sum(e.self_device_time_total for e in kernels)
     busy_ms = busy_us / 1e3 / iters
     launches = sum(e.count for e in kernels) / iters
-    print(f"# {name} pcg: {iter_ms:.4f} ms/iteration as issued, "
+    print(f"# {name} {solver}: {iter_ms:.4f} ms/iteration as issued, "
           f"{busy_ms:.4f} ms/iteration device busy, device idle share "
           f"{1.0 - busy_ms / iter_ms:.3f}, {launches:.1f} kernel launches "
           f"per iteration (CUDA events; torch.profiler); events with the "
           f"stream queued ahead {queued_ms:.4f} ms/iteration")
     # device time by kernel (the same profiled run), largest first
     for e in kernels:
-        print(f"# {name} pcg kernel: {e.self_device_time_total / busy_us:6.1%}"
+        print(f"# {name} {solver} kernel: "
+              f"{e.self_device_time_total / busy_us:6.1%}"
               f" {e.self_device_time_total / 1e3 / iters:.4f} ms/iteration "
               f"{e.count / iters:6.1f} launches/iteration  {e.key[:90]}")
 
@@ -1800,6 +1815,10 @@ def _paths(dev, records):
               lambda: _drive_modal(dev, records, keep), ("B10", "B10g"))
     _run_path("coo_matfree", counters, records,
               lambda: _drive_coo_matfree(dev, records, keep), ("B9",))
+    _run_path("stokes", counters, records,
+              lambda: _drive_stokes(dev, records), ("B9",))
+    _run_path("stokes_small", counters, records,
+              lambda: _drive_stokes_small(dev), ("B9",))
     _run_path("assembly", counters, records,
               lambda: _drive_assembly(dev, main), ("B13", "K2", "B4"))
     _run_path("reduction", counters, records,
@@ -3807,8 +3826,9 @@ def _drive_wave(dev):
           f"JAX CPU {jax['steps']}), drift {w['drift']:.3e} (JAX CPU "
           f"{jax['drift']:.3e}, TPU 1.56e-3), period-return error "
           f"{w['ret']:.3e} (JAX CPU {jax['ret']:.3e}, TPU 8e-4; the 2e-3 "
-          f"target {'met' if w['ret'] <= 2e-3 else 'NOT met'}, gated at 1.1 "
-          f"x JAX CPU; on the fp64 "
+          f"target {'met' if w['ret'] <= 2e-3 else 'accepted deviation'} "
+          f"(ROADMAP C: the port is held to the JAX CPU run on the same fp32 "
+          f"operator), gated at 1.1 x JAX CPU; on the fp64 "
           f"assembly cast {wc['ret']:.3e}, JAX CPU {jax['cast_ret']:.3e}), "
           f"{w['steps'] / w['wall']:.1f} steps/s (TPU 4305, not a target)")
     check(w["dofs"] == WAVE_DOFS, f"wave: {w['dofs']} DOFs")
@@ -4139,6 +4159,291 @@ def _drive_coo_matfree(dev, records, keep):
               f"{wall:.3f} s")
         check(ok and colors.min() == 0 and (colors >= 0).all(),
               f"coloring n={n}: a color shares a node")
+
+
+# -- MINRES and Taylor-Hood Stokes (ROADMAP A4d) ------------------------------
+
+# examples/stokes_cavity.py --n 360 --tol 1e-6: the regularized lid, fp32,
+# the scalar-AMG velocity preconditioner (1,039,682 velocity and 130,321
+# pressure DOFs).  The TPU's run (BENCH_NOTES.md:1053-1062; the reference's
+# figures, not targets): 128 MINRES iterations to relres 8.9e-7, centerline
+# u_x min -0.1688.  The JAX package's own CPU run of the same solve at n =
+# 180 (x64 off, the XLA gather products):
+#   python scripts/physics_jax_reference.py stokes 180
+# gives the count the card's n = 180 run is held to exactly; n = 360 is
+# held to the TPU's count within two check_every batches and to the n = 180
+# centerline minimum within 1e-3.
+N_STOKES, N_STOKES_MID, N_STOKES_SMALL = 360, 180, 48
+STOKES_DOFS = {360: (1_039_682, 130_321), 180: (260_642, 32_761),
+               48: (18_818, 2_401)}
+TPU_STOKES = {"iterations": 128, "relres": 8.9e-7, "ux_min": -0.1688}
+JAX_STOKES = {"iterations": 92, "relres": 7.895787348388694e-07,
+              "ux_min": -0.1688971221446991}
+# the same cavity at n = 48 in fp64 to tol 1e-8 (check_every 4), once per
+# velocity preconditioner:
+#   python scripts/physics_jax_reference.py stokes_small 48
+# its counts, the norms of u and p, u at every 601st and p at every 151st
+# DOF, and the projections of u and p on cos(0.37 k i), k = 1..4
+JAX_STOKES_SMALL = {
+    "jacobi": {
+        "iterations": 1344, "u_norm": 19.06182167475533,
+        "p_norm": 132.94370658110284,
+        "u_samples": [
+            0.0, 0.00825877256503254, -0.05984004869138291,
+            0.04893070238241836, -0.16327704560114875, -0.16298997602224102,
+            -0.02621332193238809, -0.12956487383226084, 8.176984757096401e-06,
+            0.0008094000291243078, -0.009451911934463911,
+            0.014191564923036417, -0.0511968766441269, 0.022763550943455554,
+            -0.09988292867166639, -0.007157893341257999, -0.11900582147915943,
+            -0.07501095456540002, -0.09012438781170552, -0.12808091860878304,
+            -0.02913422533936162, -0.06214549937187605, -0.007675431892297671,
+            0.16122577044628666, -0.056449963361021795, 0.24711728106866515,
+            -0.017451364536332448, 0.13879472221203124, 0.18725092139270813,
+            -0.03055774970031828, 0.4817463815850181, -0.024599265881752538
+        ],
+        "p_samples": [
+            -0.29228094228931556, -0.3092039318591382, -0.3224691134093392,
+            -0.3134403492903692, -0.2727938445266581, -0.17851013417417325,
+            -0.00030173861321620743, 0.29139498030320626, 0.7167252075049922,
+            1.2796839890854188, 1.9659539327179127, 2.7527654531050065,
+            3.6439624390002106, -5.51850398061405, -6.24580900141189,
+            -6.695127190770103
+        ],
+        "u_proj": [
+            0.056452634391606915, -0.012086554150883694, 0.005752974269142119,
+            -0.02788445001604016
+        ],
+        "p_proj": [
+            -46.906107915792376, -3.076854113460194, 4.864076910110447,
+            -1.3059850019755304
+        ],
+    },
+    "amg": {
+        "iterations": 88, "u_norm": 19.061821717698265,
+        "p_norm": 132.94370673750993,
+        "u_samples": [
+            9.465160919824878e-12, 0.008258794060411419, -0.05984004281372941,
+            0.04893068718914025, -0.16327705222806077, -0.16298997550121558,
+            -0.026213283650413515, -0.1295648504127013, 8.184831654821244e-06,
+            0.0008094091928301892, -0.0094519338763906, 0.014191551759048805,
+            -0.05119687732267915, 0.022763527470484258, -0.09988293052295426,
+            -0.007157885204917267, -0.11900583537571911, -0.07501095095116113,
+            -0.09012436930465519, -0.12808091974004573, -0.029134215110394077,
+            -0.06214548265459674, -0.007675438760035085, 0.16122576410039638,
+            -0.056449949435161115, 0.2471172737969159, -0.01745135451450275,
+            0.1387948040214933, 0.1872509408983454, -0.030557759744398144,
+            0.48174637768359885, -0.02459926544039547
+        ],
+        "p_samples": [
+            -0.29227081042537606, -0.30920373622408603, -0.3224691348655827,
+            -0.3134400901661064, -0.2727935581131054, -0.1785100897617014,
+            -0.000302215850447521, 0.2913948943921137, 0.7167254750252391,
+            1.2796840916118968, 1.9659540629373078, 2.7527656971464927,
+            3.643963704567522, -5.518503994931891, -6.245809348745395,
+            -6.695127086887294
+        ],
+        "u_proj": [
+            0.056452722304404124, -0.012086553933553484, 0.005752988861802533,
+            -0.027884476828742538
+        ],
+        "p_proj": [
+            -46.90608123515898, -3.076840863305148, 4.864091512695862,
+            -1.305984776992199
+        ],
+    },
+}
+
+
+def _stokes_lid(X):
+    """examples/stokes_cavity.py's regularized lid: u_x = 16 x^2 (1-x)^2 on
+    the top edge."""
+    import numpy as np
+
+    on_top = (np.abs(X[..., 1] - 1.0) < 1e-12).astype(float)
+    profile = 16.0 * (X[..., 0] * (1 - X[..., 0])) ** 2
+    return np.stack([on_top * profile, 0.0 * X[..., 0]], axis=-1)
+
+
+def _stokes_solve(n, dtype, tol, vprecond, dev):
+    """solve_stokes on the lid-driven cavity at n cells a side, with the
+    operator and velocity hierarchy it builds captured (solve.stokes's
+    build_stokes and build_velocity_amg wrapped for the call): (solution,
+    captured, wall, centerline u_x min)."""
+    import numpy as np
+    import torch
+
+    from tpufem_torch.mesh.rectangle import rectangle_mesh
+    from tpufem_torch.solve import stokes as st
+
+    seen = {}
+    real_op, real_amg = st.build_stokes, st.build_velocity_amg
+
+    def capture_op(*args, **kw):
+        seen["op"] = real_op(*args, **kw)
+        return seen["op"]
+
+    def capture_amg(*args, **kw):
+        seen["amg"] = real_amg(*args, **kw)
+        return seen["amg"]
+
+    t0 = time.perf_counter()
+    mesh = rectangle_mesh(0.0, 1.0, 0.0, 1.0, n, n)
+    seen["mesh_s"] = time.perf_counter() - t0
+    st.build_stokes, st.build_velocity_amg = capture_op, capture_amg
+    try:
+        t0 = time.perf_counter()
+        sol = st.solve_stokes(mesh, bc_velocity=_stokes_lid, dtype=dtype,
+                              tol=tol, maxiter=50_000, check_every=4,
+                              velocity_precond=vprecond, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        st.build_stokes, st.build_velocity_amg = real_op, real_amg
+    X = sol.V.scalar_dof_coords
+    center = torch.as_tensor(np.abs(X[:, 0] - 0.5) < 1e-9, device=dev)
+    ux_min = sol.u.reshape(-1, 2)[center, 0].min().item()
+    return sol, seen, wall, ux_min
+
+
+def _stokes_line(name, n, sol, wall, ux_min):
+    print(f"# {name} n={n} ({sol.V.num_dofs:,} velocity + "
+          f"{sol.Q.num_scalar_dofs:,} pressure DOFs, "
+          f"{str(sol.u.dtype).replace('torch.', '')}): "
+          f"{sol.res.iterations} MINRES iterations, relres "
+          f"{sol.res.residual_norm.item():.4e}, converged "
+          f"{sol.res.converged}, centerline u_x min {ux_min:.6f}; wall "
+          f"{wall:.2f} s; walls (s, each ending in a synchronize): "
+          + _walls_json(sol.walls))
+
+
+def _drive_stokes(dev, records):
+    """examples/stokes_cavity.py through solve_stokes on the card: n = 180
+    (fp32, AMG) held to the JAX package's CPU count exactly and its
+    centerline minimum within 1e-3; then n = 360, the TPU's size: converged,
+    relres <= 1e-6, the DOF counts, the TPU's count within 8 (two
+    check_every batches) and the n = 180 JAX centerline minimum within
+    1e-3.  The hierarchy's level products run B9."""
+    import torch
+
+    jax = JAX_STOKES
+    sol, _, wall, ux = _stokes_solve(N_STOKES_MID, torch.float32, 1e-6,
+                                     "amg", dev)
+    _stokes_line("stokes", N_STOKES_MID, sol, wall, ux)
+    print(f"# stokes n={N_STOKES_MID} beside the JAX package's CPU run: "
+          f"{jax['iterations']} iterations, relres {jax['relres']:.4e}, "
+          f"centerline u_x min {jax['ux_min']:.6f}")
+    check(sol.res.converged and sol.res.residual_norm.item() <= 1e-6,
+          f"stokes n={N_STOKES_MID}: not converged")
+    check((sol.V.num_dofs, sol.Q.num_scalar_dofs)
+          == STOKES_DOFS[N_STOKES_MID], f"stokes n={N_STOKES_MID}: DOFs")
+    check(sol.res.iterations == jax["iterations"],
+          f"stokes n={N_STOKES_MID}: {sol.res.iterations} iterations, JAX "
+          f"CPU {jax['iterations']}")
+    check(abs(ux - jax["ux_min"]) <= 1e-3,
+          f"stokes n={N_STOKES_MID}: centerline {ux:.6f}, JAX CPU "
+          f"{jax['ux_min']:.6f}")
+    del sol
+    torch.cuda.empty_cache()
+
+    sol, seen, wall, ux = _stokes_solve(N_STOKES, torch.float32, 1e-6,
+                                        "amg", dev)
+    _stokes_line("stokes", N_STOKES, sol, wall, ux)
+    tpu = TPU_STOKES
+    print(f"# stokes n={N_STOKES} beside the references: iterations "
+          f"{sol.res.iterations} (TPU {tpu['iterations']}), relres "
+          f"{sol.res.residual_norm.item():.4e} (TPU {tpu['relres']:.1e}), "
+          f"centerline u_x min {ux:.6f} (TPU {tpu['ux_min']}, the JAX CPU "
+          f"run at n={N_STOKES_MID} {jax['ux_min']:.6f}); mesh "
+          f"{seen['mesh_s']:.2f} s")
+    detail = sol.walls["precond_setup_detail"]
+    _print_hierarchy("stokes", detail, sol.walls["precond_setup"])
+    print(f"# stokes walls: scalar system {detail['scalar_system']:.2f} s, "
+          f"AMG setup {sol.walls['precond_setup']:.2f} s (the scalar "
+          f"system included), operator build {sol.walls['build']:.2f} s, "
+          f"solve {sol.walls['solve']:.3f} s, "
+          f"{1e3 * sol.walls['solve'] / max(sol.res.iterations, 1):.4f} ms "
+          "per MINRES iteration with the host reads")
+    check(sol.res.converged and sol.res.residual_norm.item() <= 1e-6,
+          f"stokes: not converged (relres "
+          f"{sol.res.residual_norm.item():.3e})")
+    check((sol.V.num_dofs, sol.Q.num_scalar_dofs) == STOKES_DOFS[N_STOKES],
+          f"stokes: {sol.V.num_dofs} + {sol.Q.num_scalar_dofs} DOFs")
+    check(abs(sol.res.iterations - tpu["iterations"]) <= 8,
+          f"stokes: {sol.res.iterations} iterations, TPU "
+          f"{tpu['iterations']}")
+    check(abs(ux - jax["ux_min"]) <= 1e-3,
+          f"stokes: centerline {ux:.6f}, JAX CPU at n={N_STOKES_MID} "
+          f"{jax['ux_min']:.6f}")
+    check(bool(torch.isfinite(sol.u).all() and torch.isfinite(sol.p).all()),
+          "stokes: non-finite solution")
+
+    op = seen["op"][0]
+    hier, perm, inv = seen["amg"]
+    V = sol.V
+    del sol
+    torch.cuda.empty_cache()
+
+    def after():
+        import numpy as np
+
+        from tpufem_torch.solve.minres import minres
+        from tpufem_torch.solve.stokes import velocity_amg_precond
+
+        _time_ell_shape(records, "stokes", hier.levels[0].A)
+        _check_ell_levels(records, "stokes", hier, dev)
+        u_bc = torch.as_tensor(np.where(
+            V.dof_flags, _stokes_lid(V.scalar_dof_coords).reshape(-1), 0.0),
+            dtype=torch.float32, device=dev)
+        b = op.rhs(torch.zeros_like(u_bc), u_bc)
+        M = velocity_amg_precond(op, hier, perm, inv, 2)
+        _per_iteration("stokes", lambda: minres(
+            op.matvec, b, tol=0.0, maxiter=10, M=M, check_every=10),
+            solver="minres")
+
+    return after
+
+
+def _drive_stokes_small(dev):
+    """The cavity at n = 48 in fp64 to 1e-8, with "jacobi" and "amg":
+    iterations equal to the JAX package's CPU counts, u and p within 1e-6
+    relative of its solution (the norms, the sampled DOFs and the
+    projections of JAX_STOKES_SMALL)."""
+    import numpy as np
+    import torch
+
+    def rel(a, ref):
+        a, ref = np.asarray(a, np.float64), np.asarray(ref, np.float64)
+        return float(np.linalg.norm(a - ref) / np.linalg.norm(ref))
+
+    for vprecond in ("jacobi", "amg"):
+        sol, _, wall, ux = _stokes_solve(N_STOKES_SMALL, torch.float64, 1e-8,
+                                         vprecond, dev)
+        ref = JAX_STOKES_SMALL[vprecond]
+        u = sol.u.double().cpu().numpy()
+        p = sol.p.double().cpu().numpy()
+        i = np.arange(u.size, dtype=np.float64)
+        j = np.arange(p.size, dtype=np.float64)
+        errs = {"u_norm": rel([np.linalg.norm(u)], [ref["u_norm"]]),
+                "p_norm": rel([np.linalg.norm(p)], [ref["p_norm"]]),
+                "u_samples": rel(u[::601], ref["u_samples"]),
+                "p_samples": rel(p[::151], ref["p_samples"]),
+                "u_proj": rel([np.dot(np.cos(0.37 * k * i), u)
+                               for k in range(1, 5)], ref["u_proj"]),
+                "p_proj": rel([np.dot(np.cos(0.37 * k * j), p)
+                               for k in range(1, 5)], ref["p_proj"])}
+        _stokes_line(f"stokes_small {vprecond}", N_STOKES_SMALL, sol, wall,
+                     ux)
+        print(f"# stokes_small {vprecond} against the JAX package's CPU "
+              f"run: iterations {sol.res.iterations} (JAX {ref['iterations']}"
+              f"), relative differences "
+              + json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()}))
+        check(sol.res.converged and sol.res.iterations == ref["iterations"],
+              f"stokes_small {vprecond}: {sol.res.iterations} iterations, "
+              f"JAX CPU {ref['iterations']}")
+        check((sol.V.num_dofs, sol.Q.num_scalar_dofs)
+              == STOKES_DOFS[N_STOKES_SMALL], "stokes_small: DOFs")
+        check(all(v <= 1e-6 for v in errs.values()),
+              f"stokes_small {vprecond}: {errs}")
 
 
 # -- generic structured assembly (B13), the reduction (B14), SAXPY (B15) ----

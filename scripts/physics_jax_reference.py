@@ -1,10 +1,12 @@
-"""The JAX package's own CPU numbers for chip_smoke.py's nonlinear and wave
-paths, in fp32 (x64 off, as the TPU ran them), the XLA gather products
-(TPUFEM_BAND_DISPATCH=0).
+"""The JAX package's own CPU numbers for chip_smoke.py's nonlinear, wave
+and stokes paths, in fp32 (x64 off, as the TPU ran them), the XLA gather
+products (TPUFEM_BAND_DISPATCH=0).
 
     python scripts/physics_jax_reference.py nonlinear 512   # 263,169 DOFs
     python scripts/physics_jax_reference.py wave 1000       # 1,002,001 DOFs
     python scripts/physics_jax_reference.py wave 250 ops.npz
+    python scripts/physics_jax_reference.py stokes 180      # 260,642 + 32,761
+    python scripts/physics_jax_reference.py stokes_small 48
 
 
 Each prints one JSON line.  nonlinear: examples/nonlinear_poisson.py's own
@@ -16,7 +18,14 @@ full precision, and the same again with the stiffness and the mass
 assembled in fp64 and cast to fp32 ("operator_fp64_cast").  With a third
 argument the wave case also writes both operators (K's values and
 columns, M_L), the mask, u0, dt and the steps to that .npz, for
-scripts/wave_operator_swap.py to step with the port.
+scripts/wave_operator_swap.py to step with the port.  stokes:
+examples/stokes_cavity.py's solve (the regularized lid, fp32, the
+scalar-AMG velocity preconditioner, tol 1e-6, maxiter 50,000,
+check_every 4): MINRES iterations, relres, the DOF counts and the
+centerline u_x minimum.  stokes_small: the same cavity in fp64 to 1e-8,
+once with "jacobi" and once with "amg": the counts, the norms of u and p,
+u at every 601st and p at every 151st DOF, and the projections of u and p
+on cos(0.37 k i), k = 1..4 (what chip_smoke.py holds the port to).
 """
 import json
 import os
@@ -94,6 +103,42 @@ def wave(cells, cast, ops=None):
             "wall_s": round(wall, 2)}
 
 
+def _lid(X):
+    """examples/stokes_cavity.py's regularized lid."""
+    on_top = (np.abs(X[..., 1] - 1.0) < 1e-12).astype(float)
+    profile = 16.0 * (X[..., 0] * (1 - X[..., 0])) ** 2
+    return np.stack([on_top * profile, 0.0 * X[..., 0]], axis=-1)
+
+
+def _cavity(n, dtype, tol, vprecond):
+    from tpufem.mesh.rectangle import rectangle_mesh
+    from tpufem.solve.stokes import solve_stokes
+
+    mesh = rectangle_mesh(0.0, 1.0, 0.0, 1.0, n, n)
+    t0 = time.perf_counter()
+    sol = solve_stokes(mesh, bc_velocity=_lid, dtype=dtype, tol=tol,
+                       maxiter=50_000, check_every=4,
+                       velocity_precond=vprecond)
+    sol.u.block_until_ready()
+    wall = time.perf_counter() - t0
+    u = np.asarray(sol.u, np.float64)
+    X = sol.V.scalar_dof_coords
+    center = np.abs(X[:, 0] - 0.5) < 1e-9
+    return sol, u, {
+        "n": n, "vprecond": vprecond, "velocity_dofs": sol.V.num_dofs,
+        "pressure_dofs": sol.Q.num_scalar_dofs,
+        "iterations": int(sol.res.iterations),
+        "relres": float(sol.res.residual_norm),
+        "converged": bool(sol.res.converged),
+        "centerline_ux_min": float(u.reshape(-1, 2)[center, 0].min()),
+        "wall_s": round(wall, 2)}
+
+
+def _projections(v):
+    i = np.arange(v.size, dtype=np.float64)
+    return [float(np.dot(np.cos(0.37 * k * i), v)) for k in range(1, 5)]
+
+
 def main():
     case, n = sys.argv[1], int(sys.argv[2])
     if case == "nonlinear":
@@ -106,6 +151,25 @@ def main():
             print(json.dumps(wave(n, cast, ops)))
         if ops is not None:
             np.savez(sys.argv[3], **ops)
+    elif case == "stokes":
+        import jax.numpy as jnp
+
+        print(json.dumps({"case": "stokes", **_cavity(
+            n, jnp.float32, 1e-6, "amg")[2]}))
+    elif case == "stokes_small":
+        jax.config.update("jax_enable_x64", True)
+        import jax.numpy as jnp
+
+        for vprecond in ("jacobi", "amg"):
+            sol, u, out = _cavity(n, jnp.float64, 1e-8, vprecond)
+            p = np.asarray(sol.p, np.float64)
+            out.update({"u_norm": float(np.linalg.norm(u)),
+                        "p_norm": float(np.linalg.norm(p)),
+                        "u_samples": u[::601].tolist(),
+                        "p_samples": p[::151].tolist(),
+                        "u_proj": _projections(u),
+                        "p_proj": _projections(p)})
+            print(json.dumps({"case": "stokes_small", **out}))
     else:
         raise SystemExit(f"unknown case {case!r}")
 

@@ -13,6 +13,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +34,15 @@ from tpufem_torch.solve.poisson import solve_poisson_ell
 from tpufem_torch.sparse.ell import reorder_ell
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _one_blas_thread():
+    """One BLAS thread a test, as one torch thread: numpy's OpenBLAS
+    threads spin against the other workers on the shared CPU (a 729 x 729
+    inverse takes seconds on eight, 0.07 s on one)."""
+    with threadpool_limits(1, user_api="blas"):
+        yield
 
 
 @pytest.fixture(autouse=True)

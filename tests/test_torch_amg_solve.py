@@ -7,6 +7,7 @@ equal PCG iteration counts, solutions within 1e-10 relative."""
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax.numpy as jnp
 
@@ -19,6 +20,15 @@ from tpufem_torch.mesh.rectangle import perturbed_rectangle_mesh
 from tpufem_torch.solve.elasticity import solve_elasticity
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _one_blas_thread():
+    """One BLAS thread a test, as one torch thread: numpy's OpenBLAS
+    threads spin against the other workers on the shared CPU (a 729 x 729
+    inverse takes seconds on eight, 0.07 s on one)."""
+    with threadpool_limits(1, user_api="blas"):
+        yield
 
 
 @pytest.fixture(autouse=True)

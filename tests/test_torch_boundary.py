@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from tpufem.fem import facets as jfacets
@@ -52,6 +53,13 @@ _MESHES = {
 def _meshes(name):
     make, jm, tm = _MESHES[name]
     return make(jm), make(tm)
+
+
+def _staged(fn, *args):
+    """fn(*args) under jax.jit: the JAX package's weak form, called
+    eagerly, compiles each of its many small ops on first use (seconds a
+    form on the CPU); staged it is the same program on the same inputs."""
+    return jax.jit(fn)(*args)
 
 
 def _close(a, ref, rtol=1e-12):
@@ -127,12 +135,12 @@ def test_robin_neumann_terms_equal_jax(name, degree, where):
     jw = _forms(jl, jV, _WHERE[where])(jwf.WeakForm(jV))
     tw = _forms(tl, tV, _WHERE[where])(twf.WeakForm(tV, device="cpu"))
     _close(tw.boundary_element_matrices().numpy(),
-           jw.boundary_element_matrices())
+           _staged(jw.boundary_element_matrices))
     _close(tw.boundary_element_vectors().numpy(),
-           jw.boundary_element_vectors())
+           _staged(jw.boundary_element_vectors))
     A, b = tw.assemble(format="ell")
-    jA, jb = jw.assemble(format="ell")
-    _close(A.to_dense().numpy(), np.asarray(jA.to_dense()))
+    jA, jb = _staged(lambda: jw.assemble(format="ell"))
+    _close(A.to_dense().numpy(), np.asarray(_staged(jA.to_dense)))
     _close(b.numpy(), jb)
 
 
@@ -206,8 +214,9 @@ def test_traction_resultant_and_integrals_equal_jax():
     setup, jsetup = tw._facet_setup(), jw._facet_setup()
     b = assemble_vector(tw._expanded_facet_dofs(setup[1]),
                         tw.boundary_element_vectors(setup), tV.num_dofs)
-    jb = jax_vector(jw._expanded_facet_dofs(jsetup[1]),
-                    jw.boundary_element_vectors(jsetup), jV.num_dofs)
+    jb = _staged(lambda: jax_vector(jw._expanded_facet_dofs(jsetup[1]),
+                                    jw.boundary_element_vectors(jsetup),
+                                    jV.num_dofs))
     _close(b.numpy(), jb)
     np.testing.assert_allclose(b.numpy().reshape(-1, 2).sum(0),
                                [1.0, -2.5], rtol=1e-12)
@@ -221,7 +230,7 @@ def test_traction_resultant_and_integrals_equal_jax():
             (tl.dot(tl.FacetNormal(sV), X), jl.dot(jl.FacetNormal(jsV), jX),
              {})):
         got = twf.integrate_boundary(sV, expr, device="cpu", **kw)
-        ref = jwf.integrate_boundary(jsV, jexpr, **kw)
+        ref = _staged(lambda: jwf.integrate_boundary(jsV, jexpr, **kw))
         assert abs(got.item() - float(ref)) <= 1e-12 * abs(float(ref))
     # the divergence theorem: int n . x ds = 2 |Omega| = 4
     assert abs(got.item() - 4.0) < 1e-12
@@ -241,21 +250,22 @@ def test_quad_neumann_exact_flux():
         wf.build(lambda u, v: L.dot(L.grad(u), L.grad(v)))
         wf.build_boundary(rhs=lambda v: 1.0 * v,
                           where=lambda c: c[:, 0] > 1.0 - 1e-9)
-        A, b = wf.assemble(format="ell")
         mask = mesh.coords[:, 0] < 1e-12
         if L is tl:
+            A, b = wf.assemble(format="ell")
             A, b = bc(A, b, torch.as_tensor(mask))
             res = cg(A.matvec, b, tol=1e-13, maxiter=2000)
             assert res.converged
             results.append(res.x.numpy())
             system = (A, b)
         else:
-            A, b = bc(A, b, jnp.asarray(mask))
+            A, b = _staged(lambda: bc(*wf.assemble(format="ell"),
+                                      jnp.asarray(mask)))
             results += [(A, b), system]
     np.testing.assert_allclose(results[0], tm.coords[:, 0], atol=1e-9)
     jA, jb = results[1]
     A, b = results[2]
-    _close(A.to_dense().numpy(), np.asarray(jA.to_dense()))
+    _close(A.to_dense().numpy(), np.asarray(_staged(jA.to_dense)))
     _close(b.numpy(), jb)
 
 

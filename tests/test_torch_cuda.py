@@ -2491,3 +2491,41 @@ def test_physics_solvers_on_the_card_match_the_cpu(dev, monkeypatch):
 
 def _refuse_plain(*args, **kw):
     raise AssertionError("a plain version ran on the card")
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("vprecond", ["jacobi", "amg"])
+def test_stokes_cavity_on_the_card_matches_the_cpu(dev, monkeypatch, dtype,
+                                                   vprecond):
+    """solve_stokes on the n = 12 lid-driven cavity (examples/
+    stokes_cavity.py's lid; "amg" with coarse_n = 100, a level over the
+    625 scalar P2 rows) on the card, its ELL products on B9 (the plain
+    versions refused), against the same call on the CPU: the MINRES count
+    equal, u and p within 1e-8 (fp64) or 1e-4 (fp32) of max |u|, |p|."""
+    from tpufem_torch.mesh.rectangle import rectangle_mesh
+    from tpufem_torch.solve.stokes import solve_stokes
+    from tpufem_torch.sparse import ell_cuda
+
+    def lid(X):
+        on_top = (np.abs(X[..., 1] - 1.0) < 1e-12).astype(float)
+        profile = 16.0 * (X[..., 0] * (1 - X[..., 0])) ** 2
+        return np.stack([on_top * profile, 0.0 * X[..., 0]], axis=-1)
+
+    mesh = rectangle_mesh(0.0, 1.0, 0.0, 1.0, 12, 12)
+    tol = 1e-8 if dtype == torch.float64 else 1e-6
+    kw = dict(bc_velocity=lid, dtype=dtype, tol=tol, maxiter=4000,
+              velocity_precond=vprecond, amg_kw=dict(coarse_n=100))
+    cpu = solve_stokes(mesh, device="cpu", **kw)
+    for plain in ("ell_band_matvec_plain", "ell_gather_matvec_plain"):
+        monkeypatch.setattr(ell_cuda, plain, _refuse_plain)
+    before = ell_cuda.ell_matvec_cuda.launches
+    card = solve_stokes(mesh, device=dev, **kw)
+    torch.cuda.synchronize()
+    if vprecond == "amg":
+        assert ell_cuda.ell_matvec_cuda.launches > before
+    assert card.res.converged and cpu.res.converged
+    assert card.res.iterations == cpu.res.iterations
+    rel = 1e-8 if dtype == torch.float64 else 1e-4
+    for a, c in ((card.u, cpu.u), (card.p, cpu.p)):
+        assert a.dtype == dtype and a.is_cuda
+        assert (a.cpu() - c).abs().max() <= rel * c.abs().max()

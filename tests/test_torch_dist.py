@@ -9,6 +9,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax
 import jax.numpy as jnp
@@ -51,6 +52,15 @@ from tpufem_torch.sparse.stencil import StencilMatrix
 torch.set_num_threads(1)
 
 
+@pytest.fixture(autouse=True)
+def _one_blas_thread():
+    """One BLAS thread a test, as one torch thread: numpy's OpenBLAS
+    threads spin against the other workers on the shared CPU (a 729 x 729
+    inverse takes seconds on eight, 0.07 s on one)."""
+    with threadpool_limits(1, user_api="blas"):
+        yield
+
+
 def _jmesh(cpu_devices, axis="rows"):
     return JaxMesh(np.array(cpu_devices[:8]), (axis,))
 
@@ -61,6 +71,15 @@ def _tmesh(axis="rows", n=8):
 
 def _t(a):
     return torch.as_tensor(np.asarray(a))
+
+
+def _staged(fn, *args):
+    """fn(*args) under jax.jit: the reference's shard_map regions, called
+    eagerly, dispatch op by op (seconds a loop on the CPU); staged they are
+    the same programs on the same inputs.  Arguments fn closes over enter
+    the trace as constants (the host-side partitioning wrappers need them
+    concrete)."""
+    return jax.jit(fn)(*args)
 
 
 @functools.lru_cache(maxsize=None)
@@ -174,7 +193,7 @@ def test_sharded_stencil_matvec_matches_jax(cpu_devices):
     def mv(d, v):
         return jdst.sharded_stencil_matvec(d, v, offsets, "rows")
 
-    ref = np.asarray(mv(data_p, jnp.asarray(x)))
+    ref = np.asarray(_staged(mv, data_p, jnp.asarray(x)))
     mesh = _tmesh()
     y = tdst.sharded_stencil_matvec(
         tm.shard(_t(data_p), mesh, tm.P(None, "rows")),
@@ -185,9 +204,9 @@ def test_sharded_stencil_matvec_matches_jax(cpu_devices):
 
 def test_stencil_cg_and_solve_match_jax(cpu_devices):
     data, b, offsets, _ = _poisson_system()
-    jx, jres = jdcg.distributed_stencil_solve(
-        JStencilMatrix(jnp.asarray(data), offsets), jnp.asarray(b),
-        _jmesh(cpu_devices), tol=1e-11, maxiter=3000)
+    jx, jres = _staged(lambda d, rhs: jdcg.distributed_stencil_solve(
+        JStencilMatrix(d, offsets), rhs, _jmesh(cpu_devices), tol=1e-11,
+        maxiter=3000), jnp.asarray(data), jnp.asarray(b))
     mesh = _tmesh()
     tx, tres = tdcg.distributed_stencil_solve(
         StencilMatrix(_t(data), offsets), _t(b), mesh, tol=1e-11,
@@ -202,10 +221,10 @@ def test_stencil_cg_and_solve_match_jax(cpu_devices):
                                     offsets.index(0))
     res = tdcg.stencil_cg_sharded(data_p, offsets, b_p, mesh, tol=1e-11,
                                   maxiter=3000, diag_precondition=False)
-    jres2 = jdcg.stencil_cg_sharded(
-        jnp.asarray(data_p.numpy()), offsets, jnp.asarray(b_p.numpy()),
-        _jmesh(cpu_devices), tol=1e-11, maxiter=3000,
-        diag_precondition=False)
+    jres2 = _staged(lambda d, rhs: jdcg.stencil_cg_sharded(
+        d, offsets, rhs, _jmesh(cpu_devices), tol=1e-11, maxiter=3000,
+        diag_precondition=False), jnp.asarray(data_p.numpy()),
+        jnp.asarray(b_p.numpy()))
     assert res.converged and res.iterations == int(jres2.iterations)
     jx2 = np.asarray(jres2.x)
     assert np.abs(res.x.unshard().numpy() - jx2).max() \
@@ -281,8 +300,8 @@ def test_ell_partition_and_solve_match_jax(cpu_devices):
     ref = A @ x[:data.shape[0]]
     assert np.abs(y.numpy()[:data.shape[0]] - ref).max() \
         <= 1e-12 * np.abs(ref).max()
-    jx, jres = jdell.distributed_ell_solve(data, cols, b,
-                                           _jmesh(cpu_devices), tol=1e-10)
+    jx, jres = _staged(lambda: jdell.distributed_ell_solve(
+        data, cols, b, _jmesh(cpu_devices), tol=1e-10))
     tx, tres = tdell.distributed_ell_solve(data, cols, b, mesh, tol=1e-10)
     assert tres.converged and tres.iterations == int(jres.iterations)
     assert np.abs(tx.numpy() - np.asarray(jx)).max() \
@@ -346,10 +365,9 @@ def test_leapfrog_matches_jax(cpu_devices):
     npad = u0_p.shape[0]
     mL = np.concatenate([np.full(nn, 0.5), np.ones(npad - nn)])
     bc_p = np.concatenate([bc, np.ones(npad - nn, bool)])
-    ref = jdyn.leapfrog_wave_sharded(data_p, offsets, jnp.asarray(mL), u0_p,
-                                     jnp.zeros(npad), 1e-3, 25,
-                                     _jmesh(cpu_devices),
-                                     bc_mask=jnp.asarray(bc_p))
+    ref = _staged(lambda d, m, u, bcm: jdyn.leapfrog_wave_sharded(
+        d, offsets, m, u, jnp.zeros(npad), 1e-3, 25, _jmesh(cpu_devices),
+        bc_mask=bcm), data_p, jnp.asarray(mL), u0_p, jnp.asarray(bc_p))
     res = tdyn.leapfrog_wave_sharded(_t(data_p), offsets, _t(mL), _t(u0_p),
                                      torch.zeros(npad, dtype=torch.float64),
                                      1e-3, 25, _tmesh(), bc_mask=_t(bc_p))

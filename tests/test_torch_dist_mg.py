@@ -6,7 +6,9 @@ of a seeded numpy generator, as tests/test_dist_mg.py makes them; fp64."""
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
+import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh as JaxMesh
 
@@ -19,6 +21,15 @@ from tpufem_torch.dist.mesh import Sharded, make_mesh, unshard
 # several pytest workers share the CPU: one intra-op thread each keeps
 # the many small tensor ops from oversubscribing it
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _one_blas_thread():
+    """One BLAS thread a test, as one torch thread: numpy's OpenBLAS
+    threads spin against the other workers on the shared CPU (a 729 x 729
+    inverse takes seconds on eight, 0.07 s on one)."""
+    with threadpool_limits(1, user_api="blas"):
+        yield
 
 DOMAIN = (-3.0, 3.0)
 
@@ -67,8 +78,12 @@ def test_mgpcg_dist_matches_jax(cpu_devices, dim):
     jl = jdm.build_dist_hierarchy(DOMAIN, n, dim, 8, dtype=np.float64)
     b, x_true = _manufactured(jl)
     jmesh = JaxMesh(np.array(cpu_devices[:8]), ("z",))
-    ref = jdm.mgpcg_dist(jl, jdm.put_hierarchy(jl, jmesh), jnp.asarray(b),
-                         jmesh, tol=1e-10, maxiter=100)
+    # the reference's solve staged under jax.jit: its shard_map region,
+    # called eagerly, dispatches op by op (seconds a V-cycle on the CPU);
+    # staged it is the same program on the same inputs
+    ref = jax.jit(lambda arrs, rhs: jdm.mgpcg_dist(
+        jl, arrs, rhs, jmesh, tol=1e-10, maxiter=100))(
+        jdm.put_hierarchy(jl, jmesh), jnp.asarray(b))
     mesh = make_mesh(8, ("z",), device="cpu")
     tl = dist_levels_from_numpy(jl)
     arrs = tdm.put_hierarchy(tl, mesh)

@@ -2,6 +2,7 @@
 root exports what the JAX package's does (as far as ported) without
 building a kernel, the ported members keep the reference's signatures, and
 on CPU tensors no wrapper launches a kernel (K1-K4, B4, B5, B8-B15)."""
+import dataclasses
 import inspect
 import subprocess
 import sys
@@ -10,6 +11,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from tpufem_torch.ops import fused_system_cuda, mg_transfer_cuda, stencil_cuda
 from tpufem_torch.mesh.rectangle import perturbed_rectangle_mesh
@@ -30,6 +32,15 @@ from tpufem_torch.solve.elasticity import solve_elasticity
 # several pytest workers share the CPU: one intra-op thread each keeps
 # the many small tensor ops from oversubscribing it
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _one_blas_thread():
+    """One BLAS thread a test, as one torch thread: numpy's OpenBLAS
+    threads spin against the other workers on the shared CPU (a 729 x 729
+    inverse takes seconds on eight, 0.07 s on one)."""
+    with threadpool_limits(1, user_api="blas"):
+        yield
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -66,7 +77,8 @@ _PORT_MODULES = [
     "tpufem_torch.fem.facets", "tpufem_torch.assemble.coo",
     "tpufem_torch.sparse.matfree", "tpufem_torch.forms.symbolic",
     "tpufem_torch.solve.newton", "tpufem_torch.solve.dynamics",
-    "tpufem_torch.solve.eigen",
+    "tpufem_torch.solve.eigen", "tpufem_torch.solve.minres",
+    "tpufem_torch.solve.stokes",
     "chip_smoke",
 ]
 
@@ -81,9 +93,9 @@ _EXPORTS = [
     "solve_elasticity", "solve_poisson_ell", "build_amg",
     "build_block_amg", "build_dist_amg", "rectangle_quad_mesh",
     "box_hex_mesh", "greedy_element_coloring", "newton_krylov",
-    "smallest_eigenpairs", "leapfrog_wave"]
+    "smallest_eigenpairs", "leapfrog_wave", "solve_stokes", "minres"]
 # the JAX package's other root names, with the ROADMAP item that ports each
-_NOT_PORTED = {"solve_stokes": "A4", "minres": "A4"}
+_NOT_PORTED: dict = {}
 
 
 def test_port_imports_no_jax():
@@ -244,9 +256,13 @@ def _members():
     return pairs
 
 
-# the physics solvers' modules (A4a-c): every name of the JAX module's
+# the physics solvers' modules (A4a-d): every name of the JAX module's
 # __all__, and the block CG and the semilinear load beside them
-_A4_MODULES = ("solve.newton", "solve.dynamics", "solve.eigen")
+_A4_MODULES = ("solve.newton", "solve.dynamics", "solve.eigen",
+               "solve.minres", "solve.stokes")
+# members whose port adds a keyword-only device= (the card by default)
+# before a trailing **kwargs, checked on their own
+_A4_DEVICE_BEFORE_KWARGS = {"build_velocity_amg"}
 
 
 def _a4_members():
@@ -266,9 +282,12 @@ def _a4_members():
         assert port.__all__ == ref.__all__, name
         for n in ref.__all__:
             p, r = getattr(port, n), getattr(ref, n)
-            if isinstance(r, type):                 # the result tuples
+            if dataclasses.is_dataclass(r):         # the Stokes operator
+                assert [f.name for f in dataclasses.fields(p)] \
+                    == [f.name for f in dataclasses.fields(r)], n
+            elif isinstance(r, type):               # the result tuples
                 assert p._fields == r._fields, n
-            else:
+            elif n not in _A4_DEVICE_BEFORE_KWARGS:
                 pairs.append((p, r))
     return pairs
 
@@ -347,16 +366,27 @@ def test_ported_members_keep_the_reference_signatures():
     from tpufem.forms.weakform import integrate_boundary as jax_ib
     from tpufem.solve import dynamics as jdyn
     from tpufem.solve import eigen as jeig
+    from tpufem.solve import stokes as jst
 
     from tpufem_torch.forms.weakform import integrate_boundary
-    from tpufem_torch.solve import dynamics, eigen
+    from tpufem_torch.solve import dynamics, eigen, stokes
 
     for port, ref in ((integrate_boundary, jax_ib),
                       (dynamics.lumped_mass, jdyn.lumped_mass),
                       (eigen.subspace_stepper, jeig.subspace_stepper),
-                      (eigen.smallest_eigenpairs, jeig.smallest_eigenpairs)):
+                      (eigen.smallest_eigenpairs, jeig.smallest_eigenpairs),
+                      (stokes.build_stokes, jst.build_stokes),
+                      (stokes.solve_stokes, jst.solve_stokes)):
         assert as_ref(port, require_device=True) == shape(ref), \
             port.__qualname__
+    # build_velocity_amg: the device= goes before the trailing **amg_kw
+    ours = [(n, k, jnp.float64 if d is torch.float64 else d)
+            for n, k, d in shape(stokes.build_velocity_amg)]
+    assert ours.pop(-2) == ("device", inspect.Parameter.KEYWORD_ONLY,
+                            "cuda")
+    assert ours == shape(jst.build_velocity_amg)
+    assert shape(stokes.velocity_amg_precond) \
+        == shape(jst.velocity_amg_precond)
 
 
 def test_ported_members_match_the_reference():

@@ -10,6 +10,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax.numpy as jnp
 
@@ -24,6 +25,15 @@ from tpufem_torch.solve.multigrid import _light_grid
 # several pytest workers share the CPU: one intra-op thread each keeps
 # the many small tensor ops from oversubscribing it
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _one_blas_thread():
+    """One BLAS thread a test, as one torch thread: numpy's OpenBLAS
+    threads spin against the other workers on the shared CPU (a 729 x 729
+    inverse takes seconds on eight, 0.07 s on one)."""
+    with threadpool_limits(1, user_api="blas"):
+        yield
 
 OMEGA = 0.8
 N_ROUTED = 16

@@ -7,6 +7,7 @@ on a tiny grid, against the Pallas kernels in interpret mode; float64 at
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax.numpy as jnp
 
@@ -23,6 +24,15 @@ from tpufem_torch.sparse.stencil import StencilMatrix
 # several pytest workers share the CPU: one intra-op thread each keeps
 # the many small tensor ops from oversubscribing it
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _one_blas_thread():
+    """One BLAS thread a test, as one torch thread: numpy's OpenBLAS
+    threads spin against the other workers on the shared CPU (a 729 x 729
+    inverse takes seconds on eight, 0.07 s on one)."""
+    with threadpool_limits(1, user_api="blas"):
+        yield
 
 OMEGA = 0.8
 

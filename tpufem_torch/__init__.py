@@ -30,8 +30,9 @@ preconditioners of ``solve_poisson_ell`` and ``solve_elasticity`` with
 (``dist``: a single-controller device mesh, the sharded halo CGs, the
 sharded fused build on kernel B8, the distributed multigrid and AMG), and
 the physics solvers: matrix-free Newton-Krylov (``solve.newton``),
-explicit leapfrog dynamics (``solve.dynamics``) and modal analysis by
-subspace iteration (``solve.eigen``, on ``solve.cg.cg_fixed_block``).
+explicit leapfrog dynamics (``solve.dynamics``), modal analysis by
+subspace iteration (``solve.eigen``, on ``solve.cg.cg_fixed_block``), and
+MINRES with Taylor-Hood Stokes (``solve.minres``, ``solve.stokes``).
 
 The package root exports the meshes, spaces, rules, ``cg`` and the matrix
 classes, and resolves the heavier entry points lazily, as the JAX
@@ -71,11 +72,13 @@ _LAZY = {
     "smallest_eigenpairs": ("tpufem_torch.solve.eigen",
                             "smallest_eigenpairs"),
     "leapfrog_wave": ("tpufem_torch.solve.dynamics", "leapfrog_wave"),
+    "solve_stokes": ("tpufem_torch.solve.stokes", "solve_stokes"),
+    "minres": ("tpufem_torch.solve.minres", "minres"),
 }
 
 # names the JAX package exports that the port does not have yet, with the
 # ROADMAP item that brings each
-_NOT_PORTED = {"solve_stokes": "A4", "minres": "A4"}
+_NOT_PORTED: dict = {}
 
 
 def __getattr__(name):
