@@ -300,6 +300,35 @@
      AMG, converges in its 100 iterations, MULTICHIP_r05.json's 24
      printed beside), stage 2 within one iteration of MULTICHIP_r05.json's
      13; B8 launched 8 times.
+5. The examples through the port's own entry points: each ex_<name> path
+   calls tpufem_torch.examples.<name>.main(argv + ["--device", "cuda"]),
+   repeats what it prints on '#' lines and gates on the dict it returns
+   (the JAX figures: scripts/examples_jax_reference.py on the CPU, fp32;
+   the gates and their evidence beside JAX_EX below):
+   - ex_reduction_bench: 64 MB fp32, the three golden checks; B14;
+   - ex_poisson_2d --cells 64 (4,225 DOFs): its error within 1% of the
+     JAX CPU run's, the count within 10% (fp32 to 1e-8); B9;
+   - ex_heat_equation --cells 1000 --steps 20 (1,002,001 DOFs): total CG
+     iterations within 1% of the port's CPU run's and 12% of the JAX CPU
+     run's, L2^2 decaying, within 1e-4 relative of the JAX states', the
+     checkpoint read back bit for bit; B9;
+   - ex_poisson_3d_multigrid --n 96 (912,673 DOFs): the JAX CPU count
+     within one, its error within 1%; K2, B4;
+   - ex_poisson_10m (n = 224, 11,390,625 DOFs): the JAX CPU run's 12
+     guarded iterations, its error (1.704e-4) or less; K1-K4;
+   - ex_unstructured_1m --n 300, Chebyshev and AMG (90,601 rows): the JAX
+     CPU counts within 4% (one), errors within 1.5 times; B9;
+   - ex_dist_amg_demo --n 96 --devices 8 (9,409 rows, 8 shards on the
+     card): converged, the JAX CPU count within one; no kernel, as in the
+     reference;
+   - ex_elasticity_unstructured --n 200 --precond amg (80,802 DOFs): the
+     JAX CPU count within one; B12;
+   - ex_elasticity_1m (n = 69, 1,029,000 DOFs): converged in 278 +- 5%
+     iterations, error <= 7.8e-4 (the TPU's 278, 7.4e-4); no kernel;
+   - ex_generic_assembly_20m (20M triangles): the two golden checks; no
+     kernel.
+   B14's bandwidth, the assembly's elements per second and elasticity_1m's
+   ms per iteration are printed beside the card's name and power limit.
 
 The second-to-last line is the kernels' JSON record (launches summed over
 the paths), the last line {"ok": true, "device": {...}}.  Any failed check
@@ -308,6 +337,9 @@ package beside it, it exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import importlib
+import io
 import json
 import math
 import resource
@@ -372,10 +404,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # -- 1. platform -------------------------------------------------------
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(_card())
     kind = torch.cuda.get_device_name(0)
     print(f"# torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {kind} count {torch.cuda.device_count()}")
@@ -1830,6 +1859,7 @@ def _paths(dev, records):
     _run_path("dist_mg", counters, records, lambda: _drive_dist_mg(dev), ())
     _run_path("dryrun", counters, records, lambda: _drive_dryrun(dev),
               ("B8",))
+    _example_paths(counters, records)
 
 
 def _fp32_bf16_counts(name, levels, mv, mvd, b):
@@ -5088,6 +5118,278 @@ def _drive_dryrun(dev):
     check(abs(out["dist_mg"]["iterations"] - 13) <= 1,
           f"dryrun: stage 2 took {out['dist_mg']['iterations']} iterations")
     check(b8 == 8, f"dryrun: B8 launched {b8} times, not 8")
+
+
+# -- the examples, through the port's own entry points ------------------------
+# tpufem_torch.examples.<name>.main(argv + ["--device", "cuda"]), gated on
+# the dict it returns.  The JAX examples' own CPU figures at the same argv
+# (fp32, x64 off, the XLA gather products, eight virtual CPU devices), and
+# with --port first the port's own CPU run (fp32, the plain versions):
+#   python scripts/examples_jax_reference.py [--port] <name> <argv>
+# (elasticity_unstructured with --interpret --no-aot, poisson_3d_multigrid
+# with --no-pallas: the XLA form its tests pin to the kernels).  In fp64
+# the tests hold the two packages' counts equal.  In fp32 they round the
+# assembly, the products and the dots differently, and a solve to a
+# tolerance at or below fp32's resolution ends some iterations apart: the
+# JAX run sums its fp32 dots of 1M terms in order (its heat_equation L2^2
+# of the initial state, 1.5698, is 6.3e-4 off the 1.5707774 of its own
+# state summed in fp64), the port's are blocked sums.  So each gate below
+# holds the count within the spread of the two CPU runs, with the
+# physics (error, L2^2) held tight; the port's CPU figures are:
+#   poisson_2d 144 (JAX 141); unstructured_1m Chebyshev 80 (JAX 82), its
+#   errors 1.8213e-5 / 1.5484e-5 (Chebyshev / AMG) with torch's default
+#   threads and 1.8097e-5 / 1.3658e-5 with OMP_NUM_THREADS=1 (JAX
+#   2.1328e-5 / 1.4637e-5: at tol 1e-5 the algebraic error stands beside
+#   the discretization's, and the summation order moves it);
+#   heat_equation 17033 (JAX 18990); the others the JAX counts.
+JAX_EX = {
+    "poisson_2d": {"iterations": 141, "nodal_rms_err": 8.508e-03},
+    # L2^2 of the JAX run's initial and final states summed in fp64
+    "heat_equation": {"cg_iters_total": 18990,
+                      "l2sq0": 1.5707774308315252,
+                      "l2sq": 0.28698709472440953},
+    "poisson_3d_multigrid": {"iterations": 12, "rel_l2_err": 1.795e-04},
+    "unstructured_1m": {"chebyshev": (82, 2.1328232543320778e-05),
+                        "amg": (14, 1.4636763085174698e-05)},
+    "dist_amg_demo": {"pcg_iters": 30, "rel_l2_error": 1.2654032341362516e-04},
+    "elasticity_unstructured": {"pcg_iters": 22},
+}
+PORT_CPU_HEAT_ITERS = 17033
+# examples/poisson_10m.py --n 224 on the CPU (interpret mode), and the
+# TPU's record of it, BENCH_NOTES.md:101 (10 iterations, 6.0e-5)
+JAX_POISSON_10M = {"iterations": 12, "rel_l2_err": 1.704e-04}
+# the TPU's record, the reference's gate (BENCH_NOTES.md:87)
+TPU_ELASTICITY_1M = {"pcg_iters": 278, "rel_l2_err": 7.4e-4}
+
+
+def _example(name, argv):
+    """The port's example on the card: (its returned dict, its wall).  Its
+    printed lines are repeated as '#' lines."""
+    mod = importlib.import_module(f"tpufem_torch.examples.{name}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(list(argv) + ["--device", "cuda"])
+    wall = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        print(f"# ex_{name} {' '.join(argv)}: {line}")
+    print(f"# ex_{name} {' '.join(argv)}: wall {wall:.2f} s")
+    return out, wall
+
+
+def _near(value, ref, rel):
+    return abs(value - ref) <= rel * abs(ref)
+
+
+
+def _ex_reduction_bench():
+    """examples/reduction_bench.py: 16,777,216 fp32 values (64 MB); the
+    three golden checks against the fp64 host sum; B14's bandwidth by the
+    rep-difference."""
+    out, _ = _example("reduction_bench", [])
+    check(out["n"] == N_REDUCE and out["match"],
+          f"ex_reduction_bench: {out['checks']}")
+    return out
+
+
+def _ex_poisson_2d():
+    """examples/poisson_2d.py --cells 64 (4,225 DOFs, fp32, Jacobi CG to
+    1e-8): converged, its nodal RMS error within 1% of the JAX CPU run's
+    (8.508e-3), the count within 10% of the JAX CPU count (141).  The
+    tolerance lies below fp32's resolution, so the last iterations run on
+    rounding: the JAX CPU run takes 141, the port's CPU run 144 and the
+    card 135 (its first run), with the same error to 0.1%."""
+    out, _ = _example("poisson_2d", ["--cells", "64"])
+    ref = JAX_EX["poisson_2d"]
+    check(out["dofs"] == 4225 and out["converged"]
+          and _near(out["iterations"], ref["iterations"], 0.10),
+          f"ex_poisson_2d: {out['iterations']} iterations, converged "
+          f"{out['converged']} (JAX CPU {ref['iterations']})")
+    check(_near(out["nodal_rms_err"], ref["nodal_rms_err"], 0.01),
+          f"ex_poisson_2d: error {out['nodal_rms_err']:.4e}")
+
+
+def _ex_heat_equation():
+    """examples/heat_equation.py --cells 1000 --steps 20 (1,002,001 DOFs,
+    fp32, CG to 1e-10 a step, below fp32's resolution): the total CG
+    iterations within 1% of the port's CPU run's (17033) and within 12% of
+    the JAX CPU run's (18990); L2^2 decaying, its initial and final values
+    within 1e-4 relative of the JAX run's states' (1.5707774 -> 0.2869871,
+    summed in fp64); the checkpoint read back bit for bit."""
+    import tempfile
+
+    import torch
+
+    from tpufem_torch.io.checkpoint import load_solution
+
+    ref = JAX_EX["heat_equation"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "heat.npz")
+        out, _ = _example("heat_equation", ["--cells", "1000", "--steps",
+                                            "20", "--checkpoint", path])
+        x, info = load_solution(path, device="cuda")
+    its = out["cg_iters_total"]
+    check(out["dofs"] == 1_002_001 and _near(its, PORT_CPU_HEAT_ITERS, 0.01)
+          and _near(its, ref["cg_iters_total"], 0.12),
+          f"ex_heat_equation: {its} CG iterations (the port's CPU run "
+          f"{PORT_CPU_HEAT_ITERS}, JAX CPU {ref['cg_iters_total']})")
+    check(out["decaying"] and _near(out["l2sq0"], ref["l2sq0"], 1e-4)
+          and _near(out["l2sq"], ref["l2sq"], 1e-4),
+          f"ex_heat_equation: L2^2 {out['l2sq0']} -> {out['l2sq']}")
+    check(torch.equal(x, out["u"]) and info["iterations"] == 20,
+          "ex_heat_equation: the checkpoint does not read back bit for bit")
+
+
+def _ex_poisson_3d_multigrid():
+    """examples/poisson_3d_multigrid.py --n 96 (912,673 DOFs, fp32, the
+    general hierarchy, MG-PCG to 1e-6): the JAX CPU count (12) within one,
+    its error (1.795e-4) within 1%; K2 and B4 launch (K3 and K4 fuse the
+    transfers of const levels only, as in the reference)."""
+    out, _ = _example("poisson_3d_multigrid", ["--n", "96"])
+    ref = JAX_EX["poisson_3d_multigrid"]
+    check(out["dofs"] == 912_673 and out["converged"]
+          and abs(out["iterations"] - ref["iterations"]) <= 1,
+          f"ex_poisson_3d_multigrid: {out['iterations']} iterations")
+    check(_near(out["rel_l2_err"], ref["rel_l2_err"], 0.01),
+          f"ex_poisson_3d_multigrid: error {out['rel_l2_err']:.4e}")
+
+
+def _ex_poisson_10m():
+    """examples/poisson_10m.py at its default n = 224 (11,390,625 DOFs,
+    fp32, the guarded const MG-PCG to 1e-5, a check every 4 iterations):
+    12 iterations, the JAX CPU run's (the TPU's record: 10, the first
+    below the tolerance), and a rel L2 error no larger than the JAX CPU
+    run's 1.704e-4.  At this size the fp32 system's rounding sets the
+    error: the port's fp64 solve's is 3.2994e-5, its fp32 solve's stays at
+    1.0869e-4 from tol 1e-5 to 1e-7, 1.412e-4 from the fp64 solution
+    (scripts/poisson_fp32_spread.py 224, on the host); the JAX CPU fp32
+    run gives 1.704e-4 and the TPU's record 6.0e-5."""
+    out, _ = _example("poisson_10m", [])
+    check(out["dofs"] == 11_390_625 and out["converged"]
+          and out["iterations"] == JAX_POISSON_10M["iterations"],
+          f"ex_poisson_10m: {out['iterations']} iterations")
+    check(out["rel_l2_err"] <= JAX_POISSON_10M["rel_l2_err"],
+          f"ex_poisson_10m: error {out['rel_l2_err']:.4e} > "
+          f"{JAX_POISSON_10M['rel_l2_err']:.4e}")
+
+
+def _ex_unstructured_1m():
+    """examples/unstructured_1m.py --n 300 (90,601 rows, fp32), Chebyshev
+    and then --precond amg: the JAX CPU counts (82, 14) within 4% (one),
+    their errors (2.1328e-5, 1.4637e-5) within 1.5 times."""
+    for precond in ("chebyshev", "amg"):
+        argv = ["--n", "300"] + (["--precond", "amg"] if precond == "amg"
+                                 else [])
+        out, _ = _example("unstructured_1m", argv)
+        its, err = JAX_EX["unstructured_1m"][precond]
+        check(out["rows"] == 90_601 and out["converged"]
+              and abs(out["pcg_iters"] - its) <= max(1, int(0.04 * its)),
+              f"ex_unstructured_1m {precond}: {out['pcg_iters']} "
+              f"iterations (JAX CPU {its})")
+        check(out["rel_l2_error_vs_exact"] <= 1.5 * err,
+              f"ex_unstructured_1m {precond}: error "
+              f"{out['rel_l2_error_vs_exact']:.4e} (JAX CPU {err:.4e})")
+
+
+def _ex_dist_amg_demo():
+    """examples/dist_amg_demo.py at its defaults, --n 96 --devices 8
+    (9,409 rows, fp32, 8 shards on the card): converged, the JAX CPU
+    count (30) within one."""
+    out, _ = _example("dist_amg_demo", ["--n", "96", "--devices", "8"])
+    ref = JAX_EX["dist_amg_demo"]
+    print(f"# ex_dist_amg_demo: rel L2 error "
+          f"{out['rel_l2_error_vs_exact']:.4e} (JAX CPU "
+          f"{ref['rel_l2_error']:.4e})")
+    check(out["rows"] == 9409 and out["converged"]
+          and abs(out["pcg_iters"] - ref["pcg_iters"]) <= 1,
+          f"ex_dist_amg_demo: {out['pcg_iters']} iterations, converged "
+          f"{out['converged']}")
+
+
+def _ex_elasticity_unstructured():
+    """examples/elasticity_unstructured.py --n 200 --precond amg (80,802
+    DOFs, fp32, the banded block product): the JAX CPU count (22) within
+    one."""
+    out, _ = _example("elasticity_unstructured", ["--n", "200",
+                                                  "--precond", "amg"])
+    ref = JAX_EX["elasticity_unstructured"]
+    check(out["dofs"] == 80_802 and out["converged"]
+          and abs(out["pcg_iters"] - ref["pcg_iters"]) <= 1,
+          f"ex_elasticity_unstructured: {out['pcg_iters']} iterations")
+
+
+def _ex_elasticity_1m():
+    """examples/elasticity_1m.py at its default n = 69 (1,029,000 DOFs,
+    fp32, block-Jacobi PCG to 1e-5): converged in 278 +- 5% iterations
+    with an error <= 7.8e-4 (the TPU's 278 and 7.4e-4); the per-iteration
+    time by the rep-difference over cg_fixed."""
+    out, _ = _example("elasticity_1m", [])
+    ref = TPU_ELASTICITY_1M
+    check(out["num_dofs"] == 1_029_000 and out["converged"]
+          and _near(out["pcg_iters"], ref["pcg_iters"], 0.05),
+          f"ex_elasticity_1m: {out['pcg_iters']} iterations")
+    check(out["rel_l2_error_vs_exact"] <= 7.8e-4,
+          f"ex_elasticity_1m: error {out['rel_l2_error_vs_exact']:.4e}")
+    return out
+
+
+def _ex_generic_assembly_20m():
+    """examples/generic_assembly_20m.py at its default --nx 10000 --ny
+    1000 (20,000,000 triangles, 10,011,001 rows, fp32, 8 chunks): the two
+    golden checks, the scatter and sorted reductions within 1e-4 of max
+    |a|, and max |row sum| / max |a| < 1e-5."""
+    out, _ = _example("generic_assembly_20m", [])
+    scale = float(out["data"].abs().max())
+    check(out["elements"] == 20_000_000
+          and out["max_abs_diff_sort_scatter"] <= 1e-4 * scale
+          and out["max_rel_row_sum"] < 1e-5,
+          f"ex_generic_assembly_20m: sort vs scatter "
+          f"{out['max_abs_diff_sort_scatter']}, row sums "
+          f"{out['max_rel_row_sum']}")
+    return out
+
+
+def _example_paths(counters, records):
+    """One path per example (ex_<name>), with the kernels each must
+    launch; the three rates worth keeping printed beside the card."""
+    kept = {}
+
+    def keep(key, drive):
+        def run():
+            kept[key] = drive()
+        return run
+
+    for name, drive, must in (
+            ("reduction_bench", keep("reduction", _ex_reduction_bench),
+             ("B14",)),
+            ("poisson_2d", _ex_poisson_2d, ("B9",)),
+            ("heat_equation", _ex_heat_equation, ("B9",)),
+            ("poisson_3d_multigrid", _ex_poisson_3d_multigrid,
+             ("K2", "B4")),
+            ("poisson_10m", _ex_poisson_10m, ("K1", "K2", "K3", "K4")),
+            ("unstructured_1m", _ex_unstructured_1m, ("B9",)),
+            ("dist_amg_demo", _ex_dist_amg_demo, ()),
+            ("elasticity_unstructured", _ex_elasticity_unstructured,
+             ("B12",)),
+            ("elasticity_1m", keep("elasticity", _ex_elasticity_1m), ()),
+            ("generic_assembly_20m", keep("assembly",
+                                          _ex_generic_assembly_20m), ())):
+        _run_path(f"ex_{name}", counters, records, drive, must)
+    red, ela, asm = kept["reduction"], kept["elasticity"], kept["assembly"]
+    print(f"# ex records ({_card()}): reduction_bench B14 block sum "
+          f"{red['bandwidth_gbs']:.1f} GB/s ({red['hbm_fraction']:.3f} of "
+          f"3.35 TB/s); generic_assembly_20m {asm['elements_per_sec']:.0f} "
+          f"elements/s scatter, {asm['sort_elements_per_sec']:.0f} sorted, "
+          f"{asm['emit_elements_per_sec']:.0f} emit-only; elasticity_1m "
+          f"{ela['pcg_iter_ms']:.4f} ms per PCG iteration")
+
+
+def _card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
 
 
 if __name__ == "__main__":

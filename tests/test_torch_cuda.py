@@ -2529,3 +2529,61 @@ def test_stokes_cavity_on_the_card_matches_the_cpu(dev, monkeypatch, dtype,
     for a, c in ((card.u, cpu.u), (card.p, cpu.p)):
         assert a.dtype == dtype and a.is_cuda
         assert (a.cpu() - c).abs().max() <= rel * c.abs().max()
+
+
+def test_device_seconds_per_rep_agrees_with_cuda_events(dev):
+    """utils.timing's rep-difference over a loop of B14 block sums lies
+    within a factor 2 of the CUDA events' median time of one block sum, on
+    a 256 MB vector: large enough that the device, not the host's four
+    launches a repetition, sets a repetition's time (on examples/
+    reduction_bench.py's 64 MB the loop is host-bound)."""
+    from tpufem_torch.ops.reduction import block_reduce
+    from tpufem_torch.utils.timing import cuda_ms, device_seconds_per_rep
+
+    n = 1 << 26
+    x = torch.rand(n, device=dev)
+
+    def sum_many(reps):
+        acc = torch.zeros((), device=dev)
+        for _ in range(reps):
+            acc = acc * 0.0 + block_reduce(x, block=n // 8)
+        return acc
+
+    before = block_reduce.launches
+    per_rep_ms = device_seconds_per_rep(sum_many, reps_low=10,
+                                        reps_high=210) * 1e3
+    assert block_reduce.launches > before
+    event_ms = cuda_ms(lambda: block_reduce(x, block=n // 8))
+    assert 0.5 * event_ms <= per_rep_ms <= 2.0 * event_ms, (per_rep_ms,
+                                                            event_ms)
+
+
+def test_loaded_ell_system_launches_b9(dev, tmp_path, monkeypatch):
+    """A system saved by io.checkpoint on the host and loaded onto the
+    card: its product is the banded ELL kernel (B9; the plain versions
+    refused) and equals the host product."""
+    from tpufem_torch.assemble.ell import assemble_ell
+    from tpufem_torch.assemble.local import p1_stiffness
+    from tpufem_torch.fem.elements import P1Triangle
+    from tpufem_torch.io.checkpoint import load_system, save_system
+    from tpufem_torch.mesh.adjacency import ell_pattern
+    from tpufem_torch.mesh.rectangle import rectangle_mesh
+    from tpufem_torch.sparse import ell_cuda
+
+    mesh = rectangle_mesh(-1.0, 1.0, -1.0, 1.0, 40, 40)
+    pat = ell_pattern(mesh.conn, mesh.num_nodes, pad_to=8)
+    A = assemble_ell(pat, p1_stiffness(torch.as_tensor(
+        mesh.element_coords(), dtype=torch.float32), P1Triangle()))
+    b = torch.rand(mesh.num_nodes)
+    path = str(tmp_path / "system.npz")
+    save_system(path, A, b, level=0)
+    A_dev, b_dev, extras = load_system(path, device=dev)
+    assert A_dev.data.is_cuda and b_dev.is_cuda and int(extras["level"]) == 0
+    ref = A.matvec(b)
+    for plain in ("ell_band_matvec_plain", "ell_gather_matvec_plain"):
+        monkeypatch.setattr(ell_cuda, plain, _refuse_plain)
+    before = ell_cuda.ell_matvec_cuda.launches
+    y = A_dev.matvec(b_dev)
+    torch.cuda.synchronize()
+    assert ell_cuda.ell_matvec_cuda.launches == before + 1
+    _close(y.cpu(), ref, torch.float32)

@@ -44,6 +44,12 @@ def _one_blas_thread():
 
 REPO = Path(__file__).resolve().parent.parent
 
+# the JAX package's examples/ that the port runs as tpufem_torch.examples.*
+_EXAMPLES = ("reduction_bench", "poisson_2d", "heat_equation",
+             "poisson_3d_multigrid", "poisson_10m", "unstructured_1m",
+             "dist_amg_demo", "elasticity_unstructured", "elasticity_1m",
+             "generic_assembly_20m")
+
 _PORT_MODULES = [
     "tpufem_torch", "tpufem_torch.convert",
     "tpufem_torch.assemble.planar", "tpufem_torch.assemble.structured",
@@ -79,6 +85,11 @@ _PORT_MODULES = [
     "tpufem_torch.solve.newton", "tpufem_torch.solve.dynamics",
     "tpufem_torch.solve.eigen", "tpufem_torch.solve.minres",
     "tpufem_torch.solve.stokes",
+    "tpufem_torch.utils.logging", "tpufem_torch.utils.debug",
+    "tpufem_torch.utils.profiling", "tpufem_torch.io.checkpoint",
+    "tpufem_torch.config", "tpufem_torch.examples",
+    "tpufem_torch.examples._common",
+    *[f"tpufem_torch.examples.{name}" for name in _EXAMPLES],
     "chip_smoke",
 ]
 
@@ -253,6 +264,58 @@ def _members():
         for name in names]
     pairs += _a3_members()
     pairs += _a4_members()
+    pairs += _a5_members()
+    return pairs
+
+
+# the auxiliaries (A5): every name of the JAX module's __all__; classes by
+# their public methods or dataclass fields
+_A5_MODULES = ("utils.timing", "utils.logging", "utils.debug",
+               "utils.profiling", "io.checkpoint", "config")
+# members that place tensors and add the port's keyword-only device=
+_A5_DEVICE = {"load_system", "load_solution"}
+
+
+def _a5_members():
+    import importlib
+
+    pairs = []
+    for name in _A5_MODULES:
+        port = importlib.import_module(f"tpufem_torch.{name}")
+        ref = importlib.import_module(f"tpufem.{name}")
+        names = [n for n in ref.__all__ if not n.startswith("V5E_")]
+        assert set(names) <= set(port.__all__), name
+        for n in names:
+            p, r = getattr(port, n), getattr(ref, n)
+            if dataclasses.is_dataclass(r):
+                assert [(f.name, f.default) for f in dataclasses.fields(p)] \
+                    == [(f.name, f.default) for f in dataclasses.fields(r)], n
+                pairs += [(getattr(p, m), getattr(r, m)) for m in vars(r)
+                          if callable(getattr(r, m)) and not m.startswith("_")]
+            elif isinstance(r, type):
+                pairs += [(getattr(p, m), getattr(r, m)) for m in vars(r)
+                          if callable(getattr(r, m))]
+            elif n not in _A5_DEVICE:
+                pairs.append((p, r))
+    # the examples' entry points: main(argv=None) everywhere (the JAX
+    # elasticity_1m and reduction_bench read sys.argv), and the helpers
+    # other examples import
+    import examples.elasticity_unstructured as jel
+    import examples.unstructured_1m as jun
+
+    from tpufem_torch.examples import elasticity_unstructured as el
+    from tpufem_torch.examples import unstructured_1m as un
+
+    pairs += [(un.rcm_renumber, jun.rcm_renumber),
+              (el.body_force, jel.body_force)]
+    for name in _EXAMPLES:
+        port = importlib.import_module(f"tpufem_torch.examples.{name}")
+        ref = importlib.import_module(f"examples.{name}")
+        if name in ("elasticity_1m", "reduction_bench"):
+            assert not inspect.signature(ref.main).parameters
+            assert list(inspect.signature(port.main).parameters) == ["argv"]
+        else:
+            pairs.append((port.main, ref.main))
     return pairs
 
 
@@ -368,7 +431,10 @@ def test_ported_members_keep_the_reference_signatures():
     from tpufem.solve import eigen as jeig
     from tpufem.solve import stokes as jst
 
+    from tpufem.io import checkpoint as jck
+
     from tpufem_torch.forms.weakform import integrate_boundary
+    from tpufem_torch.io import checkpoint as ck
     from tpufem_torch.solve import dynamics, eigen, stokes
 
     for port, ref in ((integrate_boundary, jax_ib),
@@ -376,7 +442,9 @@ def test_ported_members_keep_the_reference_signatures():
                       (eigen.subspace_stepper, jeig.subspace_stepper),
                       (eigen.smallest_eigenpairs, jeig.smallest_eigenpairs),
                       (stokes.build_stokes, jst.build_stokes),
-                      (stokes.solve_stokes, jst.solve_stokes)):
+                      (stokes.solve_stokes, jst.solve_stokes),
+                      (ck.load_system, jck.load_system),
+                      (ck.load_solution, jck.load_solution)):
         assert as_ref(port, require_device=True) == shape(ref), \
             port.__qualname__
     # build_velocity_amg: the device= goes before the trailing **amg_kw

@@ -32,7 +32,10 @@ sharded fused build on kernel B8, the distributed multigrid and AMG), and
 the physics solvers: matrix-free Newton-Krylov (``solve.newton``),
 explicit leapfrog dynamics (``solve.dynamics``), modal analysis by
 subspace iteration (``solve.eigen``, on ``solve.cg.cg_fixed_block``), and
-MINRES with Taylor-Hood Stokes (``solve.minres``, ``solve.stokes``).
+MINRES with Taylor-Hood Stokes (``solve.minres``, ``solve.stokes``); the
+auxiliaries (``config``, ``utils.logging``, ``utils.debug``,
+``utils.profiling``, ``utils.timing``, ``io.checkpoint``) and ten of the
+JAX package's examples as modules of ``tpufem_torch.examples``.
 
 The package root exports the meshes, spaces, rules, ``cg`` and the matrix
 classes, and resolves the heavier entry points lazily, as the JAX
