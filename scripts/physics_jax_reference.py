@@ -3,6 +3,9 @@ and stokes paths, in fp32 (x64 off, as the TPU ran them), the XLA gather
 products (TPUFEM_BAND_DISPATCH=0).
 
     python scripts/physics_jax_reference.py nonlinear 512   # 263,169 DOFs
+    python scripts/physics_jax_reference.py nonlinear_amg 512
+    python scripts/physics_jax_reference.py nonlinear_steps 512 amg
+    python scripts/physics_jax_reference.py modal_serial 300  # 90,601 DOFs
     python scripts/physics_jax_reference.py wave 1000       # 1,002,001 DOFs
     python scripts/physics_jax_reference.py wave 250 ops.npz
     python scripts/physics_jax_reference.py stokes 180      # 260,642 + 32,761
@@ -10,7 +13,16 @@ products (TPUFEM_BAND_DISPATCH=0).
 
 
 Each prints one JSON line.  nonlinear: examples/nonlinear_poisson.py's own
-line (Newton steps, inner CG iterations, relres, rel L2 error).  wave:
+line (Newton steps, inner CG iterations, relres, rel L2 error);
+nonlinear_amg: the same with ``--precond amg`` (the frozen interval-W AMG
+of the linear part).  nonlinear_steps: each Newton step's inner CG
+iterations and Eisenstat-Walker tolerance (a line each) of the JAX
+example's run and of the port's (tpufem_torch.examples.nonlinear_poisson
+on the CPU), with ``--precond`` the third argument; each example runs its
+solve twice, so each prints its steps twice.  modal_serial: examples/modal_analysis.py's own line
+with ``--serial`` (column-serial AMG-PCG inner solves, mixed precision:
+its eigenvalues, their error against the analytic ones and the max
+residual).  wave:
 examples/wave_equation.py's steps of one period of the (1,1) mode on the
 unit square (the weak form's ELL stiffness, the lumped mass, stable_dt's
 step, leapfrog_wave) with its energy drift and period-return error at
@@ -103,6 +115,37 @@ def wave(cells, cast, ops=None):
             "wall_s": round(wall, 2)}
 
 
+def nonlinear_steps(n, precond):
+    """Each Newton step's inner CG count and tolerance, in both packages'
+    nonlinear_poisson examples (their ``cg`` wrapped in their newton
+    modules)."""
+    import torch
+
+    from examples.nonlinear_poisson import main as jax_main
+    from tpufem.solve import newton as jnewton
+    from tpufem_torch.examples.nonlinear_poisson import main as port_main
+    from tpufem_torch.solve import newton as tnewton
+
+    jcg, tcg = jnewton.cg, tnewton.cg
+
+    def jax_cg(*args, **kw):
+        res = jcg(*args, **kw)
+        jax.debug.print("jax inner {i} tol {t}", i=res.iterations,
+                        t=kw["tol"])
+        return res
+
+    def port_cg(*args, **kw):
+        res = tcg(*args, **kw)
+        print(f"port inner {res.iterations} tol {float(kw['tol'])}")
+        return res
+
+    jnewton.cg, tnewton.cg = jax_cg, port_cg
+    argv = ["--n", str(n), "--precond", precond]
+    jax_main(argv + ["--interpret"])
+    torch.set_num_threads(4)
+    port_main(argv + ["--device", "cpu"])
+
+
 def _lid(X):
     """examples/stokes_cavity.py's regularized lid."""
     on_top = (np.abs(X[..., 1] - 1.0) < 1e-12).astype(float)
@@ -145,6 +188,16 @@ def main():
         from examples.nonlinear_poisson import main as run
 
         run(["--n", str(n), "--interpret"])
+    elif case == "nonlinear_amg":
+        from examples.nonlinear_poisson import main as run
+
+        run(["--n", str(n), "--precond", "amg", "--interpret"])
+    elif case == "nonlinear_steps":
+        nonlinear_steps(n, sys.argv[3])
+    elif case == "modal_serial":
+        from examples.modal_analysis import main as run
+
+        run(["--n", str(n), "--serial", "--interpret"])
     elif case == "wave":
         ops = {} if len(sys.argv) > 3 else None
         for cast in (False, True):

@@ -48,7 +48,11 @@ REPO = Path(__file__).resolve().parent.parent
 _EXAMPLES = ("reduction_bench", "poisson_2d", "heat_equation",
              "poisson_3d_multigrid", "poisson_10m", "unstructured_1m",
              "dist_amg_demo", "elasticity_unstructured", "elasticity_1m",
-             "generic_assembly_20m")
+             "generic_assembly_20m", "nonlinear_poisson", "wave_equation",
+             "modal_analysis", "stokes_cavity", "saxpy_cuda")
+# the JAX example each port example differs from in name (saxpy_cuda is
+# the Pallas example's counterpart)
+_JAX_EXAMPLE = {"saxpy_cuda": "saxpy_pallas"}
 
 _PORT_MODULES = [
     "tpufem_torch", "tpufem_torch.convert",
@@ -126,7 +130,8 @@ def test_port_imports_no_jax():
         "assert not _build._LOADED, _build._LOADED\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'jaxlib' or m == 'tpufem' or "
-        "m.startswith('tpufem.'))\n"
+        "m.startswith('tpufem.') or m == 'examples' or "
+        "m.startswith('examples.'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -298,20 +303,25 @@ def _a5_members():
             elif n not in _A5_DEVICE:
                 pairs.append((p, r))
     # the examples' entry points: main(argv=None) everywhere (the JAX
-    # elasticity_1m and reduction_bench read sys.argv), and the helpers
-    # other examples import
+    # elasticity_1m and reduction_bench read sys.argv, saxpy_pallas takes
+    # no flags), and the helpers other examples import
     import examples.elasticity_unstructured as jel
     import examples.unstructured_1m as jun
 
     from tpufem_torch.examples import elasticity_unstructured as el
     from tpufem_torch.examples import unstructured_1m as un
 
+    import examples.stokes_cavity as jsc
+
+    from tpufem_torch.examples import stokes_cavity as sc
+
     pairs += [(un.rcm_renumber, jun.rcm_renumber),
-              (el.body_force, jel.body_force)]
+              (el.body_force, jel.body_force), (sc.lid, jsc.lid)]
     for name in _EXAMPLES:
         port = importlib.import_module(f"tpufem_torch.examples.{name}")
-        ref = importlib.import_module(f"examples.{name}")
-        if name in ("elasticity_1m", "reduction_bench"):
+        ref = importlib.import_module(
+            f"examples.{_JAX_EXAMPLE.get(name, name)}")
+        if name in ("elasticity_1m", "reduction_bench", "saxpy_cuda"):
             assert not inspect.signature(ref.main).parameters
             assert list(inspect.signature(port.main).parameters) == ["argv"]
         else:
